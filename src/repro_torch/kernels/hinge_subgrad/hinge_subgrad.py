@@ -1,0 +1,151 @@
+"""Wrappers of the dense Pegasos kernels: ``fleet_half_step``, ``margins``
+and ``grad_update`` (CUDA source: ``csrc/hinge_subgrad.cu``).
+
+Each function here takes a plain PyTorch version (``*_plain``) for tensors
+on the CPU, and launches its CUDA kernel for tensors on a CUDA device after
+checking device, dtype, shape and contiguity; anything else raises. A launch
+adds one to the wrapper's ``launches`` attribute, and nothing else does.
+
+``scal`` is the pair ``(s0, s1) = (λα, α/B)`` with α = 1/(λt), as Python
+floats holding float32 values (``ops.step_scalars`` forms them). The output
+is ``(1 − s0)·w + s1·(coeffᵀX)`` with ``1 − s0`` rounded to float32, as the
+reference computes it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["fleet_half_step", "margins", "grad_update",
+           "fleet_half_step_plain", "margins_plain", "grad_update_plain"]
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "hinge_subgrad.cu"
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fleet_half_step": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "margins": [_P, _P, _P, _P, _I, _I, _P],
+    "grad_update": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+}
+# one block's shared memory holds the (B,) coefficients of fleet_half_step
+_MAX_FLEET_B = 227 * 1024 // 4
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load(_SOURCE, _SIGNATURES)
+
+
+def _f32_pair(scal) -> tuple[float, float]:
+    s0, s1 = scal
+    return float(np.float32(s0)), float(np.float32(s1))
+
+
+def _one_minus(s0: float) -> float:
+    return float(np.float32(1.0) - np.float32(s0))
+
+
+# ------------------------------------------------------------ fleet_half_step
+
+def fleet_half_step_plain(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
+                          row_mask: torch.Tensor, scal) -> torch.Tensor:
+    """Plain PyTorch fleet half-step: per node i, m = y_i·(X_i w_i),
+    coeff = 1[m<1]·y_i·row_mask, W_half_i = (1 − s0)w_i + s1·coeffᵀX_i."""
+    s0, s1 = _f32_pair(scal)
+    m = y * torch.einsum("mbd,md->mb", X, W)
+    coeff = torch.where(m < 1.0, y, torch.zeros_like(y)) * row_mask
+    g = torch.einsum("mb,mbd->md", coeff, X)
+    return _one_minus(s0) * W + s1 * g
+
+
+def fleet_half_step(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
+                    row_mask: torch.Tensor, scal) -> torch.Tensor:
+    """GADGET steps (a)-(e) for all m nodes in one launch.
+
+    X: (m, B, d) per-node minibatch tiles, W: (m, d), y: (m, B),
+    row_mask: (B,) float validity of the rows, ``scal`` = (λα, α/B).
+    Returns W_half (m, d). No ball projection (``ops.fleet_half_step`` does it).
+    """
+    if _build.on_cpu(X, W, y, row_mask):
+        return fleet_half_step_plain(X, W, y, row_mask, scal)
+    m, B, d = X.shape
+    _build.check_tensor("X", X, (m, B, d))
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("y", y, (m, B))
+    _build.check_tensor("row_mask", row_mask, (B,))
+    if not 1 <= B <= _MAX_FLEET_B:
+        raise ValueError(f"fleet_half_step takes 1 <= B <= {_MAX_FLEET_B}, got B={B}")
+    s0, s1 = _f32_pair(scal)
+    out = torch.empty_like(W)
+    with torch.cuda.device(X.device):
+        code = _lib().fleet_half_step(
+            X.data_ptr(), W.data_ptr(), y.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
+            m, B, d, s0, s1, _build.stream(X))
+    _build.check(code, "fleet_half_step")
+    fleet_half_step.launches += 1
+    return out
+
+
+fleet_half_step.launches = 0
+
+
+# -------------------------------------------------------------------- margins
+
+def margins_plain(X: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch margins y·(X w). X: (B, d), w: (d,), y: (B,)."""
+    return y * (X @ w)
+
+
+def margins(X: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y·(X w) for one node's (B, d) minibatch, one launch. Returns (B,)."""
+    if _build.on_cpu(X, w, y):
+        return margins_plain(X, w, y)
+    B, d = X.shape
+    _build.check_tensor("X", X, (B, d))
+    _build.check_tensor("w", w, (d,))
+    _build.check_tensor("y", y, (B,))
+    out = torch.empty((B,), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        code = _lib().margins(X.data_ptr(), w.data_ptr(), y.data_ptr(), out.data_ptr(),
+                              B, d, _build.stream(X))
+    _build.check(code, "margins")
+    margins.launches += 1
+    return out
+
+
+margins.launches = 0
+
+
+# ---------------------------------------------------------------- grad_update
+
+def grad_update_plain(X: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
+                      scal) -> torch.Tensor:
+    """Plain PyTorch (1 − s0)·w + s1·(coeffᵀX). X: (B, d), w: (d,), coeff: (B,)."""
+    s0, s1 = _f32_pair(scal)
+    return _one_minus(s0) * w + s1 * (coeff @ X)
+
+
+def grad_update(X: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
+                scal) -> torch.Tensor:
+    """(1 − s0)·w + s1·(coeffᵀX) in one launch, ``scal`` = (λα, α/B).
+    Returns (d,)."""
+    if _build.on_cpu(X, w, coeff):
+        return grad_update_plain(X, w, coeff, scal)
+    B, d = X.shape
+    _build.check_tensor("X", X, (B, d))
+    _build.check_tensor("w", w, (d,))
+    _build.check_tensor("coeff", coeff, (B,))
+    s0, s1 = _f32_pair(scal)
+    out = torch.empty((d,), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        code = _lib().grad_update(X.data_ptr(), w.data_ptr(), coeff.data_ptr(),
+                                  out.data_ptr(), B, d, s0, s1, _build.stream(X))
+    _build.check(code, "grad_update")
+    grad_update.launches += 1
+    return out
+
+
+grad_update.launches = 0

@@ -1,0 +1,52 @@
+"""Import rules of the port: no JAX and nothing of ``repro`` anywhere in
+``repro_torch`` or ``chip_smoke.py``, and no silent CPU fallback."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)", re.M)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+assert not leaked, leaked
+print(len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module of the slice was imported
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_jax_or_repro_import(path):
+    assert not FORBIDDEN.findall(path.read_text()), path
+
+
+def test_gadget_train_without_card_raises(monkeypatch):
+    from repro_torch.core.gadget import GadgetConfig, gadget_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((2, 3, 4), np.float32)
+    y = np.ones((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gadget_train(X, y, GadgetConfig(max_iters=2))
+    gadget_train(X, y, GadgetConfig(max_iters=2), device="cpu")  # asking for the CPU works
