@@ -7,11 +7,14 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
-3. kernels: each of the four kernels against its plain PyTorch version on the
-   card, at the shapes of the main path and at one ragged shape, and
-   against itself (two runs, bit for bit), with times
-   of the kernel, the plain version and the one PyTorch call that computes
-   the same function (timed here only; the port never calls it);
+3. kernels: each of the eight kernels against its plain PyTorch version on
+   the card, at the shapes of its main path and at ragged shapes (for the
+   sparse kernels: pad entries, a pad row, an all-pad node, and a touched-
+   block map one slot too short), and against itself (two runs, bit for
+   bit), with times of the kernel, the plain version and, where one exists,
+   the one PyTorch call that computes the same function (timed here only;
+   the port never calls it). The sparse kernels' main-path inputs are a
+   minibatch of the CCAT partitions of phase 7, generated here;
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
    fused), then the test set scored with ``dense_predict``; held to test
@@ -21,7 +24,19 @@ Phases, each of which exits non-zero on failure:
 6. whole path against the CPU: 200 iterations of the phase 4 config on the
    card with its draws recorded, replayed with ``device="cpu"`` (the plain
    versions), W within 1e-4 and the objective trace within 1e-5 relative;
-7. a ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
+7. sparse main path: GADGET on CCAT as ELL planes at full width
+   (d = 47,236, k = 76; rows cut to scale 0.1) with the paper's CCAT config
+   and ``sparse_schedule="auto"``, which must resolve to the prefetch pair
+   at blk_d = 128; ``ell_margins_prefetch`` and ``ell_grad_update_prefetch``
+   launched once per iteration, held to the quality limits below;
+8. sweep path: the same data with ``sparse_schedule="sweep"`` for 400
+   iterations, ``ell_margins`` and ``ell_grad_update`` once per iteration;
+9. sparse parity: 200 iterations of the phase 7 config on the card against
+   their CPU replay (W within 1e-4, objective 1e-5 relative), prefetch
+   against sweep on the card on the same draws (W within 1e-5), and reuters'
+   ELL planes against their dense form on the same draws (consensus within
+   1e-5);
+10. a ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 It needs one CUDA card and the ``src/`` tree beside it, imports nothing of
 JAX or of the JAX package, and exits non-zero without printing a result
@@ -44,17 +59,28 @@ KERNEL_RTOL = 1e-5          # max |kernel − plain| / max(1, max |plain|)
 PATH_W_ATOL = 1e-4          # phase 6: card against CPU, 200 iterations
 PATH_OBJ_RTOL = 1e-5
 MIN_ACCURACY, MAX_OBJECTIVE = 0.72, 0.50
+SPARSE_PARITY_ATOL = 1e-5   # phase 9: prefetch against sweep, ELL against dense
+# phase 7 limits, from tools/reference_quality.py (the JAX reference on the
+# CPU, same data and config, draw seeds 0 and 1): see PERF.md
+CCAT_MIN_ACCURACY, CCAT_MAX_OBJECTIVE = 0.72, 0.70
+CCAT_SCALE = 0.1
 SOURCE_DIR = "src/repro_torch/kernels/hinge_subgrad/csrc"
 REPLACES = {
     "fleet_half_step": "src/repro/kernels/hinge_subgrad/hinge_subgrad.py:106",
     "margins": "src/repro/kernels/hinge_subgrad/hinge_subgrad.py:63",
     "grad_update": "src/repro/kernels/hinge_subgrad/hinge_subgrad.py:151",
     "dense_scores": "src/repro/kernels/hinge_subgrad/predict.py:88",
+    "ell_margins": "src/repro/kernels/hinge_subgrad/sparse.py:100",
+    "ell_grad_update": "src/repro/kernels/hinge_subgrad/sparse.py:138",
+    "ell_margins_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:210",
+    "ell_grad_update_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:259",
 }
-# the paper's reuters run: PAPER_RUNS["reuters"] of the JAX package's
-# configs/gadget_svm.py (Table 2 λ, k = 10 nodes, ε = 1e-3)
+KERNELS = tuple(REPLACES)
+# the paper's reuters and CCAT runs: PAPER_RUNS["reuters"] and ["ccat"] of
+# the JAX package's configs/gadget_svm.py (Table 2 λ, k = 10 nodes, ε = 1e-3)
 REUTERS = dict(lam=1.29e-4, batch_size=1, gossip_rounds=4, topology="random",
                epsilon=1e-3, check_every=200, max_iters=4000, seed=0)
+CCAT = dict(REUTERS, lam=1e-4, sparse_schedule="auto")
 N_NODES = 10
 
 
@@ -213,6 +239,132 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
     return results
 
 
+def ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=0):
+    """One CCAT minibatch as ``gadget_train`` draws it at B = 1: a uniform
+    valid row of every node, as (cols, vals, y) of shapes (m, 1, k) and (m, 1)."""
+    rng = np.random.default_rng(seed)
+    m = parts.cols.shape[0]
+    rows = np.array([rng.integers(0, c) for c in n_counts])
+    node = np.arange(m)
+    return (torch.from_numpy(parts.cols[node, rows][:, None]).to(dev),
+            torch.from_numpy(parts.vals[node, rows][:, None]).to(dev),
+            torch.from_numpy(y_parts[node, rows][:, None]).to(dev))
+
+
+def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
+    """The four sparse kernels against their plain versions at the CCAT main
+    path's shape (a real minibatch, its touched-block map at the data's
+    bound) and at a ragged shape with pad entries, a pad row, an all-pad
+    node, and the map at the sound cap and one slot short; times at the
+    main path's shape."""
+    parts, y_parts, n_counts = ccat
+    cols, vals, y = ccat_minibatch(torch, parts, y_parts, n_counts, dev)
+    m, B, k = cols.shape
+    d = parts.d
+    W = 3 * torch.randn(m, d, generator=gen, device=dev)  # some rows violate, some not
+    sched, blk_pf, n_blocks_max = ops.resolve_ell_schedule(
+        "auto", B=B, k=k, d=d, n_blocks_max=parts.block_bound(B))
+    _, blk_sw, _ = ops.resolve_ell_schedule("sweep", B=B, k=k, d=d)
+    require((sched, blk_pf) == ("prefetch", 128), f"CCAT resolves to {sched}, blk_d {blk_pf}")
+    nd = -(-d // blk_pf)
+    bids = ops.ell_block_map(cols, vals, blk_d=blk_pf, n_d_blocks=nd, n_blocks_max=n_blocks_max)
+    scal = ops.step_scalars(CCAT["lam"], 1000, B)
+
+    # ragged: (m, B, k, d) = (3, 5, 13, 1001), 25% pad entries, row 2 a pad
+    # row, node 1 all pads (its map all sentinel)
+    rm, rB, rk, rd = 3, 5, 13, 1001
+    rcols = torch.randint(0, rd, (rm, rB, rk), generator=gen, device=dev, dtype=torch.int32)
+    rvals = torch.rand(rm, rB, rk, generator=gen, device=dev)
+    pad = torch.rand(rm, rB, rk, generator=gen, device=dev) < 0.25
+    rcols[pad], rvals[pad] = 0, 0.0
+    ry = torch.where(torch.rand(rm, rB, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    rcols[:, 2], rvals[:, 2], ry[:, 2] = 0, 0.0, 0.0
+    rcols[1], rvals[1], ry[1] = 0, 0.0, 0.0
+    rvals = rvals / torch.clamp(torch.linalg.vector_norm(rvals, dim=-1, keepdim=True), min=1e-8)
+    rW = 3 * torch.randn(rm, rd, generator=gen, device=dev)
+    rnd = -(-rd // blk_pf)
+    live = max(len(torch.unique(c[v != 0] // blk_pf)) for c, v in zip(rcols, rvals))
+    rbids = ops.ell_block_map(rcols, rvals, blk_d=blk_pf, n_d_blocks=rnd, n_blocks_max=live)
+    rcut = ops.ell_block_map(rcols, rvals, blk_d=blk_pf, n_d_blocks=rnd, n_blocks_max=live - 1)
+    rscal = ops.step_scalars(CCAT["lam"], 1000, rB)
+
+    def coeff_of(W_, cols_, vals_, y_):
+        mg = S.ell_margins_plain(cols_, vals_, W_, y_)
+        return torch.where(mg < 1.0, y_, torch.zeros_like(y_))
+    coeff, rcoeff = coeff_of(W, cols, vals, y), coeff_of(rW, rcols, rvals, ry)
+
+    def margins_pf(blk, n_d):
+        return (lambda c, v, w, yy, b: S.ell_margins_prefetch(c, v, w, yy, b, blk_d=blk, n_d_blocks=n_d),
+                lambda c, v, w, yy, b: S.ell_margins_prefetch_plain(c, v, w, yy, b, blk_d=blk,
+                                                                    n_d_blocks=n_d))
+
+    def grad_pf(blk, n_d):
+        return (lambda c, v, cf, b: S.ell_grad_update_prefetch(c, v, cf, b, blk_d=blk, n_d_blocks=n_d),
+                lambda c, v, cf, b: S.ell_grad_update_prefetch_plain(c, v, cf, b, blk_d=blk,
+                                                                     n_d_blocks=n_d))
+    main_shape = f"cols ({m}, {B}, {k}), W ({m}, {d})"
+    cases = {
+        "ell_margins": dict(
+            run=(S.ell_margins, S.ell_margins_plain), inputs={
+                "main": (cols, vals, W, y), "ragged": (rcols, rvals, rW, ry)},
+            cost=ops.launch_cost("ell_margins", m=m, B=B, k=k), shape=main_shape),
+        "ell_grad_update": dict(
+            run=(lambda *a: S.ell_grad_update(*a, blk_d=blk_sw), S.ell_grad_update_plain), inputs={
+                "main": (cols, vals, W, coeff, scal), "ragged": (rcols, rvals, rW, rcoeff, rscal)},
+            cost=ops.launch_cost("ell_grad_update", m=m, B=B, k=k, d=d),
+            shape=f"{main_shape}, blk_d {blk_sw}"),
+        "ell_margins_prefetch": dict(
+            run=margins_pf(blk_pf, nd), inputs={
+                "main": (cols, vals, W, y, bids), "ragged": (rcols, rvals, rW, ry, rbids),
+                "undersized": (rcols, rvals, rW, ry, rcut)},
+            ragged_run=margins_pf(blk_pf, rnd),
+            cost=ops.launch_cost("ell_margins_prefetch", m=m, B=B, k=k, n_blocks_max=n_blocks_max),
+            shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
+        "ell_grad_update_prefetch": dict(
+            run=grad_pf(blk_pf, nd), inputs={
+                "main": (cols, vals, coeff, bids), "ragged": (rcols, rvals, rcoeff, rbids),
+                "undersized": (rcols, rvals, rcoeff, rcut)},
+            ragged_run=grad_pf(blk_pf, rnd),
+            cost=ops.launch_cost("ell_grad_update_prefetch", m=m, B=B, k=k,
+                                 n_blocks_max=n_blocks_max, blk_d=blk_pf),
+            shape=f"{main_shape}, map ({m}, {n_blocks_max}), G ({m}, {n_blocks_max}, {blk_pf})"),
+    }
+    # the short map really loses entries, or the undersized case tests nothing
+    cut = S.ell_margins_prefetch_plain(rcols, rvals, rW, ry, rcut, blk_d=blk_pf, n_d_blocks=rnd)
+    require(not torch.allclose(cut, S.ell_margins_plain(rcols, rvals, rW, ry)),
+            "the undersized map dropped no entry")
+    require(bool((rbids[1] == rnd).all()), "the all-pad node's map is not all sentinel")
+
+    results = {}
+    for name, case in cases.items():
+        errs = {}
+        for which, args in case["inputs"].items():
+            kernel, plain = case["run"] if which == "main" else case.get("ragged_run", case["run"])
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape, f"{name} {which}: shape {tuple(got.shape)}")
+            require(bool(torch.isfinite(got).all()), f"{name} non-finite ({which})")
+            errs[which] = rel_err(got, want)
+            require(errs[which][1] <= KERNEL_RTOL,
+                    f"{name} {which}: kernel against plain rel err {errs[which][1]:.3e}")
+        kernel, plain = case["run"]
+        args = case["inputs"]["main"]
+        require(torch.equal(kernel(*args), kernel(*args)),
+                f"{name}: two runs on the same inputs differ")
+        ms = device_ms(torch, lambda: kernel(*args), 200)
+        plain_ms = device_ms(torch, lambda: plain(*args), 200)
+        bound_ms, bound_by = bound(case["cost"])
+        results[name] = dict(max_abs_err=errs["main"][0],
+                             ragged_max_abs_err=max(e[0] for w, e in errs.items() if w != "main"),
+                             ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bound_ms, bound_by=bound_by, shape=case["shape"])
+        log(f"  {name:24s} {case['shape']}: err {errs['main'][0]:.3e} ("
+            + ", ".join(f"{w} {e[0]:.3e}" for w, e in errs.items() if w != "main")
+            + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library -, "
+            f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return results
+
+
 def profile_iterations(torch, run) -> dict:
     """Device time by kernel and host time by operator over ``run()``, from
     torch.profiler. Only device-side events (kernels, copies) count as
@@ -235,16 +387,21 @@ def profile_iterations(torch, run) -> dict:
             "top_host": [(e.key[:70], e.count, e.self_cpu_time_total) for e in on_host[:8]]}
 
 
-def reset_counts(K, P) -> None:
+def wrappers(K, P, S) -> tuple:
+    """Every kernel wrapper of the port, in the order of ``KERNELS``."""
+    return (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores, S.ell_margins,
+            S.ell_grad_update, S.ell_margins_prefetch, S.ell_grad_update_prefetch)
+
+
+def reset_counts(K, P, S) -> None:
     """Set every kernel's launch count to 0."""
-    for fn in (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores):
+    for fn in wrappers(K, P, S):
         fn.launches = 0
 
 
-def counts(K, P) -> dict:
+def counts(K, P, S) -> dict:
     """Every kernel's launch count, by name."""
-    return {fn.__name__: fn.launches
-            for fn in (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores)}
+    return {fn.__name__: fn.launches for fn in wrappers(K, P, S)}
 
 
 def main() -> int:
@@ -266,6 +423,9 @@ def main() -> int:
     from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
     from repro_torch.kernels.hinge_subgrad import ops
     from repro_torch.kernels.hinge_subgrad import predict as P
+    from repro_torch.kernels.hinge_subgrad import ref as R
+    from repro_torch.kernels.hinge_subgrad import sparse as S
+    from repro_torch.sparse.formats import ELL
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -287,6 +447,14 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = phase_kernels(torch, K, P, ops, gen, dev)
+    t0 = time.perf_counter()
+    ds_c = make_dataset("ccat", scale=CCAT_SCALE, seed=0, sparse=True)
+    gen_s = time.perf_counter() - t0
+    ccat = partition(ds_c.X_train, ds_c.y_train, N_NODES, seed=0)
+    log(f"  CCAT at scale {CCAT_SCALE}: train {ds_c.X_train.shape} (k = {ds_c.X_train.k_max}), "
+        f"test {ds_c.X_test.shape}, generated in {gen_s:.1f} s, partitions "
+        f"{tuple(ccat[0].cols.shape)}, block bound at B=1: {ccat[0].block_bound(1)}")
+    kernels.update(phase_sparse_kernels(torch, S, ops, ccat, gen, dev))
 
     log("phase 4: main path, reuters at full size, fused")
     t0 = time.perf_counter()
@@ -301,7 +469,7 @@ def main() -> int:
     gadget_train(X_dev, y_dev, cfg._replace(max_iters=20, check_every=10),
                  n_counts=n_counts, device=dev)  # warm-up: cuBLAS and the libraries
     torch.cuda.synchronize()
-    reset_counts(K, P)
+    reset_counts(K, P, S)
     t0 = time.perf_counter()
     res = gadget_train(X_dev, y_dev, cfg, n_counts=n_counts, device=dev)
     torch.cuda.synchronize()
@@ -310,7 +478,7 @@ def main() -> int:
     _, pred = ops.dense_predict(res.w_consensus, Xte)
     acc = float((pred == yte).to(torch.float32).mean())
     score_s = time.perf_counter() - t0
-    main_counts = counts(K, P)
+    main_counts = counts(K, P, S)
     objective = float(res.objective_trace[-1])
     log(f"  {res.iters} iterations in {train_s:.3f} s ({res.iters / train_s:.1f} it/s), "
         f"objective {objective:.4f}, test accuracy {acc:.4f} (scored in {score_s * 1e3:.1f} ms), "
@@ -342,12 +510,12 @@ def main() -> int:
 
     log("phase 5: unfused path, 400 iterations")
     cfg_u = cfg._replace(fused=False, max_iters=400)
-    reset_counts(K, P)
+    reset_counts(K, P, S)
     t0 = time.perf_counter()
     res_u = gadget_train(X_dev, y_dev, cfg_u, n_counts=n_counts, device=dev)
     torch.cuda.synchronize()
     unfused_s = time.perf_counter() - t0
-    unfused_counts = counts(K, P)
+    unfused_counts = counts(K, P, S)
     log(f"  {res_u.iters} iterations in {unfused_s:.3f} s ({res_u.iters / unfused_s:.1f} it/s), "
         f"objective {float(res_u.objective_trace[-1]):.4f}, launches {unfused_counts}")
     require(bool(torch.isfinite(res_u.W).all()), "unfused W not finite")
@@ -357,18 +525,26 @@ def main() -> int:
     require(unfused_counts["fleet_half_step"] == 0, "the unfused path launched the fleet kernel")
 
     log("phase 6: whole path on the card against the CPU, 200 iterations")
-    cfg_6 = cfg._replace(max_iters=200)
-    live = GeneratorDraws(cfg_6.seed)
-    taken = []
 
     class Recording:
+        """The port's own draws, kept for a replay through ``RecordedDraws``."""
+
+        def __init__(self, seed):
+            self.live, self.taken = GeneratorDraws(seed), []
+
         def take(self, t0, n, plan):
-            ids, mix = live.take(t0, n, plan)
-            taken.append((ids.cpu(), mix.cpu()))
+            ids, mix = self.live.take(t0, n, plan)
+            self.taken.append((ids.cpu(), mix.cpu()))
             return ids, mix
 
-    res_gpu = gadget_train(X_dev, y_dev, cfg_6, n_counts=n_counts, device=dev, draws=Recording())
-    replay = RecordedDraws(torch.cat([i for i, _ in taken]), torch.cat([m for _, m in taken]))
+        def replay(self):
+            return RecordedDraws(torch.cat([i for i, _ in self.taken]),
+                                 torch.cat([m for _, m in self.taken]))
+
+    cfg_6 = cfg._replace(max_iters=200)
+    recorded = Recording(cfg_6.seed)
+    res_gpu = gadget_train(X_dev, y_dev, cfg_6, n_counts=n_counts, device=dev, draws=recorded)
+    replay = recorded.replay()
     t0 = time.perf_counter()
     res_cpu = gadget_train(Xp, yp, cfg_6, n_counts=n_counts, device="cpu", draws=replay)
     cpu_s = time.perf_counter() - t0
@@ -381,25 +557,144 @@ def main() -> int:
     require(w_err <= PATH_W_ATOL, f"W differs by {w_err:.3e}")
     require(obj_err <= PATH_OBJ_RTOL, f"objective trace differs by {obj_err:.3e}")
 
-    log("phase 7: summary")
+    log("phase 7: sparse main path, CCAT as ELL planes at full width")
+    parts_c, y_c, n_c = ccat
+    cfg_c = GadgetConfig(**CCAT)
+    k_c = parts_c.cols.shape[-1]
+    schedule = ops.resolve_ell_schedule("auto", B=cfg_c.batch_size, k=k_c, d=parts_c.d,
+                                        n_blocks_max=parts_c.block_bound(cfg_c.batch_size))
+    log(f"  auto schedule at B={cfg_c.batch_size}, k={k_c}, d={parts_c.d}: {schedule[0]}, "
+        f"blk_d {schedule[1]}, n_blocks_max {schedule[2]}")
+    require(schedule[:2] == ("prefetch", 128), f"auto resolved to {schedule}")
+    cols_te = torch.from_numpy(ds_c.X_test.cols).to(dev)
+    vals_te = torch.from_numpy(ds_c.X_test.vals).to(dev)
+    y_te = torch.from_numpy(ds_c.y_test).to(dev)
+    gadget_train(parts_c, y_c, cfg_c._replace(max_iters=20, check_every=10), n_counts=n_c,
+                 device=dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(K, P, S)
+    t0 = time.perf_counter()
+    res_c = gadget_train(parts_c, y_c, cfg_c, n_counts=n_c, device=dev)
+    torch.cuda.synchronize()
+    sparse_s = time.perf_counter() - t0
+    sparse_counts = counts(K, P, S)
+    scores = R.ell_matvec_flat(res_c.w_consensus, cols_te, vals_te)
+    acc_c = float((torch.where(scores >= 0.0, 1.0, -1.0) == y_te).to(torch.float32).mean())
+    obj_c = float(res_c.objective_trace[-1])
+    log(f"  {res_c.iters} iterations in {sparse_s:.3f} s ({res_c.iters / sparse_s:.1f} it/s), "
+        f"objective {obj_c:.4f}, test accuracy {acc_c:.4f}, eps {res_c.epsilon:.3e}, "
+        f"launches {sparse_counts}")
+    require(res_c.W.shape == (N_NODES, parts_c.d) and bool(torch.isfinite(res_c.W).all()),
+            "sparse W not finite or misshaped")
+    require(acc_c >= CCAT_MIN_ACCURACY, f"CCAT test accuracy {acc_c:.4f} < {CCAT_MIN_ACCURACY}")
+    require(obj_c <= CCAT_MAX_OBJECTIVE, f"CCAT objective {obj_c:.4f} > {CCAT_MAX_OBJECTIVE}")
+    for name in KERNELS:
+        want = res_c.iters if name in ("ell_margins_prefetch", "ell_grad_update_prefetch") else 0
+        require(sparse_counts[name] == want,
+                f"{name} launched {sparse_counts[name]} times in {res_c.iters} sparse iterations")
+    prof_c = profile_iterations(torch, lambda: gadget_train(
+        parts_c, y_c, cfg_c._replace(max_iters=n_prof), n_counts=n_c, device=dev))
+    device_us_c = prof_c["device_us"] / n_prof
+    host_us_c = sparse_s / res_c.iters * 1e6
+    busy_c = device_us_c / host_us_c
+    log(f"  profile of {n_prof} iterations: device {device_us_c:.1f} us/iteration against "
+        f"{host_us_c:.1f} us/iteration of wall time unprofiled: device busy {busy_c:.3f}")
+    for key, count, us in prof_c["top_device"]:
+        log(f"    device {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
+    for key, count, us in prof_c["top_host"]:
+        log(f"    host   {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
+    require(device_us_c > 0, "the profiled sparse window ran nothing on the device")
+
+    log("phase 8: sweep path, 400 iterations")
+    cfg_sw = cfg_c._replace(sparse_schedule="sweep", max_iters=400)
+    reset_counts(K, P, S)
+    t0 = time.perf_counter()
+    res_sw = gadget_train(parts_c, y_c, cfg_sw, n_counts=n_c, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = counts(K, P, S)
+    log(f"  {res_sw.iters} iterations in {sweep_s:.3f} s ({res_sw.iters / sweep_s:.1f} it/s), "
+        f"objective {float(res_sw.objective_trace[-1]):.4f}, launches {sweep_counts}")
+    require(bool(torch.isfinite(res_sw.W).all()), "sweep W not finite")
+    for name in KERNELS:
+        want = res_sw.iters if name in ("ell_margins", "ell_grad_update") else 0
+        require(sweep_counts[name] == want,
+                f"{name} launched {sweep_counts[name]} times in {res_sw.iters} sweep iterations")
+
+    log("phase 9: sparse parity, 200 iterations each")
+    cfg_9 = cfg_c._replace(max_iters=200)
+    recorded_c = Recording(cfg_9.seed)
+    res_pf = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device=dev, draws=recorded_c)
+    replay_c = recorded_c.replay()
+    t0 = time.perf_counter()
+    res_pf_cpu = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device="cpu", draws=replay_c)
+    cpu_c_s = time.perf_counter() - t0
+    w_err_c = float((res_pf.W.cpu() - res_pf_cpu.W).abs().max())
+    obj_err_c = float(np.max(np.abs(res_pf.objective_trace - res_pf_cpu.objective_trace)
+                              / np.abs(res_pf_cpu.objective_trace)))
+    res_sw9 = gadget_train(parts_c, y_c, cfg_9._replace(sparse_schedule="sweep"), n_counts=n_c,
+                           device=dev, draws=replay_c)
+    sched_err = float((res_pf.W - res_sw9.W).abs().max())
+    log(f"  CCAT card against CPU: W max abs err {w_err_c:.3e} (<= {PATH_W_ATOL}), objective "
+        f"rel err {obj_err_c:.3e} (<= {PATH_OBJ_RTOL}), CPU run {cpu_c_s:.1f} s; prefetch "
+        f"against sweep on the card: W {sched_err:.3e} (<= {SPARSE_PARITY_ATOL})")
+    require(res_pf.iters == res_pf_cpu.iters == res_sw9.iters == 200, "iteration counts differ")
+    require(w_err_c <= PATH_W_ATOL, f"sparse W differs from its CPU replay by {w_err_c:.3e}")
+    require(obj_err_c <= PATH_OBJ_RTOL, f"sparse objective trace differs by {obj_err_c:.3e}")
+    require(sched_err <= SPARSE_PARITY_ATOL, f"prefetch and sweep differ by {sched_err:.3e}")
+
+    ds_r = make_dataset("reuters", scale=1.0, seed=0, sparse=True)
+    parts_r, y_r, n_r = partition(ds_r.X_train, ds_r.y_train, N_NODES, seed=0)
+    X_r = torch.from_numpy(np.stack([ELL(c, v, (c.shape[0], parts_r.d)).to_dense()
+                                     for c, v in zip(parts_r.cols, parts_r.vals)])).to(dev)
+    cfg_r = cfg._replace(max_iters=200)
+    recorded_r = Recording(cfg_r.seed)
+    res_ell = gadget_train(parts_r, y_r, cfg_r, n_counts=n_r, device=dev, draws=recorded_r)
+    res_dense = gadget_train(X_r, y_r, cfg_r, n_counts=n_r, device=dev,
+                             draws=recorded_r.replay())
+    ell_err = float((res_ell.w_consensus - res_dense.w_consensus).abs().max())
+    log(f"  reuters ELL {tuple(parts_r.cols.shape)} against its dense form: consensus max abs "
+        f"err {ell_err:.3e} (<= {SPARSE_PARITY_ATOL})")
+    require(ell_err <= SPARSE_PARITY_ATOL, f"ELL and dense consensus differ by {ell_err:.3e}")
+
+    log("phase 10: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
-                "grad_update": unfused_counts["grad_update"]}
+                "grad_update": unfused_counts["grad_update"],
+                "ell_margins_prefetch": sparse_counts["ell_margins_prefetch"],
+                "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
+                "ell_margins": sweep_counts["ell_margins"],
+                "ell_grad_update": sweep_counts["ell_grad_update"]}
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
-             "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)"}
+             "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
+             "ell_margins_prefetch": "sparse training, auto = prefetch (phase 7)",
+             "ell_grad_update_prefetch": "sparse training, auto = prefetch (phase 7)",
+             "ell_margins": "sparse training, sweep (phase 8)",
+             "ell_grad_update": "sparse training, sweep (phase 8)"}
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
-               "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu"}
+               "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
+               **{name: "sparse.cu" for name in KERNELS if name.startswith("ell_")}}
     line = {"kernels": [dict(name=name, route="cuda", source=f"{SOURCE_DIR}/{sources[name]}",
                              replaces=REPLACES[name], launches=launches[name], path=paths[name],
                              tolerance=f"rel {KERNEL_RTOL}", **kernels[name])
-                        for name in ("fleet_half_step", "margins", "grad_update", "dense_scores")],
+                        for name in KERNELS],
             "main_path": {"iters": res.iters, "train_s": train_s, "iters_per_s": res.iters / train_s,
                           "test_accuracy": acc, "objective": objective,
                           "device_us_per_iter": device_us, "host_us_per_iter": host_us,
                           "device_busy_share": busy,
                           "unfused_iters_per_s": res_u.iters / unfused_s,
                           "cpu_parity_w_err": w_err, "cpu_parity_obj_rel_err": obj_err},
+            "sparse_path": {"dataset": f"ccat scale {CCAT_SCALE}", "generate_s": gen_s,
+                            "schedule": list(schedule), "iters": res_c.iters,
+                            "train_s": sparse_s, "iters_per_s": res_c.iters / sparse_s,
+                            "test_accuracy": acc_c, "objective": obj_c,
+                            "device_us_per_iter": device_us_c, "host_us_per_iter": host_us_c,
+                            "device_busy_share": busy_c,
+                            "sweep_iters_per_s": res_sw.iters / sweep_s,
+                            "cpu_parity_w_err": w_err_c, "cpu_parity_obj_rel_err": obj_err_c,
+                            "prefetch_vs_sweep_w_err": sched_err,
+                            "reuters_ell_vs_dense_err": ell_err},
             "total_s": time.perf_counter() - t_all}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
-"""GADGET SVM — Gossip-bAseD sub-GradiEnT solver (paper Algorithm 2), dense.
+"""GADGET SVM — Gossip-bAseD sub-GradiEnT solver (paper Algorithm 2).
 
-Port of ``repro.core.gadget.gadget_train`` for dense (m, n_i, d) partitions.
-Every node i holds a horizontal partition and a weight vector ŵ_i; one
-iteration t:
+Port of ``repro.core.gadget.gadget_train`` for dense (m, n_i, d) partitions
+and for padded-ELL partitions (``EllPartitions``). Every node i holds a
+horizontal partition and a weight vector ŵ_i; one iteration t:
 
   (a-c)  sample a local minibatch, L̂_i = mean_{violators} y·x under ŵ_i
   (d)    α_t = 1/(λt)
@@ -14,7 +14,10 @@ iteration t:
 With ``cfg.fused`` (the default) steps (a)-(e) for all m nodes are one
 ``fleet_half_step`` launch and the R Push-Sum rounds are one collapsed
 (m, m) product; ``fused=False`` runs ``margins`` + ``grad_update`` per node
-and the R rounds in order. Push-Sum pushes n_i·w̃_i with mass n_i, so the
+and the R rounds in order. On ELL partitions steps (a)-(e) are always
+fleet-wide (``ops.ell_fleet_half_step``: two launches, the sweep or the
+touched-block pair per ``cfg.sparse_schedule``), and ``fused`` selects only
+the mixing. Push-Sum pushes n_i·w̃_i with mass n_i, so the
 consensus is the data-weighted mean Σ n_i ŵ_i / N, also under non-uniform
 ``n_counts``.
 
@@ -40,6 +43,7 @@ from repro_torch.core import svm_objective as obj
 from repro_torch.core import topology as topo
 from repro_torch.core.push_sum import collapse_rounds, mix_collapsed, mix_rounds
 from repro_torch.kernels.hinge_subgrad import ops
+from repro_torch.sparse.formats import minibatch_block_bound
 
 __all__ = ["GadgetConfig", "GadgetResult", "NonFiniteWeightsError", "DrawPlan",
            "GeneratorDraws", "RecordedDraws", "gadget_train"]
@@ -65,8 +69,10 @@ class NonFiniteWeightsError(FloatingPointError):
 
 class GadgetConfig(NamedTuple):
     """Hyperparameters of one GADGET run, with the reference's names and
-    defaults. ``faults`` must stay None in this port (fault injection is a
-    later slice)."""
+    defaults. ``sparse_schedule`` ("auto", "prefetch" or "sweep") picks the
+    sparse kernel pair on ELL partitions and is ignored on dense ones.
+    ``faults`` must stay None in this port (fault injection is a later
+    slice)."""
 
     lam: float = 1e-4            # λ — SVM regularization
     batch_size: int = 1          # local examples per sub-gradient estimate
@@ -79,11 +85,14 @@ class GadgetConfig(NamedTuple):
     max_iters: int = 5000
     seed: int = 0                # seeds the default GeneratorDraws
     fused: bool = True           # one fleet launch + one collapsed mix
+    sparse_schedule: str = "auto"  # ELL kernel pair: auto | prefetch | sweep
     faults: object | None = None
 
 
 class GadgetResult(NamedTuple):
-    """What :func:`gadget_train` returns; fields as in the reference."""
+    """What :func:`gadget_train` returns; fields as in the reference, for
+    dense and ELL partitions alike. ``snapshots`` and ``telemetry`` stay
+    None until the port's anytime-export slice."""
 
     W: torch.Tensor              # (m, d) final per-node weights
     w_consensus: torch.Tensor    # (d,) data-weighted network average
@@ -177,16 +186,50 @@ class RecordedDraws:
         return ids[s], None if mix is None else mix[s]
 
 
-def _refuse_later_slices(X_parts, cfg: GadgetConfig, snapshot_every, telemetry) -> None:
-    if hasattr(X_parts, "cols") and hasattr(X_parts, "vals"):
-        raise NotImplementedError("ELL (sparse) partitions come with the port's "
-                                  "sparse slice; this slice trains dense partitions")
+def _refuse_later_slices(cfg: GadgetConfig, snapshot_every, telemetry) -> None:
     if cfg.faults is not None:
         raise NotImplementedError("cfg.faults comes with the port's fault slice")
     if snapshot_every is not None:
         raise NotImplementedError("snapshot_every comes with the port's anytime-export slice")
     if telemetry is not None:
         raise NotImplementedError("telemetry comes with the port's anytime-export slice")
+
+
+def _unpack_partitions(X_parts, y_parts, device: torch.device):
+    """``(X, y, m, n_i, d)`` on the device: X is the dense (m, n_i, d) float32
+    tensor, or the ``(cols int32, vals float32)`` pair of (m, n_i, k) planes
+    when the caller passed ELL partitions (duck-typed on ``.cols``,
+    ``.vals`` and ``.d``, so the reference's ``EllPartitions`` trains too)."""
+    y = _as_f32(y_parts, device)
+    if hasattr(X_parts, "cols") and hasattr(X_parts, "vals"):
+        cols = X_parts.cols
+        cols = cols if isinstance(cols, torch.Tensor) else torch.from_numpy(np.asarray(cols))
+        cols = cols.to(device=device, dtype=torch.int32).contiguous()
+        vals = _as_f32(X_parts.vals, device)
+        if cols.ndim != 3 or vals.shape != cols.shape or y.shape != cols.shape[:2]:
+            raise ValueError(f"need ELL planes (m, n_i, k) and y (m, n_i), got cols "
+                             f"{tuple(cols.shape)}, vals {tuple(vals.shape)}, y {tuple(y.shape)}")
+        m, n_i, _ = cols.shape
+        return (cols, vals), y, m, n_i, int(X_parts.d)
+    X = _as_f32(X_parts, device)
+    if X.ndim != 3 or y.shape != X.shape[:2]:
+        raise ValueError(f"need X (m, n_i, d) and y (m, n_i), got "
+                         f"{tuple(X.shape)} and {tuple(y.shape)}")
+    m, n_i, d = X.shape
+    return X, y, m, n_i, d
+
+
+def _sparse_block_bound(cfg: GadgetConfig, X_parts, X) -> int | None:
+    """Static n_blocks_max cap of the prefetch schedule, derived on the host
+    from the partition planes. None for dense data and for the sweep
+    schedule, which consume no bound."""
+    if not isinstance(X, tuple) or cfg.sparse_schedule == "sweep":
+        return None
+    if hasattr(X_parts, "block_bound"):  # EllPartitions caches its row counts
+        return X_parts.block_bound(cfg.batch_size)
+    cols, vals = np.asarray(X_parts.cols), np.asarray(X_parts.vals)
+    return minibatch_block_bound(cols.reshape(cols.shape[0], -1, cols.shape[-1]), vals,
+                                 cfg.batch_size, d=int(X_parts.d))
 
 
 def _partition_counts(m: int, n_i: int, n_counts) -> np.ndarray:
@@ -221,16 +264,28 @@ def _mixing_cycle(cfg: GadgetConfig, m: int, device: torch.device) -> torch.Tens
 
 
 def _gossip_step(cfg: GadgetConfig, X, y, counts_f, total, node_index, row_mask,
-                 ids, W, Bs, t: int):
-    """Steps (a)-(h) for all m nodes at iteration t. ``Bs`` is the collapsed
-    (m, m) product (fused) or the (R, m, m) round stack. Returns the new
-    weights and the iteration's Push-Sum mass retention Σ wts / Σ n_i."""
-    Xb, yb = X[node_index, ids], y[node_index, ids]
-    if cfg.fused:
+                 ids, W, Bs, t: int, block_bound: int | None = None):
+    """Steps (a)-(h) for all m nodes at iteration t. ``X`` is the dense
+    (m, n_i, d) tensor or the (cols, vals) pair of ELL planes; ``Bs`` is the
+    collapsed (m, m) product (fused) or the (R, m, m) round stack;
+    ``block_bound`` the prefetch schedule's static n_blocks_max. Returns the
+    new weights and the iteration's Push-Sum mass retention Σ wts / Σ n_i."""
+    yb = y[node_index, ids]
+    if isinstance(X, tuple):
+        # sparse: the half-step is fleet-wide whether fused or not; fused
+        # selects only the mixing below
+        W_half = ops.ell_fleet_half_step(W, X[0][node_index, ids], X[1][node_index, ids],
+                                         yb, lam=cfg.lam, t=t,
+                                         project=cfg.project_before_gossip,
+                                         schedule=cfg.sparse_schedule,
+                                         n_blocks_max=block_bound)
+    elif cfg.fused:
+        Xb = X[node_index, ids]
         W_half = ops.fleet_half_step(W, Xb, yb, lam=cfg.lam, t=t,
                                      project=cfg.project_before_gossip,
                                      row_mask=row_mask)
     else:
+        Xb = X[node_index, ids]
         W_half = torch.stack([
             ops.local_half_step(W[i], Xb[i], yb[i], lam=cfg.lam, t=t,
                                 project=cfg.project_before_gossip)
@@ -250,27 +305,25 @@ def gadget_train(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
                  telemetry=None) -> GadgetResult:
     """GADGET over m simulated nodes on one device.
 
-    X_parts: (m, n_i, d) dense partitions and y_parts: (m, n_i) labels, as
-    numpy arrays or tensors. ``n_counts`` (m,): per-node valid-row counts of
+    X_parts: (m, n_i, d) dense partitions as a numpy array or tensor, or ELL
+    partitions (``repro_torch.sparse.EllPartitions`` or any object with
+    (m, n_i, k) ``.cols`` and ``.vals`` planes and ``.d``); y_parts: (m, n_i)
+    labels. ``n_counts`` (m,): per-node valid-row counts of
     partitions padded to a common n_i; padded rows must carry y=0, are never
     sampled, carry no Push-Sum mass and are left out of the consensus and
     the objective. ``device``: CUDA unless given. ``draws``: the randomness
     source, ``GeneratorDraws(cfg.seed)`` unless given.
 
-    ELL partitions, ``cfg.faults``, ``snapshot_every`` and ``telemetry``
-    raise ``NotImplementedError``: later slices of the port bring them.
+    ``cfg.faults``, ``snapshot_every`` and ``telemetry`` raise
+    ``NotImplementedError``: later slices of the port bring them.
     """
-    _refuse_later_slices(X_parts, cfg, snapshot_every, telemetry)
+    _refuse_later_slices(cfg, snapshot_every, telemetry)
     if cfg.topology not in topo.TOPOLOGIES:
         raise ValueError(f"unknown topology {cfg.topology!r}")
     dev = resolve_device(device)
-    X = _as_f32(X_parts, dev)
-    y = _as_f32(y_parts, dev)
-    if X.ndim != 3 or y.shape != X.shape[:2]:
-        raise ValueError(f"need X (m, n_i, d) and y (m, n_i), got "
-                         f"{tuple(X.shape)} and {tuple(y.shape)}")
-    m, n_i, d = X.shape
+    X, y, m, n_i, d = _unpack_partitions(X_parts, y_parts, dev)
     counts = _partition_counts(m, n_i, n_counts)
+    block_bound = _sparse_block_bound(cfg, X_parts, X)
 
     if cfg.max_iters <= 0:  # zero-iteration call: the initial state
         zeros = torch.zeros((m, d), dtype=torch.float32, device=dev)
@@ -283,8 +336,19 @@ def gadget_train(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
     counts_i = torch.from_numpy(counts).to(dev)
     counts_f = counts_i.to(torch.float32)
     total = counts_f.sum()
-    X_flat, y_flat = X.reshape(m * n_i, d), y.reshape(m * n_i)
+    y_flat = y.reshape(m * n_i)
     valid = (torch.arange(n_i, device=dev)[None, :] < counts_i[:, None]).reshape(-1)
+    if isinstance(X, tuple):  # ELL planes: the full-data pass is a gather-dot
+        cols_flat, vals_flat = X[0].reshape(m * n_i, -1), X[1].reshape(m * n_i, -1)
+
+        def objective_of(w):
+            return obj.primal_objective_masked_ell(w, cols_flat, vals_flat, y_flat,
+                                                   cfg.lam, valid, total)
+    else:
+        X_flat = X.reshape(m * n_i, d)
+
+        def objective_of(w):
+            return obj.primal_objective_masked(w, X_flat, y_flat, cfg.lam, valid, total)
     node_index = torch.arange(m, device=dev)[:, None]
     row_mask = torch.ones((cfg.batch_size,), dtype=torch.float32, device=dev)
     plan = DrawPlan(m, cfg.batch_size, cfg.gossip_rounds, cfg.topology, cfg.fused,
@@ -310,7 +374,7 @@ def gadget_train(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
         for k in range(n_active):
             Bs = mix[k] if mix is not None else cycle[(t - 1) % cycle.shape[0]]
             W, mass = _gossip_step(cfg, X, y, counts_f, total, node_index, row_mask,
-                                   ids[k], W, Bs, t)
+                                   ids[k], W, Bs, t, block_bound)
             W_sum += W
             masses.append(mass)
             t += 1
@@ -322,7 +386,7 @@ def gadget_train(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
         w_cons = consensus_of(W)
         reading = torch.stack([
             torch.linalg.vector_norm(W - W_prev, dim=1).max(),
-            obj.primal_objective_masked(w_cons, X_flat, y_flat, cfg.lam, valid, total),
+            objective_of(w_cons),
             mass_min,
             torch.isfinite(w_cons.sum()).to(torch.float32),
         ]).tolist()  # the chunk's one host sync

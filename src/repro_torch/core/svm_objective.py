@@ -1,7 +1,7 @@
 """Primal linear-SVM objective, hinge loss and Pegasos sub-gradient.
 
-Port of ``repro.core.svm_objective`` (dense functions). Objective (paper
-Eq. 1): f(w) = (λ/2)‖w‖² + (1/N) Σ_j max{0, 1 − y_j⟨w, x_j⟩}.
+Port of ``repro.core.svm_objective``. Objective (paper Eq. 1):
+f(w) = (λ/2)‖w‖² + (1/N) Σ_j max{0, 1 − y_j⟨w, x_j⟩}.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ __all__ = [
     "hinge_loss",
     "primal_objective",
     "primal_objective_masked",
+    "primal_objective_masked_ell",
     "hinge_subgradient",
     "pegasos_update",
     "project_ball",
@@ -47,6 +48,18 @@ def primal_objective_masked(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
     counts).
     """
     margins = y * (X @ w)
+    hinge = torch.where(valid, torch.clamp(1.0 - margins, min=0.0),
+                        torch.zeros_like(margins)).sum() / total
+    return 0.5 * lam * torch.dot(w, w) + hinge
+
+
+def primal_objective_masked_ell(w: torch.Tensor, cols: torch.Tensor,
+                                vals: torch.Tensor, y: torch.Tensor, lam: float,
+                                valid: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``primal_objective_masked`` over padded-ELL planes (N, k): the margins
+    are a gather-dot against w, dense X is never formed. Pad entries
+    (col=0, val=0) are inert; pad rows are left out through ``valid``."""
+    margins = y * (vals * w[cols]).sum(dim=-1)
     hinge = torch.where(valid, torch.clamp(1.0 - margins, min=0.0),
                         torch.zeros_like(margins)).sum() / total
     return 0.5 * lam * torch.dot(w, w) + hinge

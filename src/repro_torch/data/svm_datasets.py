@@ -1,13 +1,16 @@
-"""Synthetic SVM datasets with the signature of the paper's benchmarks (dense).
+"""Synthetic SVM datasets with the signature of the paper's benchmarks.
 
-A copy of the dense path of ``repro.data.svm_datasets`` (the port imports
-nothing of ``repro``): the same generator on the same numpy streams, so
-``make_dataset(name, scale, seed)`` returns bit-identical arrays in both
-packages, and ``partition`` splits them identically. The six datasets of
-the paper's Table 2 are regenerated with matching (N_train, N_test, d,
+A copy of ``repro.data.svm_datasets`` (the port imports nothing of
+``repro``): the same generator on the same numpy streams, so
+``make_dataset(name, scale, seed, sparse)`` returns bit-identical arrays in
+both packages, and ``partition`` splits them identically. The six datasets
+of the paper's Table 2 are regenerated with matching (N_train, N_test, d,
 sparsity, λ); ``scale`` shrinks the row counts and keeps d and sparsity.
-Sparse features come out as dense arrays with zeros here; the ELL planes
-come with the port's sparse slice.
+
+``sparse=True`` (sparse specs only) draws :class:`~repro_torch.sparse.ELL`
+planes directly, per row, so the dense matrix never exists: full-shape CCAT
+(781,265 × 47,236 at 0.16% nonzeros) is about 0.5 GB of planes against
+about 147 GB dense.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import zlib
 from dataclasses import dataclass
 
 import numpy as np
+
+from repro_torch.sparse.formats import ELL, EllPartitions, partition_rows
 
 __all__ = ["DatasetSpec", "SVMDataset", "PAPER_DATASETS", "make_dataset",
            "partition", "partition_rows"]
@@ -57,12 +62,12 @@ PAPER_DATASETS: dict[str, DatasetSpec] = {
 
 @dataclass
 class SVMDataset:
-    """One generated dataset: dense float32 features and ±1 labels."""
+    """One generated dataset: float32 features, dense or ELL, and ±1 labels."""
 
     name: str
-    X_train: np.ndarray          # (n_train, d) float32
+    X_train: "np.ndarray | ELL"  # (n_train, d) float32, dense or ELL planes
     y_train: np.ndarray          # (n_train,)  float32 in {-1, +1}
-    X_test: np.ndarray
+    X_test: "np.ndarray | ELL"
     y_test: np.ndarray
     lam: float
 
@@ -70,6 +75,11 @@ class SVMDataset:
     def d(self) -> int:
         """Feature dimension."""
         return self.X_train.shape[1]
+
+    @property
+    def sparse(self) -> bool:
+        """True when the features are ELL planes."""
+        return isinstance(self.X_train, ELL)
 
 
 def _sample_cols(rng: np.random.Generator, n: int, nnz: int, d: int,
@@ -151,54 +161,59 @@ def _gen_split(spec: DatasetSpec, n: int, w_star: np.ndarray, rng: np.random.Gen
     return X, _labels_for(X @ w_star, spec, rng)
 
 
-def make_dataset(name: str, scale: float = 1.0, seed: int = 0) -> SVMDataset:
-    """Build a paper-signature dataset with dense features. ``scale`` < 1
-    shrinks the row counts (to at least 64 each)."""
+def _gen_split_ell(spec: DatasetSpec, n: int, w_star: np.ndarray,
+                   rng: np.random.Generator) -> tuple[ELL, np.ndarray]:
+    """ELL twin of :func:`_gen_split`: the same feature model (nonnegative
+    values, unit rows, quantile-thresholded labels) drawn directly as
+    (n, nnz) column and value planes."""
+    d = spec.d
+    nnz = max(1, int(round(spec.sparsity * d)))
+    cols = np.sort(_sample_cols(rng, n, nnz, d, spec.col_skew), axis=1).astype(np.int32)
+    vals = np.abs(rng.normal(0.0, 1.0, size=(n, nnz)).astype(np.float32))
+    vals /= np.maximum(np.linalg.norm(vals, axis=1, keepdims=True), 1e-8)
+    # chunked gather-dot keeps the transient at (chunk, nnz)
+    margin = np.empty(n, np.float32)
+    step = max(1, (1 << 24) // max(nnz, 1))
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        margin[s:e] = np.einsum("rk,rk->r", vals[s:e], w_star[cols[s:e]])
+    return ELL(cols, vals, (n, d)), _labels_for(margin, spec, rng)
+
+
+def make_dataset(name: str, scale: float = 1.0, seed: int = 0,
+                 sparse: bool = False) -> SVMDataset:
+    """Build a paper-signature dataset. ``scale`` < 1 shrinks the row counts
+    (to at least 64 each). ``sparse=True`` returns ELL feature planes and
+    is refused for dense specs."""
     spec = PAPER_DATASETS[name]
+    if sparse and spec.sparsity >= 1.0:
+        raise ValueError(f"dataset {name!r} is dense (sparsity=1.0); "
+                         "sparse=True only applies to sparse specs")
     # crc32, not hash(): string hashing is randomized per process
     rng = np.random.default_rng((seed, zlib.crc32(name.encode()) & 0xFFFF))
     w_star = rng.normal(size=spec.d).astype(np.float32)
     if spec.sparsity < 1.0:
         w_star = np.abs(w_star)  # nonneg features need signed-balance via threshold
+    gen = _gen_split_ell if sparse else _gen_split
     n_tr = max(64, int(spec.n_train * scale))
     n_te = max(64, int(spec.n_test * scale))
-    X_tr, y_tr = _gen_split(spec, n_tr, w_star, rng)
-    X_te, y_te = _gen_split(spec, n_te, w_star, rng)
+    X_tr, y_tr = gen(spec, n_tr, w_star, rng)
+    X_te, y_te = gen(spec, n_te, w_star, rng)
     return SVMDataset(name, X_tr, y_tr, X_te, y_te, spec.lam)
 
 
-def partition_rows(n: int, m: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray, int]:
-    """Shuffled near-equal split of n rows over m nodes.
-
-    Returns ``(idx, counts, n_i)``: a permutation of ``arange(n)`` laid out so
-    node i owns ``idx[i*n_i : i*n_i + counts[i]]``, per-node valid counts
-    summing to exactly n, and the common padded length ``n_i = ceil(n/m)``.
-    The first ``n % m`` nodes hold one extra row.
-    """
-    if n < m:
-        raise ValueError(f"cannot partition {n} rows over {m} nodes")
-    rng = np.random.default_rng(seed)
-    perm = rng.permutation(n)
-    q, r = divmod(n, m)
-    counts = np.full(m, q, np.int64)
-    counts[:r] += 1
-    n_i = q + (1 if r else 0)
-    # pad slots point at row perm[0]; callers zero them out
-    idx = np.zeros(m * n_i, np.int64)
-    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    for i in range(m):
-        idx[i * n_i: i * n_i + counts[i]] = perm[offsets[i]: offsets[i] + counts[i]]
-    return idx, counts, n_i
-
-
-def partition(X: np.ndarray, y: np.ndarray, m: int, seed: int = 0):
+def partition(X, y: np.ndarray, m: int, seed: int = 0):
     """Horizontal partition over m nodes: shuffle, split into near-equal
     chunks, and pad the last chunks with X=0, y=0 rows.
 
-    Returns ``(X_parts (m, n_i, d), y_parts (m, n_i), n_counts (m,))``;
-    ``n_counts`` goes straight into ``gadget_train(n_counts=...)``.
+    Returns ``(X_parts, y_parts (m, n_i), n_counts (m,))``, where X_parts is
+    an (m, n_i, d) array for dense X and an :class:`EllPartitions` for
+    :class:`ELL` input; ``n_counts`` goes straight into
+    ``gadget_train(n_counts=...)``. The row permutation depends only on
+    ``(len(y), m, seed)``, so a dense matrix and its ELL planes partition
+    identically.
     """
-    X, y = np.asarray(X), np.asarray(y)
+    y = np.asarray(y)
     idx, counts, n_i = partition_rows(len(y), m, seed)
 
     def zero_pads(parts):
@@ -207,4 +222,10 @@ def partition(X: np.ndarray, y: np.ndarray, m: int, seed: int = 0):
         return parts
 
     y_parts = zero_pads(y[idx].reshape(m, n_i).copy())
+    if isinstance(X, ELL):
+        return (EllPartitions(zero_pads(X.cols[idx].reshape(m, n_i, -1)),
+                              zero_pads(X.vals[idx].reshape(m, n_i, -1)),
+                              X.shape[1]),
+                y_parts, counts)
+    X = np.asarray(X)
     return zero_pads(X[idx].reshape(m, n_i, X.shape[1])), y_parts, counts

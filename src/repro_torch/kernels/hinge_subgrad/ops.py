@@ -1,14 +1,18 @@
-"""Dispatch layer over the dense kernels: the Pegasos half-step for one node
-or for the whole fleet, the Pegasos step with its loss, and fused serving
-scores. Port of the dense part of ``repro.kernels.hinge_subgrad.ops``.
+"""Dispatch layer over the kernels: the Pegasos half-step for one node or
+for the whole fleet, dense or over padded-ELL planes, the Pegasos step with
+its loss, and fused dense serving scores. Port of
+``repro.kernels.hinge_subgrad.ops`` (all but sparse serving).
 
 The step scalars ``α = 1/(λt)``, ``λα`` and ``α/B`` are formed in float32 as
-the reference forms them, the violator coefficients of the unfused path and
-the ball projection are plain PyTorch around the kernels, as in the
-reference. The kernels stream X from device memory and have no tile limit,
-so unlike the reference there is no padding to (8, 128) blocks, no
-128-lane class padding, and no VMEM cut-over from the fused fleet kernel
-to the two-kernel path.
+the reference forms them; the violator coefficients, the touched-block map
+of the prefetch schedule, its fold into W and the ball projection are plain
+PyTorch around the kernels, as they are jnp in the reference. The kernels
+stream their inputs from device memory and have no tile limit, so unlike
+the reference there is no padding to (8, 128) blocks, no 128-lane class
+padding, no zero landing block after W, and no VMEM cut-over from the fused
+fleet kernel to the two-kernel path. ``resolve_ell_schedule`` keeps the
+reference's arithmetic all the same, so the port picks the same sparse
+kernel pair and ``blk_d`` as the reference at every shape.
 """
 from __future__ import annotations
 
@@ -18,9 +22,21 @@ import torch
 from repro_torch.core.svm_objective import project_ball
 from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
 from repro_torch.kernels.hinge_subgrad import predict as P
+from repro_torch.kernels.hinge_subgrad import sparse as S
+from repro_torch.sparse.formats import DEFAULT_BUCKET_BLK_D
 
 __all__ = ["step_scalars", "padded_row_mask", "local_half_step", "fleet_half_step",
-           "pegasos_step", "dense_predict", "launch_cost"]
+           "ell_fleet_half_step", "ell_block_map", "resolve_ell_schedule",
+           "pegasos_step", "dense_predict", "launch_cost", "DEFAULT_BLK_D_SPARSE",
+           "ELL_ONEHOT_BUDGET", "ELL_PREFETCH_BLK_D"]
+
+# The reference's sweep block width and its per-program one-hot budget: they
+# no longer shape a kernel here, but they decide, through
+# resolve_ell_schedule, which kernel pair runs and at which blk_d.
+DEFAULT_BLK_D_SPARSE = 512
+ELL_ONEHOT_BUDGET = 4 * 1024 * 1024
+# block width of the touched-block (prefetch) schedule, the formats' bucket width
+ELL_PREFETCH_BLK_D = DEFAULT_BUCKET_BLK_D
 
 
 def step_scalars(lam: float, t: int, B: int) -> tuple[float, float]:
@@ -67,6 +83,142 @@ def fleet_half_step(W: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
     return project_ball(W_half, lam) if project else W_half
 
 
+def _ell_blk_d(d_pad: int, Bk: int) -> int:
+    blk = min(DEFAULT_BLK_D_SPARSE, d_pad)
+    while blk > 128 and Bk * blk * 4 > ELL_ONEHOT_BUDGET:
+        blk = max(128, blk // 2 // 128 * 128)
+    return blk
+
+
+def ell_block_map(cols: torch.Tensor, vals: torch.Tensor, *, blk_d: int,
+                  n_d_blocks: int, n_blocks_max: int) -> torch.Tensor:
+    """Compact per-node touched-block-id map, on the planes' device with no
+    host sync: the twin of ``repro_torch.sparse.formats.block_map``.
+
+    cols/vals: (m, B, k) minibatch planes → (m, n_blocks_max) int32 with each
+    node's distinct live d-block ids ascending, then the sentinel
+    ``n_d_blocks``. Pad entries (val = 0) mark nothing.
+
+    Caller contract: ``n_blocks_max`` must be ≥ the realized live count
+    (``formats.minibatch_block_bound`` is sound for every drawable
+    minibatch). An undersized cap silently drops the highest live ids, and
+    the kernels then lose those blocks' entries, as in the reference; the
+    host twin raises on the same input.
+    """
+    m = cols.shape[0]
+    blk = torch.where(vals != 0, cols.long() // blk_d, n_d_blocks).reshape(m, -1)
+    touched = torch.zeros((m, n_d_blocks + 1), dtype=torch.bool, device=cols.device)
+    touched.scatter_(1, blk, True)  # column n_d_blocks collects the pads: dropped
+    ids = torch.where(touched[:, :n_d_blocks],
+                      torch.arange(n_d_blocks, dtype=torch.int32, device=cols.device),
+                      n_d_blocks)
+    ids = torch.sort(ids, dim=1).values.to(torch.int32)
+    if n_d_blocks < n_blocks_max:  # fewer real blocks than map slots: all live
+        pad = torch.full((m, n_blocks_max - n_d_blocks), n_d_blocks, dtype=torch.int32,
+                         device=cols.device)
+        return torch.cat([ids, pad], dim=1)
+    return ids[:, :n_blocks_max].contiguous()
+
+
+def resolve_ell_schedule(schedule: str, *, B: int, k: int, d: int,
+                         n_blocks_max: int | None = None,
+                         blk_d: int | None = None) -> tuple[str, int, int]:
+    """Pin an ELL schedule request to concrete ``(schedule, blk_d, n_blocks_max)``,
+    by the reference's arithmetic (its (8, 128) padding of B and k included).
+
+    ``schedule``: "sweep", "prefetch" or "auto". Auto picks prefetch exactly
+    when its worst-case w-lane footprint ``n_blocks_max · ELL_PREFETCH_BLK_D``
+    is below the sweep's padded width, which needs a data-derived
+    ``n_blocks_max`` (``formats.minibatch_block_bound``) to ever fire: the
+    fallback cap ``min(B·k, n_d_blocks)`` carries no information.
+    n_blocks_max is clamped to that structural cap either way.
+    """
+    if schedule not in ("auto", "prefetch", "sweep"):
+        raise ValueError(f"unknown ELL schedule {schedule!r}")
+    kp = -(-max(k, 1) // 128) * 128
+    Bp = -(-B // 8) * 8
+    sweep_blk = _ell_blk_d(-(-d // 128) * 128, Bp * kp)
+    if schedule == "sweep":
+        return "sweep", (blk_d or sweep_blk), 0
+    pref_blk = blk_d or ELL_PREFETCH_BLK_D
+    n_d_blocks = -(-d // pref_blk)
+    cap = max(1, min(n_blocks_max or B * max(k, 1), B * max(k, 1), n_d_blocks))
+    if schedule == "prefetch":
+        return "prefetch", pref_blk, cap
+    sweep_lanes = (-(-d // sweep_blk)) * sweep_blk
+    if cap * pref_blk < sweep_lanes:
+        return "prefetch", pref_blk, cap
+    return "sweep", sweep_blk, 0
+
+
+def _fold_buckets(W: torch.Tensor, G: torch.Tensor, bids: torch.Tensor, blk_d: int,
+                  one_minus_s0: float, s1: float) -> torch.Tensor:
+    """(1 − s0)·W everywhere, plus s1·G at the live buckets' lanes. A lane
+    at or past d (a sentinel bucket's, or the tail of the last block's; all
+    zero in G) adds into a spill slot of its own after the (m, d) plane,
+    which is never read. A node's live ids are distinct, so no two
+    additions meet one address, and the sum does not depend on their
+    order."""
+    m, d = W.shape
+    n = G.numel()
+    lanes = bids.long()[:, :, None] * blk_d + torch.arange(blk_d, device=W.device)
+    rows = torch.arange(m, device=W.device)[:, None, None] * d
+    spill = torch.arange(m * d, m * d + n, device=W.device).view(G.shape)
+    idx = torch.where(lanes < d, rows + lanes, spill).reshape(-1)
+    out = torch.empty(m * d + n, dtype=torch.float32, device=W.device)
+    torch.mul(W.reshape(-1), one_minus_s0, out=out[:m * d])
+    out.index_add_(0, idx, (s1 * G).reshape(-1))
+    return out[:m * d].view(m, d)
+
+
+def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                        y: torch.Tensor, *, lam: float, t: int, project: bool = True,
+                        schedule: str = "auto", n_blocks_max: int | None = None,
+                        blk_d: int | None = None) -> torch.Tensor:
+    """Sparse GADGET steps (a)-(e) for the whole fleet over ELL planes, then
+    the optional per-row ball projection.
+
+    W: (m, d); cols/vals: (m, B, k) gathered minibatch planes (int32 and
+    float32; pad entries (0, 0), pad rows y=0); y: (m, B). Two kernel
+    launches, whichever the schedule (see :func:`resolve_ell_schedule`):
+
+    * ``"sweep"``: ``ell_margins``, then ``ell_grad_update``, which writes
+      the decayed and updated W itself, in tiles of ``blk_d`` columns.
+    * ``"prefetch"``: the touched-block map (:func:`ell_block_map`, with the
+      static ``n_blocks_max`` from ``formats.minibatch_block_bound``), then
+      ``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, whose
+      per-bucket sums are folded into the decayed W here.
+    * ``"auto"``: prefetch exactly when it is cheaper in w-lanes.
+
+    k = 0 planes are widened to one inert (0, 0) entry per row.
+    """
+    m, B, k = cols.shape
+    d = W.shape[1]
+    if k == 0:
+        cols = torch.zeros((m, B, 1), dtype=torch.int32, device=cols.device)
+        vals = torch.zeros((m, B, 1), dtype=torch.float32, device=vals.device)
+        k = 1
+    schedule, blk_d, n_blocks_max = resolve_ell_schedule(
+        schedule, B=B, k=k, d=d, n_blocks_max=n_blocks_max, blk_d=blk_d)
+    s0, s1 = step_scalars(lam, t, B)
+    if schedule == "prefetch":
+        n_d_blocks = -(-d // blk_d)
+        bids = ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d_blocks,
+                             n_blocks_max=n_blocks_max)
+        margins = S.ell_margins_prefetch(cols, vals, W, y, bids, blk_d=blk_d,
+                                         n_d_blocks=n_d_blocks)
+        coeff = torch.where(margins < 1.0, y, torch.zeros_like(y))
+        G = S.ell_grad_update_prefetch(cols, vals, coeff, bids, blk_d=blk_d,
+                                       n_d_blocks=n_d_blocks)
+        W_half = _fold_buckets(W, G, bids, blk_d, float(np.float32(1) - np.float32(s0)), s1)
+    else:
+        margins = S.ell_margins(cols, vals, W, y)
+        # pad rows carry y=0, so their coefficient is 0 although margin 0 < 1
+        coeff = torch.where(margins < 1.0, y, torch.zeros_like(y))
+        W_half = S.ell_grad_update(cols, vals, W, coeff, (s0, s1), blk_d=blk_d)
+    return project_ball(W_half, lam) if project else W_half
+
+
 def pegasos_step(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
                  lam: float, t: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel-backed Pegasos step → (projected w_new (d,), mean hinge loss)."""
@@ -96,18 +248,35 @@ def dense_predict(W: torch.Tensor, X: torch.Tensor) -> tuple[torch.Tensor, torch
     return scores, labels
 
 
-def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1) -> dict:
-    """Per-call cost of one dense entry point, from shapes alone.
+def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
+                k: int = 0, n_blocks_max: int = 0, blk_d: int = 0) -> dict:
+    """Per-call cost of one kernel entry point, from shapes alone.
 
-    Returns ``{"launches", "bytes", "flops"}``. Bytes count each input read
-    from device memory once and each output written once (float32 and
-    int32 both 4 bytes), whatever a kernel reads again from cache; flops
-    count a multiply-add as 2. This is the byte model behind the kernels'
-    bandwidth bounds. Kinds: ``margins``, ``grad_update``,
-    ``local_half_step`` (the two launches of the unfused node step),
-    ``fleet_half_step`` (always one launch: the port has no tile limit) and
-    ``dense_predict``.
+    Returns ``{"launches", "bytes", "flops"}``. Bytes count each input
+    element the function needs read from device memory once and each output
+    written once (float32 and int32 both 4 bytes), whatever a kernel reads
+    again from cache; flops count a multiply-add as 2. This is the byte
+    model behind the kernels' bandwidth bounds. Kinds: ``margins``,
+    ``grad_update``, ``local_half_step`` (the two launches of the unfused
+    node step), ``fleet_half_step`` (always one launch: the port has no tile
+    limit), ``dense_predict``, and the sparse kernels over (m, B, k) planes:
+    ``ell_margins`` and ``ell_margins_prefetch`` (a gather reads the
+    ``m·B·k`` entries of W it needs, not all of W), ``ell_grad_update``
+    (all of W read and W_half written) and ``ell_grad_update_prefetch``
+    (the buckets G, ``m·n_blocks_max·blk_d``, written).
     """
+    entries = m * B * k
+    if kind in ("ell_margins", "ell_margins_prefetch"):
+        map_elems = m * n_blocks_max if kind == "ell_margins_prefetch" else 0
+        return {"launches": 1, "bytes": 4 * (3 * entries + 2 * m * B + map_elems),
+                "flops": 2 * entries + m * B}
+    if kind == "ell_grad_update":
+        return {"launches": 1, "bytes": 4 * (2 * entries + m * B + 2 * m * d),
+                "flops": 2 * entries + 3 * m * d}
+    if kind == "ell_grad_update_prefetch":
+        return {"launches": 1,
+                "bytes": 4 * (2 * entries + m * B + m * n_blocks_max * (1 + blk_d)),
+                "flops": 2 * entries}
     if kind == "margins":
         return {"launches": 1, "bytes": 4 * (B * d + d + 2 * B),
                 "flops": 2 * B * d + B}

@@ -1,0 +1,245 @@
+"""Wrappers of the sparse (padded-ELL) Pegasos kernels: the sweep pair
+``ell_margins`` and ``ell_grad_update`` and the touched-block pair
+``ell_margins_prefetch`` and ``ell_grad_update_prefetch`` (CUDA source:
+``csrc/sparse.cu``).
+
+The minibatch is two (m, B, k) planes, ``cols`` int32 and ``vals`` float32,
+with pad entries (col=0, val=0) and pad rows y=0, both inert. ``W`` is the
+(m, d) weight plane as it is: the TPU kernels padded d to a block multiple
+and appended a zero block for the prefetch map's sentinel to land on; these
+kernels skip sentinel slots without reading W, so neither pad exists here.
+An entry whose column lies outside [0, d) adds nothing.
+
+The prefetch pair takes ``block_ids`` (m, n_blocks_max) int32, each row a
+node's live d-block ids (blocks of ``blk_d`` columns) followed by the
+sentinel ``n_d_blocks``. An entry counts only when its block is in its
+node's row, as on the TPU: with a sound cap that is every live entry, with
+an undersized cap the dropped blocks' entries are lost.
+
+Each function takes its plain PyTorch version (``*_plain``) for tensors on
+the CPU, and launches its CUDA kernel for tensors on a CUDA device after
+checking device, dtype, shape and contiguity; anything else raises. A
+launch adds one to the wrapper's ``launches`` attribute, and nothing else
+does. ``scal`` is ``(λα, α/B)`` as in ``hinge_subgrad.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _f32_pair, _one_minus
+
+__all__ = ["ell_margins", "ell_grad_update", "ell_margins_prefetch",
+           "ell_grad_update_prefetch", "ell_margins_plain", "ell_grad_update_plain",
+           "ell_margins_prefetch_plain", "ell_grad_update_prefetch_plain", "MAX_BLK_D"]
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ell_margins": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ell_margins_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ell_grad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ell_grad_update_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+MAX_BLK_D = 1024           # a grad block's 256 threads own at most 4 lanes each
+_MAX_NODES = 65535         # the node axis is the grid's y dimension
+_MAX_BITMAP_BYTES = 227 * 1024
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load(_SOURCE, _SIGNATURES)
+
+
+def _check_planes(cols, vals) -> tuple[int, int, int]:
+    m, B, k = cols.shape
+    _build.check_tensor("cols", cols, (m, B, k), torch.int32)
+    _build.check_tensor("vals", vals, (m, B, k))
+    if not 1 <= m <= _MAX_NODES:
+        raise ValueError(f"the sparse kernels take 1 <= m <= {_MAX_NODES}, got m={m}")
+    return m, B, k
+
+
+def _check_blocks(block_ids, m: int, blk_d: int, n_d_blocks: int) -> int:
+    n_blocks_max = block_ids.shape[1] if block_ids.ndim == 2 else -1
+    _build.check_tensor("block_ids", block_ids, (m, n_blocks_max), torch.int32)
+    if not 1 <= blk_d <= MAX_BLK_D:
+        raise ValueError(f"blk_d must lie in [1, {MAX_BLK_D}], got {blk_d}")
+    if n_d_blocks < 1 or (n_d_blocks + 31) // 32 * 4 > _MAX_BITMAP_BYTES:
+        raise ValueError(f"n_d_blocks={n_d_blocks} out of range")
+    return n_blocks_max
+
+
+def _in_map(cols: torch.Tensor, block_ids: torch.Tensor, blk_d: int,
+            n_d_blocks: int) -> torch.Tensor:
+    """(m, B, k) bool: the entry's d-block is in its node's row of the map."""
+    m = cols.shape[0]
+    table = torch.zeros((m, n_d_blocks + 1), dtype=torch.bool, device=cols.device)
+    table.scatter_(1, block_ids.long().clamp(0, n_d_blocks), True)
+    table[:, n_d_blocks] = False  # the sentinel marks nothing
+    blk = (cols.long() // blk_d).clamp(0, n_d_blocks).reshape(m, -1)
+    return torch.gather(table, 1, blk).reshape(cols.shape)
+
+
+# ---------------------------------------------------------------- ell_margins
+
+def ell_margins_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch margins y_b·Σ_e vals[b,e]·W[i, cols[b,e]] per node."""
+    m, B, k = cols.shape
+    w_at = torch.gather(W, 1, cols.reshape(m, B * k).long()).reshape(m, B, k)
+    return y * (vals * w_at).sum(dim=-1)
+
+
+def ell_margins(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """y·(X w) per node over (m, B, k) ELL planes, every entry: W (m, d),
+    y (m, B) → (m, B). The sweep schedule's margins."""
+    if _build.on_cpu(cols, vals, W, y):
+        return ell_margins_plain(cols, vals, W, y)
+    m, B, k = _check_planes(cols, vals)
+    d = W.shape[1] if W.ndim == 2 else -1
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("y", y, (m, B))
+    out = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_margins(cols.data_ptr(), vals.data_ptr(), W.data_ptr(),
+                                  y.data_ptr(), out.data_ptr(), m, B, k, d,
+                                  _build.stream(W))
+    _build.check(code, "ell_margins")
+    ell_margins.launches += 1
+    return out
+
+
+ell_margins.launches = 0
+
+
+# ------------------------------------------------------- ell_margins_prefetch
+
+def ell_margins_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                               y: torch.Tensor, block_ids: torch.Tensor, *,
+                               blk_d: int, n_d_blocks: int) -> torch.Tensor:
+    """Plain PyTorch margins over the entries whose block is in the map."""
+    kept = torch.where(_in_map(cols, block_ids, blk_d, n_d_blocks), vals,
+                       torch.zeros_like(vals))
+    return ell_margins_plain(cols, kept, W, y)
+
+
+def ell_margins_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                         y: torch.Tensor, block_ids: torch.Tensor, *, blk_d: int,
+                         n_d_blocks: int) -> torch.Tensor:
+    """Touched-block margins: as :func:`ell_margins`, counting only the
+    entries whose d-block ``col // blk_d`` is in the node's row of
+    ``block_ids`` (m, n_blocks_max). Returns (m, B)."""
+    if _build.on_cpu(cols, vals, W, y, block_ids):
+        return ell_margins_prefetch_plain(cols, vals, W, y, block_ids, blk_d=blk_d,
+                                          n_d_blocks=n_d_blocks)
+    m, B, k = _check_planes(cols, vals)
+    d = W.shape[1] if W.ndim == 2 else -1
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("y", y, (m, B))
+    n_blocks_max = _check_blocks(block_ids, m, blk_d, n_d_blocks)
+    out = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_margins_prefetch(
+            cols.data_ptr(), vals.data_ptr(), W.data_ptr(), y.data_ptr(),
+            block_ids.data_ptr(), out.data_ptr(), m, B, k, d, n_blocks_max, blk_d,
+            n_d_blocks, _build.stream(W))
+    _build.check(code, "ell_margins_prefetch")
+    ell_margins_prefetch.launches += 1
+    return out
+
+
+ell_margins_prefetch.launches = 0
+
+
+# ------------------------------------------------------------ ell_grad_update
+
+def ell_grad_update_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                          coeff: torch.Tensor, scal) -> torch.Tensor:
+    """Plain PyTorch (1 − s0)·W + s1·scatter(coeff_b·vals → cols) per node."""
+    s0, s1 = _f32_pair(scal)
+    m, B, k = cols.shape
+    g = torch.zeros_like(W).scatter_add_(
+        1, cols.reshape(m, B * k).long(), (coeff[:, :, None] * vals).reshape(m, B * k))
+    return _one_minus(s0) * W + s1 * g
+
+
+def ell_grad_update(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                    coeff: torch.Tensor, scal, *, blk_d: int = 512) -> torch.Tensor:
+    """W_half = (1 − s0)·W + s1·scatter(coeff_b·vals → cols) per node, one
+    block per (node, tile of ``blk_d`` columns). coeff: (m, B) =
+    1[margin<1]·y. Returns (m, d). The sweep schedule's grad."""
+    if _build.on_cpu(cols, vals, W, coeff):
+        return ell_grad_update_plain(cols, vals, W, coeff, scal)
+    m, B, k = _check_planes(cols, vals)
+    d = W.shape[1] if W.ndim == 2 else -1
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("coeff", coeff, (m, B))
+    if not 1 <= blk_d <= MAX_BLK_D:
+        raise ValueError(f"blk_d must lie in [1, {MAX_BLK_D}], got {blk_d}")
+    s0, s1 = _f32_pair(scal)
+    out = torch.empty_like(W)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_grad_update(cols.data_ptr(), vals.data_ptr(), W.data_ptr(),
+                                      coeff.data_ptr(), out.data_ptr(), m, B, k, d, blk_d,
+                                      s0, s1, _build.stream(W))
+    _build.check(code, "ell_grad_update")
+    ell_grad_update.launches += 1
+    return out
+
+
+ell_grad_update.launches = 0
+
+
+# --------------------------------------------------- ell_grad_update_prefetch
+
+def ell_grad_update_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor,
+                                   coeff: torch.Tensor, block_ids: torch.Tensor, *,
+                                   blk_d: int, n_d_blocks: int) -> torch.Tensor:
+    """Plain PyTorch buckets: G[i, j, lane] = Σ coeff_b·vals[b,e] over the
+    entries with cols[b,e] == block_ids[i,j]·blk_d + lane; sentinel buckets
+    are zero."""
+    m, B, k = cols.shape
+    n_blocks_max = block_ids.shape[1]
+    dev = cols.device
+    # slot of each block in the node's map; blocks outside it go to a dump slot
+    slot = torch.full((m, n_d_blocks + 1), n_blocks_max, dtype=torch.long, device=dev)
+    slot.scatter_(1, block_ids.long().clamp(0, n_d_blocks),
+                  torch.arange(n_blocks_max, device=dev).expand(m, -1).contiguous())
+    slot[:, n_d_blocks] = n_blocks_max
+    c = cols.reshape(m, B * k).long()
+    blk = (c // blk_d).clamp(0, n_d_blocks)
+    flat = torch.gather(slot, 1, blk) * blk_d + (c - blk * blk_d).clamp(0, blk_d - 1)
+    G = torch.zeros((m, (n_blocks_max + 1) * blk_d), dtype=torch.float32, device=dev)
+    G.scatter_add_(1, flat, (coeff[:, :, None] * vals).reshape(m, B * k))
+    return G[:, :n_blocks_max * blk_d].reshape(m, n_blocks_max, blk_d)
+
+
+def ell_grad_update_prefetch(cols: torch.Tensor, vals: torch.Tensor, coeff: torch.Tensor,
+                             block_ids: torch.Tensor, *, blk_d: int,
+                             n_d_blocks: int) -> torch.Tensor:
+    """Touched-block scatter: the raw per-bucket sums G (m, n_blocks_max,
+    blk_d), bucket j of node i holding Σ coeff_b·vals[b,e] over the entries
+    in d-block ``block_ids[i, j]`` at lane ``cols − block_ids[i,j]·blk_d``;
+    sentinel buckets are zero. The decay and the fold into W are the
+    caller's (``ops.ell_fleet_half_step``)."""
+    if _build.on_cpu(cols, vals, coeff, block_ids):
+        return ell_grad_update_prefetch_plain(cols, vals, coeff, block_ids, blk_d=blk_d,
+                                              n_d_blocks=n_d_blocks)
+    m, B, k = _check_planes(cols, vals)
+    _build.check_tensor("coeff", coeff, (m, B))
+    n_blocks_max = _check_blocks(block_ids, m, blk_d, n_d_blocks)
+    G = torch.empty((m, n_blocks_max, blk_d), dtype=torch.float32, device=cols.device)
+    with torch.cuda.device(cols.device):
+        code = _lib().ell_grad_update_prefetch(
+            cols.data_ptr(), vals.data_ptr(), coeff.data_ptr(), block_ids.data_ptr(),
+            G.data_ptr(), m, B, k, n_blocks_max, blk_d, n_d_blocks, _build.stream(cols))
+    _build.check(code, "ell_grad_update_prefetch")
+    ell_grad_update_prefetch.launches += 1
+    return G
+
+
+ell_grad_update_prefetch.launches = 0

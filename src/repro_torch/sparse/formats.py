@@ -1,0 +1,214 @@
+"""Padded-ELL feature planes and the touched-block schedule helpers.
+
+A copy of the ELL part of ``repro.sparse.formats`` (the port imports nothing
+of ``repro``), numpy only. :class:`ELL` stores every row as exactly ``k_max``
+(column, value) pairs in two (rows, k_max) planes; ragged rows are padded
+with the inert entry ``(col=0, val=0.0)``, which adds nothing to a
+gather-dot or a scatter-add, so no mask plane is kept. :class:`EllPartitions`
+stacks the planes per node for ``gadget_train``.
+
+The touched-block helpers state the schedule of the prefetch kernels on the
+host: :func:`row_block_counts` and :func:`minibatch_block_bound` give the
+static ``n_blocks_max`` cap (sound for every minibatch the trainer can
+draw), and :func:`block_map` builds the compact (m, n_blocks_max) map of
+each node's distinct live d-blocks followed by the sentinel ``n_d_blocks``;
+``repro_torch.kernels.hinge_subgrad.ops.ell_block_map`` is its device twin.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+__all__ = ["ELL", "EllPartitions", "partition_rows", "DEFAULT_BUCKET_BLK_D",
+           "block_map", "row_block_counts", "minibatch_block_bound"]
+
+# d-block width of the touched-block schedule and of its static bound
+DEFAULT_BUCKET_BLK_D = 128
+
+
+@dataclass
+class ELL:
+    """Padded ELLPACK planes. Pad entries are ``(col=0, val=0.0)``; anything
+    that must count entries uses :meth:`row_nnz` (vals != 0)."""
+
+    cols: np.ndarray  # (n, k_max) int32
+    vals: np.ndarray  # (n, k_max) float32
+    shape: tuple[int, int]
+
+    def __post_init__(self):
+        self.cols = np.asarray(self.cols, np.int32)
+        self.vals = np.asarray(self.vals, np.float32)
+        if self.cols.shape != self.vals.shape or self.cols.ndim != 2:
+            raise ValueError("cols/vals must be equal-shape (n, k_max) planes")
+        if self.cols.shape[0] != self.shape[0]:
+            raise ValueError("plane row count disagrees with shape")
+        if self.cols.size and (self.cols.min() < 0 or self.cols.max() >= self.shape[1]):
+            raise ValueError(f"column index out of range for d={self.shape[1]}")
+
+    @property
+    def k_max(self) -> int:
+        """Entries stored per row."""
+        return self.cols.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        """Live (non-zero) entries over all rows."""
+        return int((self.vals != 0).sum())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the two planes."""
+        return self.cols.nbytes + self.vals.nbytes
+
+    def row_nnz(self) -> np.ndarray:
+        """(n,) live entries per row."""
+        return (self.vals != 0).sum(axis=1).astype(np.int64)
+
+    def to_dense(self, dtype=np.float32) -> np.ndarray:
+        """The dense (n, d) matrix."""
+        n, d = self.shape
+        X = np.zeros((n, d), dtype)
+        rows = np.repeat(np.arange(n), self.k_max).reshape(n, self.k_max)
+        # += so the shared pad slot (0, 0) accumulates only zeros
+        np.add.at(X, (rows, self.cols), self.vals)
+        return X
+
+    def take_rows(self, idx: np.ndarray) -> "ELL":
+        """The rows ``idx``, as a new ELL."""
+        idx = np.asarray(idx, np.int64)
+        return ELL(self.cols[idx], self.vals[idx], (len(idx), self.shape[1]))
+
+    def matvec(self, w: np.ndarray) -> np.ndarray:
+        """X @ w as a gather-dot."""
+        return (self.vals * np.asarray(w)[self.cols]).sum(axis=1)
+
+
+@dataclass
+class EllPartitions:
+    """Per-node stacked ELL planes for GADGET: node i's rows are
+    ``cols[i], vals[i]`` with the first ``n_counts[i]`` valid. Made by
+    ``repro_torch.data.svm_datasets.partition``; ``gadget_train`` takes it
+    in place of a dense (m, n_i, d) array.
+
+    ``row_block_counts`` (computed once per blk_d) feeds the static
+    ``n_blocks_max`` bound of the prefetch schedule."""
+
+    cols: np.ndarray  # (m, n_i, k_max) int32
+    vals: np.ndarray  # (m, n_i, k_max) float32
+    d: int            # feature dimension (the planes do not carry it)
+    _block_counts: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(m, n_i, d), the shape of the dense partitions."""
+        m, n_i, _ = self.cols.shape
+        return (m, n_i, self.d)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the two planes."""
+        return self.cols.nbytes + self.vals.nbytes
+
+    def row_block_counts(self, blk_d: int = DEFAULT_BUCKET_BLK_D) -> np.ndarray:
+        """(m, n_i) distinct-d-block counts per row, cached per blk_d."""
+        if blk_d not in self._block_counts:
+            self._block_counts[blk_d] = row_block_counts(self.cols, self.vals, blk_d)
+        return self._block_counts[blk_d]
+
+    def block_bound(self, batch_size: int, blk_d: int = DEFAULT_BUCKET_BLK_D) -> int:
+        """Static ``n_blocks_max`` cap for a batch_size-row minibatch drawn
+        from any node, sound for every draw the trainer can make."""
+        return minibatch_block_bound(self.cols, self.vals, batch_size, blk_d,
+                                     d=self.d,
+                                     counts=self.row_block_counts(blk_d))
+
+
+def partition_rows(n: int, m: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray, int]:
+    """Shuffled near-equal split of n rows over m nodes.
+
+    Returns ``(idx, counts, n_i)``: a permutation of ``arange(n)`` laid out so
+    node i owns ``idx[i*n_i : i*n_i + counts[i]]``, per-node valid counts
+    summing to exactly n, and the common padded length ``n_i = ceil(n/m)``.
+    The first ``n % m`` nodes hold one extra row.
+    """
+    if n < m:
+        raise ValueError(f"cannot partition {n} rows over {m} nodes")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    q, r = divmod(n, m)
+    counts = np.full(m, q, np.int64)
+    counts[:r] += 1
+    n_i = q + (1 if r else 0)
+    # pad slots point at row perm[0]; callers zero them out
+    idx = np.zeros(m * n_i, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for i in range(m):
+        idx[i * n_i: i * n_i + counts[i]] = perm[offsets[i]: offsets[i] + counts[i]]
+    return idx, counts, n_i
+
+
+def _entry_blocks(cols: np.ndarray, vals: np.ndarray, blk_d: int,
+                  sentinel: int) -> np.ndarray:
+    """Per-entry d-block id with pad entries (val == 0) mapped to sentinel."""
+    return np.where(vals != 0, cols // blk_d, sentinel)
+
+
+def row_block_counts(cols: np.ndarray, vals: np.ndarray, blk_d: int) -> np.ndarray:
+    """Distinct live d-blocks per row: ``(..., k)`` planes → ``(...,)`` int32.
+    Pad entries (val = 0) count nothing."""
+    cols = np.asarray(cols)
+    if cols.shape[-1] == 0:
+        return np.zeros(cols.shape[:-1], np.int32)
+    blocks = np.sort(_entry_blocks(cols, np.asarray(vals), blk_d, -1), axis=-1)
+    live = blocks >= 0
+    first = live[..., :1]
+    changed = (blocks[..., 1:] != blocks[..., :-1]) & live[..., 1:]
+    return (first.sum(axis=-1) + changed.sum(axis=-1)).astype(np.int32)
+
+
+def minibatch_block_bound(cols: np.ndarray, vals: np.ndarray, batch_size: int,
+                          blk_d: int = DEFAULT_BUCKET_BLK_D, *,
+                          d: int | None = None,
+                          counts: np.ndarray | None = None) -> int:
+    """Sound static cap on the distinct d-blocks any batch_size-row minibatch
+    of any node can touch: ``max_i`` of the sum of the batch_size largest
+    per-row distinct-block counts within node i, clamped to ``n_d_blocks``
+    and ``batch_size·k``. Draws with replacement only shrink the union, so
+    the top-B sum dominates every minibatch. Always ≥ 1.
+    """
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals)
+    if counts is None:
+        counts = row_block_counts(cols, vals, blk_d)
+    counts = counts.reshape(len(counts), -1) if counts.ndim > 1 else counts[None, :]
+    B = min(batch_size, counts.shape[1])
+    top = -np.sort(-counts, axis=1)[:, :B]
+    bound = int(top.sum(axis=1).max()) if counts.size else 0
+    if d is None:
+        d = int(cols.max()) + 1 if cols.size else 1
+    n_d_blocks = -(-d // blk_d)
+    k = cols.shape[-1]
+    return max(1, min(bound, n_d_blocks, max(1, batch_size * k)))
+
+
+def block_map(cols: np.ndarray, vals: np.ndarray, blk_d: int, n_d_blocks: int,
+              n_blocks_max: int) -> np.ndarray:
+    """Compact touched-block-id map of stacked minibatch planes: ``(m, B, k)``
+    cols/vals → ``(m, n_blocks_max)`` int32, each row the node's distinct
+    live d-block ids ascending, then the sentinel ``n_d_blocks``. Raises if a
+    node touches more than ``n_blocks_max`` blocks (the device twin
+    ``ops.ell_block_map`` drops the highest ids instead)."""
+    cols = np.asarray(cols)
+    m = cols.shape[0]
+    blocks = _entry_blocks(cols.reshape(m, -1), np.asarray(vals).reshape(m, -1),
+                           blk_d, n_d_blocks)
+    out = np.full((m, n_blocks_max), n_d_blocks, np.int32)
+    for i in range(m):
+        live = np.unique(blocks[i])
+        live = live[live < n_d_blocks]
+        if len(live) > n_blocks_max:
+            raise ValueError(
+                f"node {i} touches {len(live)} blocks > n_blocks_max={n_blocks_max}")
+        out[i, :len(live)] = live
+    return out

@@ -170,17 +170,11 @@ def test_zero_iterations_return_initial_state():
     assert res.objective_trace.shape == (0,) and res.mass_trace.shape == (0,)
 
 
-@pytest.mark.parametrize("later", ["ell", "faults", "snapshot_every", "telemetry"])
+@pytest.mark.parametrize("later", ["faults", "snapshot_every", "telemetry"])
 def test_later_slices_raise(later):
     X, y = _data()
     kw, cfg = {}, TG.GadgetConfig(max_iters=5)
-    if later == "ell":
-        class Ell:  # duck-typed like repro.sparse.EllPartitions
-            cols = np.zeros((M, N_I, 2), np.int32)
-            vals = np.zeros((M, N_I, 2), np.float32)
-            d = D
-        X = Ell()
-    elif later == "faults":
+    if later == "faults":
         cfg = cfg._replace(faults=object())
     else:
         kw[later] = 10
