@@ -7,14 +7,16 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
-3. kernels: each of the eight kernels against its plain PyTorch version on
+3. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the shapes of its main path and at ragged shapes (for the
    sparse kernels: pad entries, a pad row, an all-pad node, and a touched-
-   block map one slot too short), and against itself (two runs, bit for
-   bit), with times of the kernel, the plain version and, where one exists,
-   the one PyTorch call that computes the same function (timed here only;
-   the port never calls it). The sparse kernels' main-path inputs are a
-   minibatch of the CCAT partitions of phase 7, generated here;
+   block map one slot too short; for the serving kernel: tied classes, pad
+   rows, k = 0 and a map one slot short), and against itself (two runs, bit
+   for bit), with times of the kernel, the plain version and, where one
+   exists, the one PyTorch call that computes the same function (timed here
+   only; the port never calls it). The sparse kernels' main-path inputs are
+   a minibatch of the CCAT partitions of phase 7, generated here, and a
+   bucket batch of CCAT test queries with its calibrated map;
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
    fused), then the test set scored with ``dense_predict``; held to test
@@ -36,7 +38,15 @@ Phases, each of which exits non-zero on failure:
    against sweep on the card on the same draws (W within 1e-5), and reuters'
    ELL planes against their dense form on the same draws (consensus within
    1e-5);
-10. a ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
+10. serving: the phase 7 model as a ``Snapshot``, exported f32 and int8,
+    loaded with ``SvmServer.load``, and all CCAT test queries served twice
+    through buckets calibrated on training rows (whole, then the example's
+    ragged traffic), ``ell_scores_prefetch`` launched once per batch;
+    accuracy equal to phase 7's, scores within 1e-5 of the oracle, int8
+    labels agreeing with f32 on >= 90%; a hot swap through ``watch`` /
+    ``maybe_reload`` with the served shapes unchanged; and reuters served
+    dense with phase 4's weights;
+11. a ``kernels`` JSON line and the final ``{"ok": true, ...}`` line.
 
 It needs one CUDA card and the ``src/`` tree beside it, imports nothing of
 JAX or of the JAX package, and exits non-zero without printing a result
@@ -47,6 +57,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -64,6 +75,9 @@ SPARSE_PARITY_ATOL = 1e-5   # phase 9: prefetch against sweep, ELL against dense
 # CPU, same data and config, draw seeds 0 and 1): see PERF.md
 CCAT_MIN_ACCURACY, CCAT_MAX_OBJECTIVE = 0.72, 0.70
 CCAT_SCALE = 0.1
+SERVE_ROWS, SERVE_MIN_K = 8, 19   # the bucket ladder of examples/serve_batched.py
+SERVE_SAMPLE = 2000               # training rows the buckets are calibrated on
+INT8_MIN_AGREEMENT = 0.9          # int8 against f32 labels, the example's bar
 SOURCE_DIR = "src/repro_torch/kernels/hinge_subgrad/csrc"
 REPLACES = {
     "fleet_half_step": "src/repro/kernels/hinge_subgrad/hinge_subgrad.py:106",
@@ -74,6 +88,7 @@ REPLACES = {
     "ell_grad_update": "src/repro/kernels/hinge_subgrad/sparse.py:138",
     "ell_margins_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:210",
     "ell_grad_update_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:259",
+    "ell_scores_prefetch": "src/repro/kernels/hinge_subgrad/predict.py:169",
 }
 KERNELS = tuple(REPLACES)
 # the paper's reuters and CCAT runs: PAPER_RUNS["reuters"] and ["ccat"] of
@@ -302,11 +317,21 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
         return (lambda c, v, cf, b: S.ell_grad_update_prefetch(c, v, cf, b, blk_d=blk, n_d_blocks=n_d),
                 lambda c, v, cf, b: S.ell_grad_update_prefetch_plain(c, v, cf, b, blk_d=blk,
                                                                      n_d_blocks=n_d))
+    # the library yardstick of both margins kernels: one embedding_bag over
+    # the planes as they are, each node's columns offset into a flattened W
+    # (made here, outside the timed call); it returns the unsigned margins
+    cols_flat = (cols.long() + d * torch.arange(m, device=dev)[:, None, None]).reshape(m * B, k)
+    vals_flat, W_flat = vals.reshape(m * B, k), W.reshape(m * d, 1)
+
+    def margins_library():
+        return torch.nn.functional.embedding_bag(cols_flat, W_flat, per_sample_weights=vals_flat,
+                                                 mode="sum")
     main_shape = f"cols ({m}, {B}, {k}), W ({m}, {d})"
     cases = {
         "ell_margins": dict(
             run=(S.ell_margins, S.ell_margins_plain), inputs={
                 "main": (cols, vals, W, y), "ragged": (rcols, rvals, rW, ry)},
+            library=margins_library,
             cost=ops.launch_cost("ell_margins", m=m, B=B, k=k), shape=main_shape),
         "ell_grad_update": dict(
             run=(lambda *a: S.ell_grad_update(*a, blk_d=blk_sw), S.ell_grad_update_plain), inputs={
@@ -317,7 +342,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
             run=margins_pf(blk_pf, nd), inputs={
                 "main": (cols, vals, W, y, bids), "ragged": (rcols, rvals, rW, ry, rbids),
                 "undersized": (rcols, rvals, rW, ry, rcut)},
-            ragged_run=margins_pf(blk_pf, rnd),
+            ragged_run=margins_pf(blk_pf, rnd), library=margins_library,
             cost=ops.launch_cost("ell_margins_prefetch", m=m, B=B, k=k, n_blocks_max=n_blocks_max),
             shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
         "ell_grad_update_prefetch": dict(
@@ -334,6 +359,9 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
     require(not torch.allclose(cut, S.ell_margins_plain(rcols, rvals, rW, ry)),
             "the undersized map dropped no entry")
     require(bool((rbids[1] == rnd).all()), "the all-pad node's map is not all sentinel")
+    lib_margins = margins_library().reshape(m, B) * y
+    require(rel_err(lib_margins, S.ell_margins_plain(cols, vals, W, y))[1] <= KERNEL_RTOL,
+            "embedding_bag does not compute the margins")
 
     results = {}
     for name, case in cases.items():
@@ -353,16 +381,148 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
                 f"{name}: two runs on the same inputs differ")
         ms = device_ms(torch, lambda: kernel(*args), 200)
         plain_ms = device_ms(torch, lambda: plain(*args), 200)
+        lib_ms = None if "library" not in case else device_ms(torch, case["library"], 200)
         bound_ms, bound_by = bound(case["cost"])
         results[name] = dict(max_abs_err=errs["main"][0],
                              ragged_max_abs_err=max(e[0] for w, e in errs.items() if w != "main"),
-                             ms=ms, plain_ms=plain_ms, library_ms=None,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by, shape=case["shape"])
         log(f"  {name:24s} {case['shape']}: err {errs['main'][0]:.3e} ("
             + ", ".join(f"{w} {e[0]:.3e}" for w, e in errs.items() if w != "main")
-            + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library -, "
+            + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library "
+            f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
     return results
+
+
+def ccat_queries(X_te, ragged: bool) -> list:
+    """The CCAT test rows as (cols, vals) queries of their live entries;
+    ``ragged`` cuts the even ones to a third of their features, the ragged
+    traffic of ``examples/serve_batched.py``."""
+    out = []
+    for i in range(X_te.shape[0]):
+        live = X_te.vals[i] != 0
+        nnz = int(live.sum())
+        if ragged and i % 2 == 0:
+            nnz = max(1, nnz // 3)
+        out.append((X_te.cols[i][live][:nnz], X_te.vals[i][live][:nnz]))
+    return out
+
+
+def serve_queries(srv, buckets, queries, pad_query_planes) -> dict:
+    """Route every query to the smallest bucket with k >= its nnz, pad each
+    batch of ``rows`` with ``pad_query_planes`` and score it through
+    ``srv.scorer_for()``, timing each batch on the host clock (the scores
+    come back as numpy, so each batch ends in a device sync). Returns the
+    scores and labels in query order, the batches, the buckets served and
+    the host seconds."""
+    score_fn = srv.scorer_for()
+    routed = {}
+    for qi, (c, _) in enumerate(queries):
+        routed.setdefault(next(b for b in buckets if b.k >= len(c)), []).append(qi)
+    scores = np.zeros(len(queries), np.float32)
+    labels = np.zeros(len(queries), np.float32)
+    batch_s = []
+    for b, ids in routed.items():
+        for start in range(0, len(ids), b.rows):
+            chunk = ids[start:start + b.rows]
+            t0 = time.perf_counter()
+            cols, vals = pad_query_planes([queries[i] for i in chunk], b.rows, b.k)
+            sc, lb = score_fn(b, cols, vals)
+            batch_s.append(time.perf_counter() - t0)
+            scores[chunk], labels[chunk] = sc[:len(chunk)], lb[:len(chunk)]
+    return {"scores": scores, "labels": labels, "batches": len(batch_s),
+            "buckets": sorted(b.k for b in routed), "seconds": sum(batch_s),
+            "batch_ms": 1e3 * sum(batch_s) / len(batch_s)}
+
+
+def phase_serving_kernel(torch, P, ops, serve, formats, ds_c, parts_c, gen, dev) -> dict:
+    """``ell_scores_prefetch`` against its plain version at the sparse
+    serving path's shape (a bucket batch of real CCAT test queries with the
+    bucket's calibrated map), at C = 4 with tied classes and pad rows, with
+    k = 0 widened through ``ops.ell_predict``, and with a device map one
+    slot short; twice on the same inputs, bit for bit; times at the main
+    shape, beside one ``embedding_bag`` call on the same planes. Returns the
+    kernel's row and the calibrated buckets."""
+    d, blk = ds_c.X_test.shape[1], formats.DEFAULT_BUCKET_BLK_D
+    nd = -(-d // blk)
+    k_max = ds_c.X_test.k_max
+    buckets = serve.calibrate_buckets(
+        serve.bucket_ladder(k_max, rows=SERVE_ROWS, min_k=SERVE_MIN_K, d=d),
+        parts_c.cols.reshape(-1, k_max)[:SERVE_SAMPLE], parts_c.vals.reshape(-1, k_max)[:SERVE_SAMPLE], d)
+    top = buckets[-1]
+    queries = ccat_queries(ds_c.X_test, ragged=False)[:top.rows]
+    cols_np, vals_np = formats.pad_query_planes(queries, top.rows, top.k)
+    bm = formats.block_map(cols_np[None], vals_np[None], blk, nd, top.n_blocks_max)[0]
+    cols, vals = torch.from_numpy(cols_np).to(dev), torch.from_numpy(vals_np).to(dev)
+    bids = torch.from_numpy(bm).to(dev)
+    W1 = torch.randn(1, d, generator=gen, device=dev)
+    W4 = torch.randn(4, d, generator=gen, device=dev)
+    W4[3] = W4[0]  # classes 0 and 3 tie on every row: first occurrence wins
+    cols_pad, vals_pad = cols.clone(), vals.clone()
+    cols_pad[-2:], vals_pad[-2:] = 0, 0.0  # two pad rows
+    live = int((bids < nd).sum())
+    short = ops.ell_block_map(cols[None], vals[None], blk_d=blk, n_d_blocks=nd,
+                              n_blocks_max=live - 1)[0]
+
+    def kernel(c, v, W, b):
+        return P.ell_scores_prefetch(c, v, W, b, blk_d=blk, n_d_blocks=nd, n_classes=W.shape[0])
+
+    def plain(c, v, W, b):
+        return P.ell_scores_prefetch_plain(c, v, W, b, blk_d=blk, n_d_blocks=nd,
+                                           n_classes=W.shape[0])
+    inputs = {"main": (cols, vals, W1, bids), "tied_pad": (cols_pad, vals_pad, W4, bids),
+              "undersized": (cols, vals, W4, short)}
+    errs = {}
+    for which, args in inputs.items():
+        (got, got_l), (want, want_l) = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got_l.dtype == torch.int32,
+                f"ell_scores_prefetch {which}: shapes {tuple(got.shape)} {got_l.dtype}")
+        require(bool(torch.isfinite(got).all()), f"ell_scores_prefetch non-finite ({which})")
+        errs[which] = rel_err(got, want)
+        require(errs[which][1] <= KERNEL_RTOL,
+                f"ell_scores_prefetch {which}: kernel against plain rel err {errs[which][1]:.3e}")
+        require(torch.equal(got_l.long(), torch.argmax(got, dim=1)),
+                f"ell_scores_prefetch argmax disagrees ({which})")
+    _, l_tp = kernel(*inputs["tied_pad"])
+    require(not torch.any(l_tp == 3), "ell_scores_prefetch tie not first occurrence")
+    require(bool((l_tp[-2:] == 0).all()), "ell_scores_prefetch pad rows not class 0")
+    full = plain(cols, vals, W4, bids)[0]
+    require(not torch.allclose(full, plain(*inputs["undersized"])[0]),
+            "the undersized serving map dropped no entry")
+    # k = 0 through the dispatch layer: widened to one inert entry, scores 0, labels +1
+    empty = torch.zeros((top.rows, 0), dtype=torch.int32, device=dev)
+    s0, l0 = ops.ell_predict(W1[0], empty, empty.float())
+    s0_cpu, l0_cpu = ops.ell_predict(W1[0].cpu(), empty.cpu(), empty.float().cpu())
+    require(torch.equal(s0.cpu(), s0_cpu) and torch.equal(l0.cpu(), l0_cpu)
+            and not bool(s0.any()) and bool((l0 == 1.0).all()), "ell_predict at k = 0")
+    first, again = kernel(*inputs["main"]), kernel(*inputs["main"])
+    require(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+            "ell_scores_prefetch: two runs on the same inputs differ")
+    W_t = W1.t().contiguous()  # the library call's (d, C) weight, made outside the timing
+
+    def library():
+        return torch.nn.functional.embedding_bag(cols, W_t, per_sample_weights=vals, mode="sum")
+    require(rel_err(library(), plain(*inputs["main"])[0])[1] <= KERNEL_RTOL,
+            "embedding_bag does not compute the scores")
+    args = inputs["main"]
+    ms = device_ms(torch, lambda: kernel(*args), 200)
+    plain_ms = device_ms(torch, lambda: plain(*args), 200)
+    lib_ms = device_ms(torch, library, 200)
+    cost = ops.launch_cost("ell_predict", B=top.rows, k=top.k, C=1, n_blocks_max=top.n_blocks_max,
+                           blk_d=blk)
+    bound_ms, bound_by = bound(cost)
+    shape = f"cols ({top.rows}, {top.k}), W (1, {d}), map ({top.n_blocks_max},)"
+    log(f"  {'ell_scores_prefetch':24s} {shape}: err {errs['main'][0]:.3e} ("
+        + ", ".join(f"{w} {e[0]:.3e}" for w, e in errs.items() if w != "main")
+        + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library "
+        f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({bound_by}); buckets "
+        + ", ".join(f"(rows {b.rows}, k {b.k}, cap {b.n_blocks_max})" for b in buckets))
+    return {"ell_scores_prefetch": dict(
+        max_abs_err=errs["main"][0], ragged_max_abs_err=max(e[0] for w, e in errs.items() if w != "main"),
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+        shape=shape)}, buckets
 
 
 def profile_iterations(torch, run) -> dict:
@@ -390,7 +550,8 @@ def profile_iterations(torch, run) -> dict:
 def wrappers(K, P, S) -> tuple:
     """Every kernel wrapper of the port, in the order of ``KERNELS``."""
     return (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores, S.ell_margins,
-            S.ell_grad_update, S.ell_margins_prefetch, S.ell_grad_update_prefetch)
+            S.ell_grad_update, S.ell_margins_prefetch, S.ell_grad_update_prefetch,
+            P.ell_scores_prefetch)
 
 
 def reset_counts(K, P, S) -> None:
@@ -425,6 +586,8 @@ def main() -> int:
     from repro_torch.kernels.hinge_subgrad import predict as P
     from repro_torch.kernels.hinge_subgrad import ref as R
     from repro_torch.kernels.hinge_subgrad import sparse as S
+    from repro_torch import serve
+    from repro_torch.sparse import formats
     from repro_torch.sparse.formats import ELL
 
     dev = torch.device("cuda")
@@ -455,6 +618,9 @@ def main() -> int:
         f"test {ds_c.X_test.shape}, generated in {gen_s:.1f} s, partitions "
         f"{tuple(ccat[0].cols.shape)}, block bound at B=1: {ccat[0].block_bound(1)}")
     kernels.update(phase_sparse_kernels(torch, S, ops, ccat, gen, dev))
+    serving_row, buckets = phase_serving_kernel(torch, P, ops, serve, formats, ds_c, ccat[0],
+                                                gen, dev)
+    kernels.update(serving_row)
 
     log("phase 4: main path, reuters at full size, fused")
     t0 = time.perf_counter()
@@ -476,7 +642,8 @@ def main() -> int:
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, pred = ops.dense_predict(res.w_consensus, Xte)
-    acc = float((pred == yte).to(torch.float32).mean())
+    n_correct = int((pred == yte).sum())
+    acc = n_correct / len(yte)
     score_s = time.perf_counter() - t0
     main_counts = counts(K, P, S)
     objective = float(res.objective_trace[-1])
@@ -579,7 +746,8 @@ def main() -> int:
     sparse_s = time.perf_counter() - t0
     sparse_counts = counts(K, P, S)
     scores = R.ell_matvec_flat(res_c.w_consensus, cols_te, vals_te)
-    acc_c = float((torch.where(scores >= 0.0, 1.0, -1.0) == y_te).to(torch.float32).mean())
+    n_correct_c = int((torch.where(scores >= 0.0, 1.0, -1.0) == y_te).sum())
+    acc_c = n_correct_c / len(y_te)
     obj_c = float(res_c.objective_trace[-1])
     log(f"  {res_c.iters} iterations in {sparse_s:.3f} s ({res_c.iters / sparse_s:.1f} it/s), "
         f"objective {obj_c:.4f}, test accuracy {acc_c:.4f}, eps {res_c.epsilon:.3e}, "
@@ -657,7 +825,116 @@ def main() -> int:
         f"err {ell_err:.3e} (<= {SPARSE_PARITY_ATOL})")
     require(ell_err <= SPARSE_PARITY_ATOL, f"ELL and dense consensus differ by {ell_err:.3e}")
 
-    log("phase 10: summary")
+    log("phase 10: serving, the phase 7 model exported, loaded and served")
+    d_c, k_c = parts_c.d, ds_c.X_test.k_max
+    w_c = res_c.w_consensus.cpu().numpy()
+    snap = serve.Snapshot(res_c.iters, w_c, obj_c)
+    queries = ccat_queries(ds_c.X_test, ragged=False)
+    ragged = ccat_queries(ds_c.X_test, ragged=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        root = Path(tmp)
+        serve.to_checkpoint(snap, str(root / "f32"), lam=CCAT["lam"])
+        serve.to_checkpoint(snap, str(root / "int8"), quantize="int8", lam=CCAT["lam"])
+        srv = serve.SvmServer.load(str(root / "f32"))
+        srv_q = serve.SvmServer.load(str(root / "int8"))
+        require(srv.device.type == "cuda" and srv.meta["iteration"] == res_c.iters,
+                "the f32 export did not load onto the card")
+        serve_queries(srv, buckets, queries[:SERVE_ROWS], formats.pad_query_planes)  # warm-up
+        shapes_warm = srv.stats()["distinct_shapes"]
+        reset_counts(K, P, S)
+        whole = serve_queries(srv, buckets, queries, formats.pad_query_planes)
+        cut = serve_queries(srv, buckets, ragged, formats.pad_query_planes)
+        serve_counts = counts(K, P, S)
+        st = srv.stats()
+        n_correct_s = int(np.sum(whole["labels"] == ds_c.y_test))
+        acc_s = n_correct_s / len(queries)
+        n_q = len(queries) + len(ragged)
+        n_batches = whole["batches"] + cut["batches"]
+        serve_s = whole["seconds"] + cut["seconds"]
+        log(f"  buckets {[(b.rows, b.k, b.n_blocks_max) for b in buckets]}; whole pass: "
+            f"{len(queries)} queries in {whole['batches']} batches (buckets k {whole['buckets']}), "
+            f"test accuracy {acc_s:.4f}; ragged pass: {cut['batches']} batches (buckets k "
+            f"{cut['buckets']}); {n_batches / serve_s:.1f} batches/s, {n_q / serve_s:.1f} "
+            f"queries/s, {1e3 * serve_s / n_batches:.3f} ms host time per batch; stats {st}")
+        require(len(queries) == ds_c.X_test.shape[0], "not every CCAT test query was served")
+        require(n_correct_s == n_correct_c,
+                f"served accuracy {acc_s:.4f} != phase 7's {acc_c:.4f}")
+        require(len(cut["buckets"]) > 1, f"the ragged pass used buckets {cut['buckets']} only")
+        require(serve_counts["ell_scores_prefetch"] == n_batches,
+                f"ell_scores_prefetch launched {serve_counts['ell_scores_prefetch']} times for "
+                f"{n_batches} batches")
+        require(st["distinct_shapes"] <= len(buckets) and st["distinct_shapes"] >= shapes_warm,
+                f"{st['distinct_shapes']} shapes served for {len(buckets)} buckets")
+        w_dev = torch.from_numpy(w_c).to(dev)
+        serve_err = 0.0
+        for name, q, out in (("whole", queries, whole), ("ragged", ragged, cut)):
+            cols_all, vals_all = formats.pad_query_planes(q, len(q), k_c)
+            cols_all, vals_all = torch.from_numpy(cols_all).to(dev), torch.from_numpy(vals_all).to(dev)
+            want = R.ell_predict_scores_ref(w_dev[None], cols_all, vals_all)[:, 0]
+            got = torch.from_numpy(out["scores"]).to(dev)
+            serve_err = max(serve_err, rel_err(got, want)[1])
+            plain_lbl = torch.where(R.ell_matvec_flat(w_dev, cols_all, vals_all) >= 0, 1.0, -1.0)
+            sure = want.abs() > 1e-5
+            require(bool(torch.equal(torch.from_numpy(out["labels"]).to(dev)[sure], plain_lbl[sure])),
+                    f"{name} pass: labels differ from the plain gather-dot's")
+            require(bool(torch.isfinite(got).all()), f"{name} pass: non-finite scores")
+        require(serve_err <= KERNEL_RTOL, f"served scores differ from the oracle by {serve_err:.3e}")
+        prof_s = profile_iterations(torch, lambda: serve_queries(srv, buckets, queries,
+                                                                 formats.pad_query_planes))
+        device_us_s = prof_s["device_us"] / whole["batches"]
+        busy_s = device_us_s / (1e3 * whole["batch_ms"])
+        log(f"  profile of the whole pass: device {device_us_s:.2f} us/batch against "
+            f"{1e3 * whole['batch_ms']:.1f} us/batch of host time unprofiled: device busy {busy_s:.4f}")
+        for key, count, us in prof_s["top_device"]:
+            log(f"    device {us / whole['batches']:9.2f} us/batch  x{count:<6d} {key}")
+        for key, count, us in prof_s["top_host"]:
+            log(f"    host   {us / whole['batches']:9.2f} us/batch  x{count:<6d} {key}")
+        require(device_us_s > 0, "the profiled serving window ran nothing on the device")
+        int8 = serve_queries(srv_q, buckets, queries, formats.pad_query_planes)
+        agree = float(np.mean(int8["labels"] == whole["labels"]))
+        log(f"  served scores against ell_predict_scores_ref: rel err {serve_err:.3e}; int8 export "
+            f"against f32: label agreement {agree:.4f} (>= {INT8_MIN_AGREEMENT}), accuracy "
+            f"{float(np.mean(int8['labels'] == ds_c.y_test)):.4f}")
+        require(agree >= INT8_MIN_AGREEMENT, f"int8 labels agree with f32 on {agree:.4f} only")
+
+        watch_root = str(root / "watch")
+        serve.to_checkpoint(snap, watch_root)
+        srv_w = serve.SvmServer.watch(watch_root)
+        before = serve_queries(srv_w, buckets, queries[:4 * SERVE_ROWS], formats.pad_query_planes)
+        shapes_before = srv_w.stats()["distinct_shapes"]
+        require(srv_w.maybe_reload() is None, "an unchanged pointer reloaded")
+        w_new = res_pf.w_consensus.cpu().numpy()  # phase 9's 200-iteration run
+        new_step = res_c.iters + res_pf.iters
+        serve.to_checkpoint(serve.Snapshot(res_pf.iters, w_new, float(res_pf.objective_trace[-1])),
+                            watch_root, step=new_step)
+        reloaded = srv_w.maybe_reload()
+        after = serve_queries(srv_w, buckets, queries[:4 * SERVE_ROWS], formats.pad_query_planes)
+        st_w = srv_w.stats()
+        want_new = np.array([(v * w_new[c]).sum() for c, v in queries[:4 * SERVE_ROWS]], np.float32)
+        swap_err = float(np.max(np.abs(after["scores"] - want_new)) / max(1.0, np.abs(want_new).max()))
+        log(f"  hot swap: step {res_c.iters} -> {reloaded}, swaps {st_w['swaps']}, shapes "
+            f"{shapes_before} -> {st_w['distinct_shapes']}, new scores rel err {swap_err:.3e}, "
+            f"{int(np.sum(after['labels'] != before['labels']))} of {len(after['labels'])} labels moved")
+        require(reloaded == new_step and st_w["swaps"] == 1, "the hot swap was not observed")
+        require(st_w["distinct_shapes"] == shapes_before, "the hot swap changed the served shapes")
+        require(swap_err <= KERNEL_RTOL, f"after the swap the scores are off by {swap_err:.3e}")
+
+    srv_d = serve.SvmServer.from_snapshot(
+        serve.Snapshot(res.iters, res.w_consensus.cpu().numpy(), objective))
+    srv_d.score(ds.X_test[:SERVE_ROWS])  # warm-up
+    reset_counts(K, P, S)
+    t0 = time.perf_counter()
+    _, dense_lbl = srv_d.score(ds.X_test)
+    dense_s = time.perf_counter() - t0
+    dense_counts = counts(K, P, S)
+    n_correct_d = int(np.sum(dense_lbl == ds.y_test))
+    acc_d = n_correct_d / len(ds.y_test)
+    log(f"  reuters dense: {ds.X_test.shape[0]} queries in one score call, {dense_s * 1e3:.2f} ms "
+        f"host time ({ds.X_test.shape[0] / dense_s:.1f} queries/s), test accuracy {acc_d:.4f}")
+    require(dense_counts["dense_scores"] == 1, "reuters dense serving did not launch dense_scores once")
+    require(n_correct_d == n_correct, f"dense served accuracy {acc_d:.4f} != phase 4's {acc:.4f}")
+
+    log("phase 11: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -665,16 +942,20 @@ def main() -> int:
                 "ell_margins_prefetch": sparse_counts["ell_margins_prefetch"],
                 "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
                 "ell_margins": sweep_counts["ell_margins"],
-                "ell_grad_update": sweep_counts["ell_grad_update"]}
+                "ell_grad_update": sweep_counts["ell_grad_update"],
+                "ell_scores_prefetch": serve_counts["ell_scores_prefetch"]}
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
              "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
              "ell_margins_prefetch": "sparse training, auto = prefetch (phase 7)",
              "ell_grad_update_prefetch": "sparse training, auto = prefetch (phase 7)",
              "ell_margins": "sparse training, sweep (phase 8)",
-             "ell_grad_update": "sparse training, sweep (phase 8)"}
+             "ell_grad_update": "sparse training, sweep (phase 8)",
+             "ell_scores_prefetch": "sparse serving (phase 10)"}
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
-               **{name: "sparse.cu" for name in KERNELS if name.startswith("ell_")}}
+               "ell_scores_prefetch": "predict.cu",
+               **{name: "sparse.cu" for name in KERNELS
+                  if name.startswith("ell_") and name != "ell_scores_prefetch"}}
     line = {"kernels": [dict(name=name, route="cuda", source=f"{SOURCE_DIR}/{sources[name]}",
                              replaces=REPLACES[name], launches=launches[name], path=paths[name],
                              tolerance=f"rel {KERNEL_RTOL}", **kernels[name])
@@ -695,6 +976,21 @@ def main() -> int:
                             "cpu_parity_w_err": w_err_c, "cpu_parity_obj_rel_err": obj_err_c,
                             "prefetch_vs_sweep_w_err": sched_err,
                             "reuters_ell_vs_dense_err": ell_err},
+            "serving": {"dataset": f"ccat scale {CCAT_SCALE} test set",
+                        "buckets": [[b.rows, b.k, b.n_blocks_max] for b in buckets],
+                        "queries": n_q, "batches": n_batches, "serve_s": serve_s,
+                        "batches_per_s": n_batches / serve_s, "queries_per_s": n_q / serve_s,
+                        "mean_batch_host_ms": 1e3 * serve_s / n_batches,
+                        "device_us_per_batch": device_us_s, "device_busy_share": busy_s,
+                        "whole_buckets": whole["buckets"], "ragged_buckets": cut["buckets"],
+                        "test_accuracy": acc_s, "scores_rel_err": serve_err,
+                        "int8_label_agreement": agree, "distinct_shapes": st["distinct_shapes"],
+                        "blocks_visited_ratio": st["blocks_visited_ratio"],
+                        "cap_overflows": st["cap_overflows"], "swaps": st_w["swaps"],
+                        "reuters_dense_queries": int(ds.X_test.shape[0]),
+                        "reuters_dense_s": dense_s,
+                        "reuters_dense_queries_per_s": ds.X_test.shape[0] / dense_s,
+                        "reuters_dense_accuracy": acc_d},
             "total_s": time.perf_counter() - t_all}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -47,7 +47,7 @@
 //   one-hot contraction is. The sweep grad then writes
 //   (1 - s0) * w + s1 * g over all of W; the prefetch grad writes the raw
 //   bucket G[i, j, :] (zero for a sentinel slot) and the wrapper folds it.
-#include "warp_dot.cuh"
+#include "ell_gather.cuh"
 
 namespace repro_torch {
 namespace {
@@ -55,27 +55,6 @@ namespace {
 constexpr int kChunk = 1024;   // entries staged in shared memory at a time
 constexpr int kMaxLanesPerThread = 4;
 constexpr int kMaxTile = kThreads * kMaxLanesPerThread;   // largest blk_d
-
-// sum_e vals[e] * w[cols[e]] over one row's k entries, by one whole warp;
-// with a bitmap, only entries whose d-block is set in it count.
-__device__ __forceinline__ float row_gather_dot(const int* __restrict__ c,
-                                                const float* __restrict__ v,
-                                                const float* __restrict__ w,
-                                                int k, int d, int lane,
-                                                const unsigned* bitmap, int blk_d) {
-  float acc = 0.f;
-  for (int e = lane; e < k; e += 32) {
-    const float val = __ldg(v + e);
-    const int col = __ldg(c + e);
-    if (val == 0.f || static_cast<unsigned>(col) >= static_cast<unsigned>(d)) continue;
-    if (bitmap != nullptr) {
-      const int blk = col / blk_d;
-      if (!((bitmap[blk >> 5] >> (blk & 31)) & 1u)) continue;
-    }
-    acc = fmaf(val, __ldg(w + col), acc);
-  }
-  return warp_sum(acc);
-}
 
 __global__ void __launch_bounds__(kThreads)
 ell_margins_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
@@ -98,15 +77,8 @@ ell_margins_prefetch_kernel(const int* __restrict__ cols, const float* __restric
                             int n_d_blocks) {
   extern __shared__ unsigned bitmap[];  // one bit per d-block of this node
   const int i = blockIdx.y;
-  const int words = (n_d_blocks + 31) >> 5;
-  for (int q = threadIdx.x; q < words; q += kThreads) bitmap[q] = 0u;
-  __syncthreads();
-  const int* ids = block_ids + static_cast<size_t>(i) * n_blocks_max;
-  for (int j = threadIdx.x; j < n_blocks_max; j += kThreads) {
-    const int bid = __ldg(ids + j);
-    if (bid >= 0 && bid < n_d_blocks) atomicOr(bitmap + (bid >> 5), 1u << (bid & 31));
-  }
-  __syncthreads();
+  build_block_bitmap(bitmap, block_ids + static_cast<size_t>(i) * n_blocks_max, n_blocks_max,
+                     n_d_blocks);
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;
   const long long row = static_cast<long long>(i) * B + b;
@@ -192,12 +164,6 @@ ell_grad_update_prefetch_kernel(const int* __restrict__ cols, const float* __res
   }
 }
 
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 }  // namespace
 }  // namespace repro_torch
 
@@ -224,7 +190,7 @@ extern "C" int ell_margins_prefetch(const void* cols, const void* vals, const vo
                                     const void* y, const void* block_ids, void* out,
                                     int m, int B, int k, int d, int n_blocks_max,
                                     int blk_d, int n_d_blocks, void* stream) {
-  const size_t smem = static_cast<size_t>((n_d_blocks + 31) >> 5) * sizeof(unsigned);
+  const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(ell_margins_prefetch_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (m > 0 && B > 0) {

@@ -1,7 +1,8 @@
 """Dispatch layer over the kernels: the Pegasos half-step for one node or
 for the whole fleet, dense or over padded-ELL planes, the Pegasos step with
-its loss, and fused dense serving scores. Port of
-``repro.kernels.hinge_subgrad.ops`` (all but sparse serving).
+its loss, fused serving scores over dense or padded-ELL query batches, and
+the launch accounting on a telemetry registry (``launch_cost``,
+``record_launch``). Port of ``repro.kernels.hinge_subgrad.ops``.
 
 The step scalars ``α = 1/(λt)``, ``λα`` and ``α/B`` are formed in float32 as
 the reference forms them; the violator coefficients, the touched-block map
@@ -24,10 +25,12 @@ from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
 from repro_torch.kernels.hinge_subgrad import predict as P
 from repro_torch.kernels.hinge_subgrad import sparse as S
 from repro_torch.sparse.formats import DEFAULT_BUCKET_BLK_D
+from repro_torch.telemetry import registry as tmr
 
 __all__ = ["step_scalars", "padded_row_mask", "local_half_step", "fleet_half_step",
            "ell_fleet_half_step", "ell_block_map", "resolve_ell_schedule",
-           "pegasos_step", "dense_predict", "launch_cost", "DEFAULT_BLK_D_SPARSE",
+           "pegasos_step", "dense_predict", "ell_predict", "resolve_block_cap",
+           "launch_cost", "record_launch", "DEFAULT_BLK_D_SPARSE",
            "ELL_ONEHOT_BUDGET", "ELL_PREFETCH_BLK_D"]
 
 # The reference's sweep block width and its per-program one-hot budget: they
@@ -230,6 +233,31 @@ def pegasos_step(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
     return project_ball(w_half, lam), loss
 
 
+def _as_class_matrix(W: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if W.ndim not in (1, 2):
+        raise ValueError(f"W must be (d,) or (C, d), got shape {tuple(W.shape)}")
+    return (W.reshape(1, -1), True) if W.ndim == 1 else (W, False)
+
+
+def _finish_predict(scores: torch.Tensor, labels: torch.Tensor,
+                    binary: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Binary → ((B,) margins, (B,) float32 labels in {−1, +1}, +1 at margin
+    0); multiclass → the kernel's ((B, C) scores, (B,) int32 labels)."""
+    if binary:
+        s = scores[:, 0]
+        return s, torch.where(s >= 0.0, 1.0, -1.0).to(torch.float32)
+    return scores, labels
+
+
+def resolve_block_cap(B: int, k: int, *, n_d_blocks: int,
+                      n_blocks_max: int | None = None) -> int:
+    """The one statement of the touched-block map width: the requested cap
+    (or the no-information ``B·k``) clamped to the structural limits. The
+    serving engine's shape key and host-side map width must agree with
+    ``ell_predict``'s internal computation — both call this."""
+    return max(1, min(n_blocks_max or B * k, B * k, n_d_blocks))
+
+
 def dense_predict(W: torch.Tensor, X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused serving scores and argmax in one ``dense_scores`` launch.
 
@@ -237,15 +265,43 @@ def dense_predict(W: torch.Tensor, X: torch.Tensor) -> tuple[torch.Tensor, torch
     Binary → ((B,) margins, (B,) float32 labels in {−1, +1}, +1 at margin 0);
     multiclass → ((B, C) scores, (B,) int32 first-occurrence argmax).
     """
-    if W.ndim not in (1, 2):
-        raise ValueError(f"W must be (d,) or (C, d), got shape {tuple(W.shape)}")
-    binary = W.ndim == 1
-    W2 = W.reshape(1, -1) if binary else W
+    W2, binary = _as_class_matrix(W)
     scores, labels = P.dense_scores(X, W2, n_classes=W2.shape[0])
-    if binary:
-        s = scores[:, 0]
-        return s, torch.where(s >= 0.0, 1.0, -1.0).to(torch.float32)
-    return scores, labels
+    return _finish_predict(scores, labels, binary)
+
+
+def ell_predict(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, *,
+                n_blocks_max: int | None = None, blk_d: int | None = None,
+                block_ids: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sparse serving scores and argmax over one padded-ELL query batch, in
+    one ``ell_scores_prefetch`` launch.
+
+    W: (d,) or (C, d); cols/vals: (B, k) int32 / float32 query planes (pad
+    entries (0, 0) and all-pad rows inert: a pad row scores 0 for every
+    class and labels +1 / class 0). ``block_ids`` (n_blocks_max,) int32 is a
+    host-computed map (``formats.block_map`` with m = 1, the serving
+    engine's path); by default the map is built on the planes' device
+    (:func:`ell_block_map`) at the width :func:`resolve_block_cap` gives
+    ``n_blocks_max``. Only entries whose d-block is in the map count. A
+    batch with k = 0 is widened to one inert entry per row. Returns
+    ``(scores, labels)`` shaped and typed as :func:`dense_predict`'s.
+    """
+    W2, binary = _as_class_matrix(W)
+    C, d = W2.shape
+    B, k = cols.shape
+    if k == 0:  # an all-empty batch: widen to one inert entry (shapes nonzero)
+        cols = torch.zeros((B, 1), dtype=torch.int32, device=cols.device)
+        vals = torch.zeros((B, 1), dtype=torch.float32, device=vals.device)
+        k = 1
+    blk_d = blk_d or ELL_PREFETCH_BLK_D
+    n_d_blocks = -(-d // blk_d)
+    if block_ids is None:
+        cap = resolve_block_cap(B, k, n_d_blocks=n_d_blocks, n_blocks_max=n_blocks_max)
+        block_ids = ell_block_map(cols[None], vals[None], blk_d=blk_d, n_d_blocks=n_d_blocks,
+                                  n_blocks_max=cap)[0]
+    scores, labels = P.ell_scores_prefetch(cols, vals, W2, block_ids, blk_d=blk_d,
+                                           n_d_blocks=n_d_blocks, n_classes=C)
+    return _finish_predict(scores, labels, binary)
 
 
 def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
@@ -259,7 +315,10 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     model behind the kernels' bandwidth bounds. Kinds: ``margins``,
     ``grad_update``, ``local_half_step`` (the two launches of the unfused
     node step), ``fleet_half_step`` (always one launch: the port has no tile
-    limit), ``dense_predict``, and the sparse kernels over (m, B, k) planes:
+    limit), ``dense_predict``, ``ell_predict`` (a (B, k) query batch: the
+    planes, the ``B·k·C`` gathered weights, the (n_blocks_max,) map and the
+    outputs; ``blocks_visited`` is the map's width), and the sparse
+    kernels over (m, B, k) planes:
     ``ell_margins`` and ``ell_margins_prefetch`` (a gather reads the
     ``m·B·k`` entries of W it needs, not all of W), ``ell_grad_update``
     (all of W read and W_half written) and ``ell_grad_update_prefetch``
@@ -292,4 +351,30 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     if kind == "dense_predict":
         return {"launches": 1, "bytes": 4 * (B * d + C * d + B * C + B),
                 "flops": 2 * B * C * d}
+    if kind == "ell_predict":
+        return {"launches": 1,
+                "bytes": 4 * (2 * B * k + B * k * C + n_blocks_max + B * C + B),
+                "flops": 2 * B * k * C, "blocks_visited": n_blocks_max}
     raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def record_launch(kind: str, n: int = 1, *, registry=None,
+                  blocks_visited: float | None = None, **shape) -> dict:
+    """Account ``n`` executions of a kernel entry point on the registry.
+
+    Increments ``kernel.launches`` / ``kernel.bytes`` / ``kernel.flops``
+    (and ``kernel.blocks_visited`` for block-scheduled kinds — pass
+    ``blocks_visited`` to override the static cap with a measured live
+    count), all labeled ``kernel=<kind>``, using :func:`launch_cost` for the
+    per-call numbers. Host-side bookkeeping only; returns the per-call cost
+    dict. Callers account at their boundary (the serving engine per score
+    call)."""
+    reg = tmr.default_registry() if registry is None else registry
+    cost = launch_cost(kind, **shape)
+    reg.counter("kernel.launches", kernel=kind).inc(n * cost["launches"])
+    reg.counter("kernel.bytes", kernel=kind).inc(n * cost["bytes"])
+    reg.counter("kernel.flops", kernel=kind).inc(n * cost["flops"])
+    bv = cost.get("blocks_visited") if blocks_visited is None else blocks_visited
+    if bv is not None:
+        reg.counter("kernel.blocks_visited", kernel=kind).inc(n * bv)
+    return cost

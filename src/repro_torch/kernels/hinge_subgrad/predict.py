@@ -1,10 +1,10 @@
-"""Wrapper of the dense serving kernel ``dense_scores`` (CUDA source:
-``csrc/predict.cu``).
+"""Wrappers of the serving kernels ``dense_scores`` and ``ell_scores_prefetch``
+(CUDA source: ``csrc/predict.cu``).
 
-For tensors on the CPU the wrapper takes the plain PyTorch version; for
+For tensors on the CPU each wrapper takes its plain PyTorch version; for
 tensors on a CUDA device it checks device, dtype, shape and contiguity and
-launches the kernel; anything else raises. A launch adds one to
-``dense_scores.launches``, and nothing else does.
+launches the kernel; anything else raises. A launch adds one to the
+wrapper's ``launches``, and nothing else does.
 """
 from __future__ import annotations
 
@@ -14,12 +14,22 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.hinge_subgrad.ref import ell_predict_scores_ref
+from repro_torch.kernels.hinge_subgrad.sparse import _MAX_BITMAP_BYTES
 
-__all__ = ["dense_scores", "dense_scores_plain"]
+__all__ = ["dense_scores", "dense_scores_plain", "ell_scores_prefetch",
+           "ell_scores_prefetch_plain"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "predict.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "ell_scores_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _P]}
+
+
+def _argmax(S: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """First-occurrence argmax over the first ``n_classes`` classes, int32."""
+    return torch.argmax(S[:, :n_classes], dim=-1).to(torch.int32)
 
 
 def dense_scores_plain(X: torch.Tensor, W: torch.Tensor, *,
@@ -27,8 +37,7 @@ def dense_scores_plain(X: torch.Tensor, W: torch.Tensor, *,
     """Plain PyTorch scores S = X Wᵀ and first-occurrence argmax over the
     first ``n_classes`` class rows (int32)."""
     S = X @ W.T
-    labels = torch.argmax(S[:, :n_classes], dim=-1).to(torch.int32)
-    return S, labels
+    return S, _argmax(S, n_classes)
 
 
 def dense_scores(X: torch.Tensor, W: torch.Tensor, *,
@@ -56,3 +65,62 @@ def dense_scores(X: torch.Tensor, W: torch.Tensor, *,
 
 
 dense_scores.launches = 0
+
+
+def ell_scores_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                              block_ids: torch.Tensor, *, blk_d: int, n_d_blocks: int,
+                              n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch scores over the entries whose d-block is in the map,
+    and the first-occurrence argmax over the first ``n_classes`` classes."""
+    table = torch.zeros(n_d_blocks + 1, dtype=torch.bool, device=cols.device)
+    table[block_ids.long().clamp(0, n_d_blocks)] = True
+    table[n_d_blocks] = False  # the sentinel marks nothing
+    kept = torch.where(table[(cols.long() // blk_d).clamp(0, n_d_blocks)], vals,
+                       torch.zeros_like(vals))
+    S = ell_predict_scores_ref(W, cols, kept)
+    return S, _argmax(S, n_classes)
+
+
+def ell_scores_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                        block_ids: torch.Tensor, *, blk_d: int, n_d_blocks: int,
+                        n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Touched-block scores and argmax for one padded-ELL query batch.
+
+    cols/vals: (B, k) int32 / float32 planes (pad entries (0, 0) inert);
+    W: (C, d) class weights, unpadded; ``block_ids``: (n_blocks_max,) int32
+    batch-wide map of live d-blocks (blocks of ``blk_d`` columns), then the
+    sentinel ``n_d_blocks``. An entry counts only if its block is in the map,
+    as on the TPU: with a sound cap that is every live entry, with an
+    undersized one the dropped blocks' entries are lost. Returns
+    (scores (B, C) float32, labels (B,) int32), the labels the
+    first-occurrence argmax over classes ``c < n_classes``.
+    """
+    if _build.on_cpu(cols, vals, W, block_ids):
+        return ell_scores_prefetch_plain(cols, vals, W, block_ids, blk_d=blk_d,
+                                         n_d_blocks=n_d_blocks, n_classes=n_classes)
+    B, k = cols.shape
+    C, d = W.shape
+    _build.check_tensor("cols", cols, (B, k), torch.int32)
+    _build.check_tensor("vals", vals, (B, k))
+    _build.check_tensor("W", W, (C, d))
+    n_blocks_max = block_ids.shape[0] if block_ids.ndim == 1 else -1
+    _build.check_tensor("block_ids", block_ids, (n_blocks_max,), torch.int32)
+    if not 1 <= n_classes <= C:
+        raise ValueError(f"n_classes must lie in [1, {C}], got {n_classes}")
+    if blk_d < 1:
+        raise ValueError(f"blk_d must be >= 1, got {blk_d}")
+    if n_d_blocks < 1 or (n_d_blocks + 31) // 32 * 4 > _MAX_BITMAP_BYTES:
+        raise ValueError(f"n_d_blocks={n_d_blocks} out of range")
+    S = torch.empty((B, C), dtype=torch.float32, device=W.device)
+    labels = torch.empty((B,), dtype=torch.int32, device=W.device)
+    with torch.cuda.device(W.device):
+        code = _build.load(_SOURCE, _SIGNATURES).ell_scores_prefetch(
+            cols.data_ptr(), vals.data_ptr(), W.data_ptr(), block_ids.data_ptr(),
+            S.data_ptr(), labels.data_ptr(), B, k, d, C, n_classes, n_blocks_max, blk_d,
+            n_d_blocks, _build.stream(W))
+    _build.check(code, "ell_scores_prefetch")
+    ell_scores_prefetch.launches += 1
+    return S, labels
+
+
+ell_scores_prefetch.launches = 0

@@ -1,8 +1,8 @@
 """Plain PyTorch oracles for the Pegasos hinge-subgradient step.
 
-Port of ``repro.kernels.hinge_subgrad.ref`` (its dense and its ELL training
-functions): margins = X w; L = Xᵀ(1[margin<1]·y)/B; w' = (1 − λα)w + αL;
-projection onto the 1/√λ ball. The ELL oracles compute the same over
+Port of ``repro.kernels.hinge_subgrad.ref``: margins = X w;
+L = Xᵀ(1[margin<1]·y)/B; w' = (1 − λα)w + αL; projection onto the 1/√λ
+ball; serving scores S = X Wᵀ. The ELL oracles compute the same over
 padded-ELL planes (pad entries (col=0, val=0), pad rows y=0) as a
 gather-dot and a scatter-add. These are the math the CUDA kernels are held
 to, written directly in PyTorch with no kernel in the way.
@@ -15,7 +15,7 @@ from repro_torch.core.svm_objective import project_ball
 
 __all__ = ["half_step_ref", "fleet_half_step_ref", "ell_margins_ref",
            "ell_matvec_flat", "ell_fleet_half_step_ref", "predict_scores_ref",
-           "predict_labels_ref", "pegasos_step_ref"]
+           "predict_labels_ref", "ell_predict_scores_ref", "pegasos_step_ref"]
 
 
 def half_step_ref(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor, lam: float,
@@ -78,6 +78,14 @@ def predict_scores_ref(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 def predict_labels_ref(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """First-occurrence argmax_c S[b, c], int32."""
     return torch.argmax(predict_scores_ref(W, X), dim=-1).to(torch.int32)
+
+
+def ell_predict_scores_ref(W: torch.Tensor, cols: torch.Tensor,
+                           vals: torch.Tensor) -> torch.Tensor:
+    """Scores of one (B, k) padded-ELL query batch as a gather-dot against
+    every class row: S[b, c] = Σ_k vals[b,k]·W[c, cols[b,k]]. W: (C, d).
+    Pad entries (val=0) are inert; an all-pad row scores 0 for every class."""
+    return torch.einsum("bk,cbk->bc", vals, W[:, cols.long()])
 
 
 def pegasos_step_ref(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor, lam: float,

@@ -1,0 +1,14 @@
+"""Serving for the port: snapshot → versioned checkpoint → score.
+
+``snapshot`` exports a model state as a checkpoint (f32 or int8 + scale) in
+the reference's format; ``batcher`` holds the bucket shapes sparse queries
+are padded to; ``engine`` is ``SvmServer``, scoring dense batches on the
+``dense_scores`` kernel and padded-ELL batches on ``ell_scores_prefetch``,
+with ``watch`` / ``maybe_reload`` hot-swapping the weight plane between
+drains.
+"""
+from repro_torch.serve.batcher import Bucket, bucket_ladder, calibrate_buckets  # noqa: F401
+from repro_torch.serve.engine import SvmServer  # noqa: F401
+from repro_torch.serve.snapshot import (SERVE_FORMAT_VERSION, SERVE_KIND,  # noqa: F401
+                                        Snapshot, dequantize_int8, from_checkpoint,
+                                        quantize_int8, to_checkpoint)

@@ -13,6 +13,7 @@ static ``n_blocks_max`` cap (sound for every minibatch the trainer can
 draw), and :func:`block_map` builds the compact (m, n_blocks_max) map of
 each node's distinct live d-blocks followed by the sentinel ``n_d_blocks``;
 ``repro_torch.kernels.hinge_subgrad.ops.ell_block_map`` is its device twin.
+:func:`pad_query_planes` states the serving buckets' fixed batch shapes.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["ELL", "EllPartitions", "partition_rows", "DEFAULT_BUCKET_BLK_D",
-           "block_map", "row_block_counts", "minibatch_block_bound"]
+           "block_map", "row_block_counts", "minibatch_block_bound",
+           "pad_query_planes"]
 
 # d-block width of the touched-block schedule and of its static bound
 DEFAULT_BUCKET_BLK_D = 128
@@ -212,3 +214,29 @@ def block_map(cols: np.ndarray, vals: np.ndarray, blk_d: int, n_d_blocks: int,
                 f"node {i} touches {len(live)} blocks > n_blocks_max={n_blocks_max}")
         out[i, :len(live)] = live
     return out
+
+
+def pad_query_planes(queries, rows: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad a list of ragged sparse queries into one fixed-shape ELL batch.
+
+    ``queries``: up to ``rows`` items of ``(cols_i, vals_i)`` 1-D arrays (a
+    query's nonzero features). Returns ``(cols, vals)`` planes of exactly
+    ``(rows, k)``; entries beyond a query's nnz and rows beyond
+    ``len(queries)`` carry the inert ``(0, 0.0)``. This is the one statement
+    of the serving buckets' shapes, so the kernel sees one of a small fixed
+    set of shapes. Raises if a query has more than ``k`` nonzeros (route it
+    to a wider bucket rather than drop features)."""
+    if len(queries) > rows:
+        raise ValueError(f"{len(queries)} queries > bucket rows={rows}")
+    cols = np.zeros((rows, k), np.int32)
+    vals = np.zeros((rows, k), np.float32)
+    for i, (c, v) in enumerate(queries):
+        c = np.asarray(c, np.int32).reshape(-1)
+        v = np.asarray(v, np.float32).reshape(-1)
+        if c.shape != v.shape:
+            raise ValueError(f"query {i}: cols/vals lengths disagree")
+        if len(c) > k:
+            raise ValueError(f"query {i} has {len(c)} nonzeros > bucket k={k}")
+        cols[i, :len(c)] = c
+        vals[i, :len(v)] = v
+    return cols, vals
