@@ -1,0 +1,59 @@
+"""Wrapper of the ``wkv_scan`` kernel (CUDA source: ``csrc/wkv_scan.cu``)
+and its plain PyTorch version.
+
+For tensors on the CPU the wrapper takes the plain version; for tensors on
+a CUDA device it checks device, dtype, shape and contiguity and launches the
+kernel; anything else raises. A launch adds one to ``wkv_scan.launches``,
+and nothing else does.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6_scan.ref import scan_ref
+
+__all__ = ["HEAD_DIMS", "wkv_scan", "wkv_scan_plain"]
+
+HEAD_DIMS = (16, 32, 64)  # the kernel's instantiations
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv_scan.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"wkv_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+
+
+def wkv_scan_plain(r, k, v, w, u) -> torch.Tensor:
+    """Plain PyTorch version: the recurrence one time step at a time, S_0 = 0."""
+    return scan_ref(r, k, v, w, u)
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor) -> torch.Tensor:
+    """r, k, v, w: (B, S, H, n) float32; u: (H, n). Returns out (B, S, H, n)
+    with ``out_t = r_t (S + diag(u) k_tᵀ v_t)`` and
+    ``S <- diag(w_t) S + k_tᵀ v_t`` per (batch, head), S_0 = 0. On CUDA, n
+    must be one of ``HEAD_DIMS``."""
+    if _build.on_cpu(r, k, v, w, u):
+        return wkv_scan_plain(r, k, v, w, u)
+    if r.ndim != 4:
+        raise ValueError(f"r must be (B, S, H, n), got shape {tuple(r.shape)}")
+    B, S, H, n = r.shape
+    if n not in HEAD_DIMS:
+        raise ValueError(f"head size {n} not among the kernel's {HEAD_DIMS}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _build.check_tensor(name, t, (B, S, H, n))
+    _build.check_tensor("u", u, (H, n))
+    out = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        code = _build.load(_SOURCE, _SIGNATURES).wkv_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            out.data_ptr(), B, S, H, n, _build.stream(r))
+    _build.check(code, "wkv_scan")
+    wkv_scan.launches += 1
+    return out
+
+
+wkv_scan.launches = 0

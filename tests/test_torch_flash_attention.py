@@ -1,0 +1,115 @@
+"""The port's flash attention against the reference's Pallas kernel, run in
+interpret mode, and against its oracle. On CPU tensors the port's wrapper
+takes the kernel's plain version, which is what these tests hold to the
+reference (the CUDA kernel itself is held to the plain version on the card
+by chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention.ops import gqa_flash_attention as ref_gqa  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (gqa_flash_attention, launch_cost,  # noqa: E402
+                                                     live_pairs)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+
+# the reference test's shapes (tests/test_kernels.py::TestFlashAttention) and tolerances
+SHAPES = [
+    (2, 128, 4, 2, 64, True, 0),
+    (1, 256, 4, 1, 64, True, 64),
+    (2, 64, 2, 2, 32, False, 0),
+    (1, 128, 8, 4, 128, True, 32),
+    (1, 96, 2, 1, 16, True, 0),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(b, s, h, hkv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, dh)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, dh)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, dh)).astype(np.float32))
+
+
+def _planes(x, h):
+    """(B, S, Hx, dh) numpy -> the reference kernel's (B*H, S, dh), kv heads repeated."""
+    b, s, hx, dh = x.shape
+    x = np.repeat(x, h // hx, axis=2)
+    return np.moveaxis(x, 2, 1).reshape(b * h, s, dh)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,hkv,dh,causal,window", SHAPES)
+def test_matches_reference_kernel(b, s, h, hkv, dh, causal, window, dtype):
+    q, k, v = _qkv(b, s, h, hkv, dh)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_gqa(*(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal, window=window,
+                   blk_q=32, blk_k=32, interpret=True)
+    got = gqa_flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                              causal=causal, window=window)
+    assert got.dtype == tdt and tuple(got.shape) == (b, s, h, dh)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s,window,causal", [(100, 0, True), (100, 16, True), (37, 64, True),
+                                             (37, 64, False), (100, 250, True)])
+def test_any_length_matches_oracle(s, window, causal):
+    """Lengths the reference's wrapper cannot take (S % blk != 0) and windows
+    wider than S, against the reference's oracle."""
+    b, h, hkv, dh = 2, 4, 2, 32
+    q, k, v = _qkv(b, s, h, hkv, dh, seed=s + window)
+    want = ref_attention(*(jnp.asarray(_planes(x, h)) for x in (q, k, v)), causal=causal,
+                         window=window)
+    want = np.moveaxis(np.asarray(want).reshape(b, h, s, dh), 1, 2)
+    got = gqa_flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    # a window wider than the sequence masks nothing beyond causality
+    if window >= s:
+        plain = gqa_flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6)
+
+
+def test_port_oracle_matches_reference_oracle():
+    q, k, v = (x[:, :, 0] for x in _qkv(3, 50, 1, 1, 16, seed=5))
+    for causal, window in ((True, 0), (True, 7), (False, 9)):
+        want = ref_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=causal, window=window)
+        got = attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+                            window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_plain_version_does_not_count_and_strided_views_agree():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 40, 4, 2, 32, seed=3))
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, causal=True, window=8)
+    assert FA.flash_attention.launches == before  # CPU tensors: the plain version, no launch
+    # a (B, H, S, dh) tensor seen through a transpose gives the same result
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qt.is_contiguous()
+    torch.testing.assert_close(FA.flash_attention(qt, k, v, causal=True, window=8), out)
+
+
+def test_rejects_bad_shapes_and_devices():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 3, 2, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        FA.flash_attention(q, k, v)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 4, 2, 16))
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="unsupported device"):
+        FA.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("s,causal,window", [(1, True, 0), (17, True, 0), (17, False, 0),
+                                             (40, True, 8), (40, False, 8), (10, True, 64)])
+def test_launch_cost_counts_live_pairs(s, causal, window):
+    mask = FA.band_mask(s, s, causal=causal, window=window)
+    assert live_pairs(s, causal=causal, window=window) == int(mask.sum())
+    cost = launch_cost(B=2, S=s, H=4, Hkv=2, dh=32, causal=causal, window=window)
+    assert cost["flops"] == 4 * 32 * 4 * 2 * int(mask.sum())
+    assert cost["bytes"] == 4 * 2 * s * 32 * (2 * 4 + 2 * 2)
