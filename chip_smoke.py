@@ -22,7 +22,12 @@ Phases, each of which exits non-zero on failure:
    Llama-3-8B's (2048 tokens, 32 heads of 128, 8 kv heads), at S = 1000, with
    a window wider than S, non-causal, and in bf16 (2e-2, the reference
    test's tolerance, and each element within one bf16 ulp of the plain
-   output); ``rglru_scan`` at (2, 4096, 4096) and ragged shapes;
+   output), its library call the fastest SDPA backend that takes the masked
+   f32 call, its bound at the peak of its route (f32 split into three TF32
+   products: a third of 495 TFLOP/s), and its bf16 time; ``dense_scores``
+   also at four classes and at serving batches of 8 and 64 rows beside
+   ``torch.mm``, and held at d = 70,001 with 20 classes (column slabs and
+   class tiles); ``rglru_scan`` at (2, 4096, 4096) and ragged shapes;
    ``wkv_scan`` at RWKV6-3B's (2, 4096, 40, 64) and ragged shapes;
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
@@ -84,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,6 +101,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 on the tensor cores (dense)
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores (dense)
+# flash_attention's routes: f32 inputs split into TF32 hi + lo, three products
+# each (a third of the TF32 rate); bf16 inputs exact in TF32, one product for
+# q k^T and two for P v (P split): half the work at the TF32 rate, twice
+ATTN_F32_SPLIT = ("tf32 x3 (f32 split)", TF32_FLOPS_PER_S / 3)
+ATTN_BF16_ROUTE = ("tf32 x1.5 (bf16 exact, P split)", TF32_FLOPS_PER_S / 1.5)
 KERNEL_RTOL = 1e-5          # max |kernel − plain| / max(1, max |plain|)
 PATH_W_ATOL = 1e-4          # phase 6: card against CPU, 200 iterations
 PATH_OBJ_RTOL = 1e-5
@@ -191,11 +204,40 @@ def device_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(cost: dict) -> tuple[float, str]:
-    """Least time in ms for a ``launch_cost`` on the card, and what bounds it."""
+def bound(cost: dict, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time in ms for a ``launch_cost`` on the card, and what bounds it:
+    the operations at ``flops_per_s``, the peak of the kernel's route (the
+    f32 rate outside the tensor cores unless given)."""
     t_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = cost["flops"] / F32_FLOPS_PER_S * 1e3
+    t_ops = cost["flops"] / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_resources(log_text: str) -> dict:
+    """{kernel<template args>: "R registers, S bytes spill stores, M bytes
+    smem"} from an ``nvcc -Xptxas -v`` log (static shared memory only; the
+    kernels' dynamic shared memory is sized at launch)."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.findall(r"\d+([a-z_]+_kernel)", mangled)
+            args = re.search(r"_kernelI(\w*?)EE?v", mangled)
+            tokens = re.findall(r"Li(\d+)|Lb(\d)|(13__nv_bfloat16)|^(f)",
+                                args.group(1) if args else "")
+            name = (base[-1] if base else mangled) + (
+                "<" + ", ".join("bf16" if t[2] else "f32" if t[3] else t[0] or ("true" if t[1] == "1"
+                                                                            else "false")
+                                for t in tokens) + ">" if tokens else "")
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return out
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -305,6 +347,35 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
             f"{errs['ragged'][0]:.3e}), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+
+    # dense_scores beside torch.mm at four classes (X read once; W 133 KB)
+    # and at serving batches, each held to the plain version first
+    extra = {}
+    for which, (B, C) in {"C4": (3299, 4), "B8": (8, 1), "B64": (64, 1)}.items():
+        Xe = Xq[:B].contiguous()
+        We = torch.randn(C, d, generator=gen, device=dev)
+        (got, got_l), (want, _) = (P.dense_scores(Xe, We, n_classes=C),
+                                   P.dense_scores_plain(Xe, We, n_classes=C))
+        err = rel_err(got, want)
+        require(err[1] <= KERNEL_RTOL and torch.equal(got_l.long(), torch.argmax(got, dim=1)),
+                f"dense_scores {which}: rel err {err[1]:.3e} or labels off")
+        t = device_ms(torch, lambda: P.dense_scores(Xe, We, n_classes=C), 200)
+        t_mm = device_ms(torch, lambda: torch.mm(Xe, We.t()), 200)
+        b_ms, b_by = bound(ops.launch_cost("dense_predict", B=B, d=d, C=C))
+        extra[which] = dict(shape=f"X ({B}, {d}), W ({C}, {d})", max_abs_err=err[0], ms=t,
+                            library_ms=t_mm, bound_ms=b_ms, bound_by=b_by)
+        log(f"  {'dense_scores':16s} X ({B}, {d}), W ({C}, {d}): err {err[0]:.3e}, kernel "
+            f"{t * 1e3:.2f} us, torch.mm {t_mm * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    # rows wider than one class row of shared memory (column slabs) and more
+    # classes than one tile: two launches each way, held, not timed
+    Xw, Ww = rows(33, 70001), torch.randn(20, 70001, generator=gen, device=dev)
+    (got, got_l), (want, _) = (P.dense_scores(Xw, Ww, n_classes=17),
+                               P.dense_scores_plain(Xw, Ww, n_classes=17))
+    err = rel_err(got, want)
+    require(err[1] <= KERNEL_RTOL and torch.equal(got_l.long(), torch.argmax(got[:, :17], dim=1)),
+            f"dense_scores at d 70001, C 20: rel err {err[1]:.3e} or labels off")
+    log(f"  {'dense_scores':16s} X (33, 70001), W (20, 70001), 17 classes ranked: err {err[0]:.3e}")
+    results["dense_scores"]["other_shapes"] = extra
     return results
 
 
@@ -632,17 +703,44 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     band = FA.band_mask(s, s, causal=causal, window=window, device=dev)
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
-    require(rel_err(library().transpose(1, 2), FA.flash_attention_plain(q, k, v, causal=causal,
-                                                                        window=window))[1]
-            <= KERNEL_RTOL, "scaled_dot_product_attention does not compute the attention")
+    # every SDPA backend that takes this masked f32 call, timed; the fastest
+    # is the library call
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    plain_out = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    backends = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def sdpa(be=be):
+            with sdpa_kernel([be]):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+        try:
+            out = sdpa()
+        except RuntimeError as e:  # the backend refuses the call's dtype, mask or heads
+            log(f"  sdpa {be.name}: refused ({str(e).splitlines()[0][:100]})")
+            continue
+        require(rel_err(out.transpose(1, 2), plain_out)[1] <= KERNEL_RTOL,
+                f"scaled_dot_product_attention ({be.name}) does not compute the attention")
+        del out
+        backends[be.name] = device_ms(torch, sdpa, 3)
+        log(f"  sdpa {be.name}: {backends[be.name]:.4f} ms")
+    require(bool(backends), "no SDPA backend takes the masked f32 call")
+    lib_name = min(backends, key=backends.get)
+    del plain_out
     cost = FO.launch_cost(B=b, S=s, H=h, Hkv=k.shape[2], dh=dh, causal=causal, window=window)
     rows = {"flash_attention": dict(
-        errs=errs, cost=cost, n=(20, 3, 20), shape=f"q ({b}, {s}, {h}, {dh}), kv heads "
-        f"{k.shape[2]}, causal, window {window}", library=library,
+        errs=errs, cost=cost, n=(20, 3, 0), shape=f"q ({b}, {s}, {h}, {dh}), kv heads "
+        f"{k.shape[2]}, causal, window {window}", library=None,
+        library_ms=backends[lib_name], library_backend=lib_name, route=ATTN_F32_SPLIT,
         kernel=lambda: FA.flash_attention(q, k, v, causal=causal, window=window),
         plain=lambda: FA.flash_attention_plain(q, k, v, causal=causal, window=window))}
+    qb, kb_, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    bf16_ms = device_ms(torch, lambda: FA.flash_attention(qb, kb_, vb, causal=causal,
+                                                          window=window), 20)
+    bf16_bound_ms = bound(cost, ATTN_BF16_ROUTE[1])[0]
+    bf16_mma_bound_ms = bound(cost, BF16_FLOPS_PER_S)[0]
+    log(f"  flash_attention bf16 at the path shape: kernel {bf16_ms:.4f} ms, bound "
+        f"{bf16_bound_ms:.4f} ms ({ATTN_BF16_ROUTE[0]}; {bf16_mma_bound_ms:.4f} ms on bf16 MMA)")
+    del qb, kb_, vb
 
     # rglru_scan: a in (0.8, 0.999) as the gates give it near 1, b normal
     scan_errs, main = {}, None
@@ -692,20 +790,28 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         n_kernel, n_plain, n_lib = row["n"]
         ms = device_ms(torch, row["kernel"], n_kernel)
         plain_ms = device_ms(torch, row["plain"], n_plain)
-        lib_ms = None if row["library"] is None else device_ms(torch, row["library"], n_lib)
-        bound_ms, bound_by = bound(row["cost"])
+        lib_ms = (row.get("library_ms") if row["library"] is None
+                  else device_ms(torch, row["library"], n_lib))
+        route = row.get("route")
+        bound_ms, bound_by = bound(row["cost"], *([] if route is None else [route[1]]))
         e = row["errs"]
         results[name] = dict(max_abs_err=e["main"][0],
                              ragged_max_abs_err=max(v[0] for w_, v in e.items()
                                                     if w_ not in ("main", "bf16")),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by, shape=row["shape"])
+        if route is not None:
+            results[name].update(bound_route=route[0], library_backend=row["library_backend"],
+                                 bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound_ms,
+                                 bf16_bound_route=ATTN_BF16_ROUTE[0],
+                                 bf16_mma_bound_ms=bf16_mma_bound_ms)
         if "bf16" in e:
             results[name]["bf16_max_abs_err"] = e["bf16"][0]
         log(f"  {name:16s} {row['shape']}: err "
             + ", ".join(f"{w_} {v[0]:.3e}" for w_, v in e.items())
             + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by}"
+            + ("" if route is None else f", {route[0]}") + ")")
     return results
 
 
@@ -1004,6 +1110,13 @@ def main() -> int:
     libs = _build.build()
     log(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
+    resources = {}
+    for src, lib in libs.items():
+        res = ptxas_resources(lib.with_suffix(".log").read_text())
+        resources[src.name] = res
+        log(f"  {src.name}: " + "; ".join(
+            f"{k} {v.get('registers')} registers, {v.get('spill_stores')} B spilled, "
+            f"{v.get('smem')} B static smem" for k, v in res.items()))
 
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1407,6 +1520,7 @@ def main() -> int:
                         "reuters_dense_queries_per_s": ds.X_test.shape[0] / dense_s,
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
+            "ptxas": resources,
             "total_s": time.perf_counter() - t_all}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

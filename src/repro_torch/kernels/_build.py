@@ -7,7 +7,9 @@ into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, where
 edited source is rebuilt and an unchanged one is not. The sources expose a
 plain C interface (no PyTorch headers), which keeps a build to seconds.
 ``build`` starts one nvcc per missing library, all at once, and waits for
-all of them.
+all of them; nvcc's output, with ptxas's registers, spills and shared memory
+for every kernel (``-Xptxas -v``), is kept beside each library as
+``lib<name>-<hash>.log``.
 
 Every C entry takes pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
@@ -28,7 +30,7 @@ __all__ = ["NVCC_FLAGS", "BUILD_DIR", "all_sources", "build", "load", "check",
            "on_cpu", "check_tensor", "stream"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -84,6 +86,7 @@ def build(sources: list[Path] | None = None) -> dict[Path, Path]:
             if p.returncode != 0:
                 failures.append(f"nvcc failed on {src} (exit {p.returncode}):\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)  # atomic: a reader never sees half a library
         if failures:
             raise RuntimeError("\n".join(failures))

@@ -9,6 +9,7 @@ wrapper's ``launches``, and nothing else does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -17,12 +18,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.ref import ell_predict_scores_ref
 from repro_torch.kernels.hinge_subgrad.sparse import _MAX_BITMAP_BYTES
 
-__all__ = ["dense_scores", "dense_scores_plain", "ell_scores_prefetch",
-           "ell_scores_prefetch_plain"]
+__all__ = ["dense_scores", "dense_scores_plain", "dense_grid", "even_split",
+           "ell_scores_prefetch", "ell_scores_prefetch_plain"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "predict.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                "ell_scores_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P]}
 
@@ -30,6 +31,26 @@ _SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 def _argmax(S: torch.Tensor, n_classes: int) -> torch.Tensor:
     """First-occurrence argmax over the first ``n_classes`` classes, int32."""
     return torch.argmax(S[:, :n_classes], dim=-1).to(torch.int32)
+
+
+def even_split(n: int, parts: int) -> list[tuple[int, int]]:
+    """``dense_scores``' split of n items into ``parts`` contiguous ranges,
+    the first ``n % parts`` one item longer: rows over the blocks of the
+    grid, and a block's 16-byte units over its warps."""
+    q, r = divmod(n, parts)
+    starts = [i * q + min(i, r) for i in range(parts + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def dense_grid(B: int, n_sm: int) -> int:
+    """Blocks of the ``dense_scores`` launch: one wave of one block per SM,
+    and no block without a row."""
+    return max(1, min(B, n_sm))
 
 
 def dense_scores_plain(X: torch.Tensor, W: torch.Tensor, *,
@@ -56,9 +77,10 @@ def dense_scores(X: torch.Tensor, W: torch.Tensor, *,
     S = torch.empty((B, C), dtype=torch.float32, device=X.device)
     labels = torch.empty((B,), dtype=torch.int32, device=X.device)
     with torch.cuda.device(X.device):
+        n_sm = _sm_count(X.device.index)
         code = _build.load(_SOURCE, _SIGNATURES).dense_scores(
             X.data_ptr(), W.data_ptr(), S.data_ptr(), labels.data_ptr(),
-            B, d, C, n_classes, _build.stream(X))
+            B, d, C, n_classes, dense_grid(B, n_sm), _build.stream(X))
     _build.check(code, "dense_scores")
     dense_scores.launches += 1
     return S, labels

@@ -14,7 +14,8 @@ from repro.kernels.flash_attention.ref import attention_ref as ref_attention  # 
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (gqa_flash_attention, launch_cost,  # noqa: E402
                                                      live_pairs)
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_tf32,  # noqa: E402
+                                                     tf32_matmul, tf32_round)
 
 # the reference test's shapes (tests/test_kernels.py::TestFlashAttention) and tolerances
 SHAPES = [
@@ -113,3 +114,50 @@ def test_launch_cost_counts_live_pairs(s, causal, window):
     cost = launch_cost(B=2, S=s, H=4, Hkv=2, dh=32, causal=causal, window=window)
     assert cost["flops"] == 4 * 32 * 4 * 2 * int(mask.sum())
     assert cost["bytes"] == 4 * 2 * s * 32 * (2 * 4 + 2 * 2)
+
+
+@pytest.mark.parametrize("x,want", [(1.0, 1.0), (1 + 2.0 ** -11, 1 + 2.0 ** -10),
+                                    (1 + 2.0 ** -12, 1.0), (-(1 + 3 * 2.0 ** -12), -(1 + 2.0 ** -10)),
+                                    (3.14159265, 3.140625), (0.0, 0.0)])
+def test_split_tf32_rounding_is_cvt_rna(x, want):
+    """Half away from zero at 10 mantissa bits, the low 13 bits cleared."""
+    got = tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert float(got[0]) == want
+    assert int(got.view(torch.int32)[0]) & 0x1FFF == 0
+
+
+def test_split_tf32_three_terms_recover_f32_products():
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(256, 48)).astype(np.float32))
+    exact = (a.double() @ b.double()).float()
+    scale = float(exact.abs().max())
+    assert float((tf32_matmul(a, b, terms=3) - exact).abs().max()) / scale < 1e-6
+    assert float((tf32_matmul(a, b, terms=1) - exact).abs().max()) / scale > 1e-4
+
+
+def _attention_f64(q, k, v, *, causal, window):
+    q, k, v = (x.double() for x in (q, k, v))
+    s, dh = q.shape[1], q.shape[2]
+    scores = q @ k.transpose(1, 2) / np.sqrt(dh)
+    mask = FA.band_mask(s, s, causal=causal, window=window)
+    return torch.softmax(scores.masked_fill(~mask, FA.NEG_INF), dim=-1) @ v
+
+
+@pytest.mark.parametrize("s,causal,window", [(384, True, 0), (384, True, 128), (256, False, 0)])
+def test_split_tf32_attention_within_kernel_tolerance(s, causal, window):
+    """At dh = 256 the kernel's 3-term split is as close to the exact
+    (float64) attention as the f32 plain version is, within 1e-6, and one
+    TF32 product misses the port's 1e-5 tolerance: why the f32 route splits
+    every operand."""
+    rng = np.random.default_rng(s + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, 256)).astype(np.float32))
+               for _ in range(3))
+    exact = _attention_f64(q, k, v, causal=causal, window=window)
+    scale = max(1.0, float(exact.abs().max()))
+
+    def err(got):
+        return float((got.double() - exact).abs().max()) / scale
+    assert err(attention_ref(q, k, v, causal=causal, window=window)) <= 1e-6
+    assert err(attention_tf32(q, k, v, terms=3, causal=causal, window=window)) <= 1e-6
+    assert err(attention_tf32(q, k, v, terms=1, causal=causal, window=window)) > 1e-5

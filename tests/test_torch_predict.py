@@ -39,6 +39,42 @@ def test_dense_predict(B, d, C):
         assert not torch.any(l_port == C - 1)  # a tie with class 0 never picks the later one
 
 
+@pytest.mark.parametrize("C", [1, 3, 17])
+@pytest.mark.parametrize("d", [64, 65, 66, 67])
+@pytest.mark.parametrize("B", [1, 8, 260])
+def test_dense_predict_every_row_alignment(B, d, C):
+    """d of every residue mod 4 (the kernel's rows then start at every
+    16-byte phase), one to several hundred rows, up to 17 classes with ties."""
+    X, W = _inputs(B, d, C, seed=7)
+    Wq = W[0] if C == 1 else W
+    s_ref, l_ref = RO.dense_predict(jnp.asarray(Wq), jnp.asarray(X), interpret=True)
+    s_port, l_port = TO.dense_predict(torch.from_numpy(Wq), torch.from_numpy(X))
+    np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(l_port.numpy(), np.asarray(l_ref))
+    if C > 1:
+        assert not torch.any(l_port == C - 1)  # tied with class 0: the first wins
+
+
+@pytest.mark.parametrize("n,parts", [(3299, 132), (8, 132), (1, 132), (0, 16), (5, 16),
+                                     (25 * 2079, 16), (2079, 16), (132, 132)])
+def test_even_split_covers_each_item_once(n, parts):
+    ranges = TP.even_split(n, parts)
+    assert len(ranges) == parts and ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # contiguous, no overlap
+    sizes = [hi - lo for lo, hi in ranges]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+    assert sum(sizes) == n
+
+
+@pytest.mark.parametrize("B,n_sm,want", [(3299, 132, 132), (64, 132, 64), (8, 132, 8),
+                                         (1, 132, 1), (0, 132, 1), (132, 132, 132)])
+def test_dense_grid_is_one_wave_without_empty_blocks(B, n_sm, want):
+    blocks = TP.dense_grid(B, n_sm)
+    assert blocks == want
+    if B:
+        assert all(hi > lo for lo, hi in TP.even_split(B, blocks))
+
+
 def test_dense_scores_masks_classes_beyond_n_classes():
     X, W = _inputs(6, 50, 4, seed=3)
     W[3] = 100.0 * np.abs(W[3])  # would win every row if it were counted
