@@ -22,13 +22,19 @@ Phases, each of which exits non-zero on failure:
    Llama-3-8B's (2048 tokens, 32 heads of 128, 8 kv heads), at S = 1000, with
    a window wider than S, non-causal, and in bf16 (2e-2, the reference
    test's tolerance, and each element within one bf16 ulp of the plain
-   output), its library call the fastest SDPA backend that takes the masked
-   f32 call, its bound at the peak of its route (f32 split into three TF32
-   products: a third of 495 TFLOP/s), and its bf16 time; ``dense_scores``
-   also at four classes and at serving batches of 8 and 64 rows beside
-   ``torch.mm``, and held at d = 70,001 with 20 classes (column slabs and
-   class tiles); ``rglru_scan`` at (2, 4096, 4096) and ragged shapes;
-   ``wkv_scan`` at RWKV6-3B's (2, 4096, 40, 64) and ragged shapes;
+   output), at head sizes 80 and 33 in f32 and bf16, its library call the
+   fastest SDPA backend that takes the masked f32 call, its bound at the
+   peak of its route (f32 split into three TF32 products: a third of 495
+   TFLOP/s), and its bf16 time; ``dense_scores`` also at four classes and
+   at serving batches of 8 and 64 rows beside ``torch.mm``, held at
+   d = 70,001 with 20 classes (column slabs and class tiles), and with NaN
+   rows (labelled ``nan_label(C)``, the reference's rule) at C 3, 4 and
+   130, as ``ell_scores_prefetch`` is at C 4; ``fleet_half_step`` at m 1,
+   10 and 32, B 1 and 37 (rows masked), d 8315, 1001 and 70,001, and a B
+   whose X slice overflows shared memory, with clusters of 8 and 16 timed;
+   ``rglru_scan`` at (2, 4096, 4096) and ragged shapes; ``wkv_scan`` at
+   RWKV6-3B's (2, 4096, 40, 64), at n 16, 24, 64, 80 and 256 with T 1, 33
+   and 4097, and ragged shapes;
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
    fused), then the test set scored with ``dense_predict``; held to test
@@ -71,8 +77,11 @@ Phases, each of which exits non-zero on failure:
     cycle (3 layers) over 2176 tokens (past the 2048 window): every
     position's decode logits against the forward's, at the reference test's
     5e-4 abs / 1e-3 rel;
-14. rwkv6-3b at full width and depth (32 layers): prefill over 2 x 4096
-    tokens (``wkv_scan`` launched 32 times) and serving 4 requests of
+14. a reduced rwkv6 (d_model 96, heads of n = 24, 2 layers) prefilled on
+    the card against the same weights on the CPU (1e-4), ``wkv_scan``
+    launched once a layer; then rwkv6-3b at full width and depth (32
+    layers): prefill over 2 x 4096 tokens (``wkv_scan`` launched 32
+    times) and serving 4 requests of
     32 + 16 tokens; decode against prefill, held at full width over one
     cycle (one layer, 256 tokens) and only reported at full depth (64
     tokens), where random weights amplify f32 rounding beyond the tolerance
@@ -151,6 +160,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16   # launch/serve.py's defaults
 RG_DECODE_LEN = 2176          # past the 2048 window, so the ring cache wraps
 RWKV_DECODE_LEN = 256
 RWKV_DRIFT_LEN = 64           # the full-depth spread, reported: it peaks early
+REDUCED_RWKV_LEN = 300        # phase 14's reduced rwkv6 (heads of 24) against the CPU,
+REDUCED_RWKV_ATOL = 1e-4      # at tests/test_torch_transformer.py's rwkv6 forward bound
 # rwkv6-3b's decode check is held at full width over one pattern cycle (one
 # layer), as recurrentgemma-9b's: with random weights the f32 rounding that
 # separates decode from forward grows about 2x a layer at this width, in the
@@ -348,6 +359,54 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
             f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
 
+    # fleet_half_step at m of 1, 10 and 32 nodes, B of 1 and 37 (every third
+    # row masked), d of reuters, ragged and wide, and a B whose X slice
+    # overflows shared memory (phase 2 streams X from L2); held to the plain
+    # version, reruns bit for bit; then the cluster sizes 8 and 16 timed at
+    # the main shape (the wrapper picks fleet_cluster's)
+    shapes = [(m, B, dd) for m in (1, N_NODES, 32) for B in (1, 37) for dd in (d, 1001, 70001)]
+    shapes.append((2, 512, d))
+    worst = 0.0
+    for m, B, dd in shapes:
+        X, W, y, mask, s = fleet_case(m, B, dd)
+        if B > 1:
+            mask[::3] = 0.0
+        got = K.fleet_half_step(X, W, y, mask, s)
+        err = rel_err(got, K.fleet_half_step_plain(X, W, y, mask, s))
+        require(err[1] <= KERNEL_RTOL, f"fleet_half_step at (m, B, d) = ({m}, {B}, {dd}): kernel "
+                f"against plain rel err {err[1]:.3e}")
+        require(torch.equal(got, K.fleet_half_step(X, W, y, mask, s)),
+                f"fleet_half_step at ({m}, {B}, {dd}): two runs on the same inputs differ")
+        worst = max(worst, err[0])
+        del X, W, got
+    main_fleet = out["fleet_half_step"]["main"]
+    cluster_ms = {}
+    for cl in (8, 16):
+        err = rel_err(K._launch_fleet(*main_fleet, cl), K.fleet_half_step_plain(*main_fleet))
+        require(err[1] <= KERNEL_RTOL, f"fleet_half_step with clusters of {cl}: rel err {err[1]:.3e}")
+        cluster_ms[cl] = device_ms(torch, lambda cl=cl: K._launch_fleet(*main_fleet, cl), 200)
+    chosen = K.fleet_cluster(N_NODES, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  {'fleet_half_step':16s} {len(shapes)} more shapes (m 1/10/32, B 1/37, d 8315/1001/70001; "
+        f"B 512 streamed): max err {worst:.3e}; clusters of 8: {cluster_ms[8] * 1e3:.2f} us, of 16: "
+        f"{cluster_ms[16] * 1e3:.2f} us (the wrapper takes {chosen} at m = {N_NODES})")
+    results["fleet_half_step"].update(other_shapes_max_abs_err=worst, cluster=chosen,
+                                      cluster_ms={str(k): v for k, v in cluster_ms.items()})
+
+    # NaN rows (ROADMAP C1): a row with a NaN among its ranked scores gets
+    # nan_label(C) from kernel and plain version alike; a NaN only in a
+    # class past n_classes changes nothing
+    for C, n_cls in ((3, 3), (130, 130), (4, 3)):
+        Xn, Wn = rows(37, 1001), torch.randn(C, 1001, generator=gen, device=dev)
+        Xn[5] = float("nan")                     # every class NaN
+        Xn[9, 3], Wn[1, 3] = float("inf"), 0.0  # class 1 NaN (inf x 0), the others +-inf
+        if n_cls < C:
+            Wn[C - 1, 7] = float("nan")          # the unranked class NaN on every row
+        check_nan_labels(torch, "dense_scores", P.dense_scores(Xn, Wn, n_classes=n_cls),
+                         P.dense_scores_plain(Xn, Wn, n_classes=n_cls), [5, 9], P.nan_label(C),
+                         n_cls)
+    log(f"  {'dense_scores':16s} NaN rows labelled {P.nan_label(3)} at C 3 and 4, "
+        f"{P.nan_label(130)} at C 130; a NaN past n_classes ignored")
+
     # dense_scores beside torch.mm at four classes (X read once; W 133 KB)
     # and at serving batches, each held to the plain version first
     extra = {}
@@ -377,6 +436,27 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
     log(f"  {'dense_scores':16s} X (33, 70001), W (20, 70001), 17 classes ranked: err {err[0]:.3e}")
     results["dense_scores"]["other_shapes"] = extra
     return results
+
+
+def check_nan_labels(torch, name, got, want, nan_rows, label, n_classes) -> None:
+    """Scores with NaNs against the plain version's (NaN where it has NaN,
+    the rest within ``KERNEL_RTOL``), and labels: ``label`` on ``nan_rows``
+    in both, the kernel's first-occurrence argmax of its own ranked scores on
+    every other row."""
+    (s, lbl), (s_p, lbl_p) = got, want
+    torch.cuda.synchronize()
+    require(torch.equal(torch.isnan(s), torch.isnan(s_p)), f"{name}: NaN scores differ")
+    fin = torch.isfinite(s_p)
+    require(torch.equal(torch.isfinite(s), fin), f"{name}: infinite scores differ")
+    require(rel_err(s[fin], s_p[fin])[1] <= KERNEL_RTOL, f"{name}: NaN case scores off")
+    nan_rows = torch.tensor(nan_rows, device=s.device)
+    require(bool((lbl[nan_rows] == label).all()) and bool((lbl_p[nan_rows] == label).all()),
+            f"{name}: NaN rows labelled {lbl[nan_rows].tolist()} (kernel), "
+            f"{lbl_p[nan_rows].tolist()} (plain), want {label}")
+    rest = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    rest[nan_rows] = False
+    require(torch.equal(lbl[rest].long(), torch.argmax(s[rest, :n_classes], dim=1)),
+            f"{name}: labels of the rows without NaN are not the argmax")
 
 
 def ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=0):
@@ -622,6 +702,16 @@ def phase_serving_kernel(torch, P, ops, serve, formats, ds_c, parts_c, gen, dev)
     s0_cpu, l0_cpu = ops.ell_predict(W1[0].cpu(), empty.cpu(), empty.float().cpu())
     require(torch.equal(s0.cpu(), s0_cpu) and torch.equal(l0.cpu(), l0_cpu)
             and not bool(s0.any()) and bool((l0 == 1.0).all()), "ell_predict at k = 0")
+    # NaN rows: a NaN value (every class NaN) and an infinite value against a
+    # zero weight of class 1 (class 1 NaN), each at a live entry
+    live_rows = torch.nonzero(vals[:, 0] != 0).flatten()[:2].tolist()
+    require(len(live_rows) == 2, "fewer than two queries with a live first entry")
+    vals_n, W4n = vals.clone(), W4.clone()
+    vals_n[live_rows[0], 0] = float("nan")
+    vals_n[live_rows[1], 0] = float("inf")
+    W4n[1, cols[live_rows[1], 0]] = 0.0
+    check_nan_labels(torch, "ell_scores_prefetch", kernel(cols, vals_n, W4n, bids),
+                     plain(cols, vals_n, W4n, bids), live_rows, P.nan_label(4), 4)
     first, again = kernel(*inputs["main"]), kernel(*inputs["main"])
     require(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
             "ell_scores_prefetch: two runs on the same inputs differ")
@@ -641,7 +731,8 @@ def phase_serving_kernel(torch, P, ops, serve, formats, ds_c, parts_c, gen, dev)
     shape = f"cols ({top.rows}, {top.k}), W (1, {d}), map ({top.n_blocks_max},)"
     log(f"  {'ell_scores_prefetch':24s} {shape}: err {errs['main'][0]:.3e} ("
         + ", ".join(f"{w} {e[0]:.3e}" for w, e in errs.items() if w != "main")
-        + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library "
+        + f"; NaN rows labelled {P.nan_label(4)}), kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, library "
         f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({bound_by}); buckets "
         + ", ".join(f"(rows {b.rows}, k {b.k}, cap {b.n_blocks_max})" for b in buckets))
     return {"ell_scores_prefetch": dict(
@@ -671,6 +762,12 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         "wide_window": (1, 1000, 16, 1, 256, True, 2048, torch.float32),
         "non_causal": (1, 1000, 8, 2, 128, False, 0, torch.float32),
         "bf16": (PREFILL_BATCH, PREFILL_LEN, 16, 1, 256, True, 2048, torch.bfloat16),
+        # head sizes between the instantiations (padded to 96 and 64): hubert-
+        # xlarge's 80, and 33, which fills no 16-byte chunk (element loads)
+        "dh80": (2, 300, 4, 2, 80, True, 0, torch.float32),
+        "dh80_bf16": (2, 300, 4, 2, 80, True, 0, torch.bfloat16),
+        "dh33": (1, 300, 4, 1, 33, True, 64, torch.float32),
+        "dh33_bf16": (1, 300, 4, 1, 33, False, 0, torch.bfloat16),
     }
     errs, main = {}, None
     for which, (b, s, h, hkv, dh, causal, window, dt) in attn_cases.items():
@@ -763,10 +860,16 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         n=(50, 1, 0), shape=f"a, b ({a.shape[0]}, {a.shape[1]}, {a.shape[2]})", library=None,
         kernel=lambda: RG.rglru_scan(a, bb), plain=lambda: RG.rglru_scan_plain(a, bb))
 
-    # wkv_scan: r, k, v as 0.3 N(0, 1), w in (0.8, 0.999), u 0.1 N(0, 1)
+    # wkv_scan: r, k, v as 0.3 N(0, 1), w in (0.8, 0.999), u 0.1 N(0, 1); the
+    # path shape, head sizes n 16 .. 256 (24: reduced rwkv6 configs; 30: no
+    # whole 16-byte chunks, element loads) at T of 1, 33 and 4097 with one
+    # head, and a few heads and batches
+    wkv_cases = {"main": (PREFILL_BATCH, PREFILL_LEN, 40, 64), "tiny": (1, 33, 3, 16),
+                 "ragged": (2, 50, 2, 32), "n30": (2, 33, 3, 30)}
+    wkv_cases.update({f"n{n}_t{T}": (1, T, 1, n) for n in (16, 24, 64, 80, 256)
+                      for T in (1, 33, PREFILL_LEN + 1)})
     wkv_errs, main = {}, None
-    for which, (B, S, H, n) in {"main": (PREFILL_BATCH, PREFILL_LEN, 40, 64),
-                                "tiny": (1, 33, 3, 16), "ragged": (2, 50, 2, 32)}.items():
+    for which, (B, S, H, n) in wkv_cases.items():
         r, kk, vv = (randn(B, S, H, n, scale=0.3) for _ in range(3))
         w = 0.8 + 0.199 * torch.rand(B, S, H, n, generator=gen, device=dev)
         u = randn(H, n, scale=0.1)
@@ -797,7 +900,7 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         e = row["errs"]
         results[name] = dict(max_abs_err=e["main"][0],
                              ragged_max_abs_err=max(v[0] for w_, v in e.items()
-                                                    if w_ not in ("main", "bf16")),
+                                                    if w_ != "main" and "bf16" not in w_),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by, shape=row["shape"])
         if route is not None:
@@ -806,7 +909,7 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
                                  bf16_bound_route=ATTN_BF16_ROUTE[0],
                                  bf16_mma_bound_ms=bf16_mma_bound_ms)
         if "bf16" in e:
-            results[name]["bf16_max_abs_err"] = e["bf16"][0]
+            results[name]["bf16_max_abs_err"] = max(v[0] for w_, v in e.items() if "bf16" in w_)
         log(f"  {name:16s} {row['shape']}: err "
             + ", ".join(f"{w_} {v[0]:.3e}" for w_, v in e.items())
             + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -980,6 +1083,32 @@ def phase_models(torch, get_config, Model, make_prefill_step, make_serve_step, s
     lap("13")
     log("phase 14: rwkv6-3b at full width and depth: prefill, serve, decode against prefill")
     rw_cfg = get_config("rwkv6-3b")
+    # a reduced rwkv6 first (d_model 96: heads of n = 24, which models/config.py
+    # gives reduced configs) on the card against the same weights on the CPU
+    red_cfg = rw_cfg.reduced(n_layers=2, d_model=96)
+    model = Model(red_cfg, device=dev).init(gen_m)
+    cpu_model = Model(red_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.randint(0, red_cfg.vocab_size, (PREFILL_BATCH, REDUCED_RWKV_LEN), generator=gen_m,
+                         device=dev)
+    reset_counts(K, P, S, X)
+    got = make_prefill_step(model)({"tokens": toks})
+    torch.cuda.synchronize()
+    red_counts = counts(K, P, S, X)
+    red_err = float((got.cpu() - make_prefill_step(cpu_model)({"tokens": toks.cpu()})).abs().max())
+    log(f"  {red_cfg.name} (d_model {red_cfg.d_model}, heads of {red_cfg.rwkv_head_dim}, "
+        f"{red_cfg.n_layers} layers): prefill {tuple(toks.shape)} on the card against the CPU, "
+        f"max abs err {red_err:.3e} (<= {REDUCED_RWKV_ATOL}), launches {red_counts}")
+    require(red_cfg.rwkv_head_dim == 24, f"reduced rwkv6 heads of {red_cfg.rwkv_head_dim}")
+    require(red_counts["wkv_scan"] == red_cfg.n_layers and
+            sum(red_counts.values()) == red_cfg.n_layers,
+            f"the reduced rwkv6 prefill launched {red_counts}")
+    require(bool(torch.isfinite(got).all()) and red_err <= REDUCED_RWKV_ATOL,
+            f"reduced rwkv6 prefill differs from the CPU by {red_err:.3e}")
+    rw_reduced = {"d_model": red_cfg.d_model, "head_size": red_cfg.rwkv_head_dim,
+                  "layers": red_cfg.n_layers, "tokens": list(toks.shape), "max_abs_err": red_err,
+                  "wkv_scan_launches": red_counts["wkv_scan"]}
+    del model, cpu_model, got
     t0 = time.perf_counter()
     model = Model(rw_cfg, device=dev).init(gen_m)
     torch.cuda.synchronize()
@@ -1012,7 +1141,7 @@ def phase_models(torch, get_config, Model, make_prefill_step, make_serve_step, s
             "recurrentgemma-9b": {"prefill": rg_prefill, "serve": rg_serve,
                                   "decode_vs_prefill": rg_decode},
             "rwkv6-3b": {"prefill": rw_prefill, "serve": rw_serve, "decode_vs_prefill": rw_decode,
-                         "full_depth_drift": rw_drift},
+                         "full_depth_drift": rw_drift, "reduced_prefill": rw_reduced},
             "decode_tolerance": {"atol": DECODE_ATOL, "rtol": DECODE_RTOL}}
 
 

@@ -18,6 +18,7 @@ into an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "all_sources", "build", "load", "check",
-           "on_cpu", "check_tensor", "stream"]
+           "on_cpu", "check_tensor", "stream", "sm_count"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -148,3 +149,9 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple,
 def stream(t: torch.Tensor) -> int:
     """Handle of PyTorch's current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

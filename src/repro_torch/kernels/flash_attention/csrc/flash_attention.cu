@@ -15,7 +15,14 @@
 // the kernel reads the model's (B, S, H, dh) / (B, S, Hkv, dh) layout through
 // its strides (no copy), takes kv head h / (H / Hkv) itself (GQA and MQA
 // repeat nothing), masks the ragged end of S per element (no padding, any S)
-// and keeps the running state in registers.
+// and keeps the running state in registers. Any head size from 1 to 256
+// runs: the kernel is instantiated at DH in {32, 64, 96, 128, 256} and a
+// head of dh < DH columns takes the next DH up, its columns dh .. DH - 1
+// zero in shared memory (zero q and k columns leave q k^T unchanged, the
+// extra output columns of P v are not stored). The rows are loaded with
+// 16-byte cp.async when dh fills whole 16-byte chunks and every row is
+// 16-byte aligned, element by element otherwise; ldmatrix and the m16n8k8
+// tiles see only the padded DH, a multiple of 8.
 //
 // Work: 4 dh flops per live (q, k) pair and one read of q, k, v and one
 // write of out; at the main path's shape (RecurrentGemma: S 4096, 16 heads
@@ -137,27 +144,56 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return static_cast<size_t>(kBlockQ + 2 * kBlockK) * ld_smem<T, DH>() * sizeof(T);
 }
 
-// Rows [row0, row0 + n) of one head (rows >= S as zeros) into shared memory:
-// 16-byte cp.async when every address is 16-byte aligned (vec), else
-// element by element.
+// Columns [0, dh) of rows [row0, row0 + n) of one head (rows >= S as zeros)
+// into shared memory: 16-byte cp.async when every row is 16-byte aligned and
+// dh fills whole chunks (vec), else element by element. Columns dh .. DH - 1
+// are never written here (zero_pad clears them once).
 template <typename T, int DH>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, long long stride,
-                                          int row0, int n, int S, int vec) {
+                                          int row0, int n, int S, int dh, int vec) {
   constexpr int LD = ld_smem<T, DH>();
   constexpr int kPer = static_cast<int>(16 / sizeof(T));  // elements a chunk
-  constexpr int kChunks = DH / kPer;                       // chunks a row
-  if (vec) {
+  if (vec) {  // dh a whole number of chunks: chunk c lies wholly below dh or wholly past it
+    constexpr int kChunks = DH / kPer;  // chunks a padded row (a shift, not a division)
     for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
       const int r = i / kChunks, c = i - r * kChunks;
+      if (c * kPer >= dh) continue;  // the zero pad
       const bool in = row0 + r < S;
       cp_async16(dst + r * LD + c * kPer, src + (in ? row0 + r : 0) * stride + c * kPer, in);
     }
   } else {
-    for (int i = threadIdx.x; i < n * DH; i += kThreads) {
-      const int r = i / DH, c = i - r * DH;
+    for (int i = threadIdx.x; i < n * dh; i += kThreads) {
+      const int r = i / dh, c = i - r * dh;
       if (row0 + r < S) dst[r * LD + c] = src[(row0 + r) * stride + c];
       else zero(dst + r * LD + c);
     }
+  }
+}
+
+// Columns dh .. DH - 1 of the n rows at dst to zero.
+template <typename T, int DH>
+__device__ __forceinline__ void zero_pad(T* dst, int n, int dh) {
+  constexpr int LD = ld_smem<T, DH>();
+  const int w = DH - dh;
+  for (int i = threadIdx.x; i < n * w; i += kThreads) {
+    const int r = i / w;
+    zero(dst + r * LD + dh + (i - r * w));
+  }
+}
+
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16(a); }
+
+// Columns c and c + 1 (c even) of an output row of dh columns, those < dh:
+// a pair store when dh is even (then c < dh means c + 1 < dh, and the pair
+// is aligned), else element by element.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int c, int dh, float a, float b) {
+  if ((dh & 1) == 0) {
+    if (c < dh) store2(row + c, a, b);
+  } else {
+    if (c < dh) store1(row + c, a);
+    if (c + 1 < dh) store1(row + c + 1, b);
   }
 }
 
@@ -170,7 +206,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S, int H, int Hkv,
-                       Layout st, int causal, int window, float scale_log2, int vec) {
+                       int dh, Layout st, int causal, int window, float scale_log2, int vec) {
   constexpr bool kF32 = Is32<T>::value;  // split the inputs; bf16 ones are exact
   constexpr int LD = ld_smem<T, DH>();
   constexpr int kND = DH / 8;  // n8 tiles of the output
@@ -194,11 +230,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_hi = causal ? q_last : S - 1;
   const int t_first = k_lo / kBlockK * kBlockK;
 
-  load_rows<T, DH>(q_s, qp, st.qs, q0, kBlockQ, S, vec);
+  if (dh < DH) zero_pad<T, DH>(q_s, kBlockQ + 2 * kBlockK, dh);  // q, k and v rows: contiguous
+  load_rows<T, DH>(q_s, qp, st.qs, q0, kBlockQ, S, dh, vec);
   cp_commit();
-  load_rows<T, DH>(k_s, kp, st.ks, t_first, kBlockK, S, vec);
+  load_rows<T, DH>(k_s, kp, st.ks, t_first, kBlockK, S, dh, vec);
   cp_commit();
-  load_rows<T, DH>(v_s, vp, st.vs, t_first, kBlockK, S, vec);
+  load_rows<T, DH>(v_s, vp, st.vs, t_first, kBlockK, S, dh, vec);
   cp_commit();
 
   const int ra = q0 + warp * 16;  // this warp's rows ra .. rb
@@ -265,7 +302,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with this K tile
-    if (more) load_rows<T, DH>(k_s, kp, st.ks, t0 + kBlockK, kBlockK, S, vec);
+    if (more) load_rows<T, DH>(k_s, kp, st.ks, t0 + kBlockK, kBlockK, S, dh, vec);
     cp_commit();
 
     if (live) {
@@ -342,7 +379,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with this V tile
-    if (more) load_rows<T, DH>(v_s, vp, st.vs, t0 + kBlockK, kBlockK, S, vec);
+    if (more) load_rows<T, DH>(v_s, vp, st.vs, t0 + kBlockK, kBlockK, S, dh, vec);
     cp_commit();
   }
 
@@ -353,14 +390,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const long long bs = static_cast<long long>(b) * S;
   if (row0 < S) {
-    T* orow = o + ((bs + row0) * H + h) * DH + 2 * t;
+    T* orow = o + ((bs + row0) * H + h) * dh;
 #pragma unroll
-    for (int n = 0; n < kND; ++n) store2(orow + n * 8, acc[n][0] / d0, acc[n][1] / d0);
+    for (int n = 0; n < kND; ++n) store_cols(orow, n * 8 + 2 * t, dh, acc[n][0] / d0, acc[n][1] / d0);
   }
   if (row1 < S) {
-    T* orow = o + ((bs + row1) * H + h) * DH + 2 * t;
+    T* orow = o + ((bs + row1) * H + h) * dh;
 #pragma unroll
-    for (int n = 0; n < kND; ++n) store2(orow + n * 8, acc[n][2] / d1, acc[n][3] / d1);
+    for (int n = 0; n < kND; ++n) store_cols(orow, n * 8 + 2 * t, dh, acc[n][2] / d1, acc[n][3] / d1);
   }
 }
 
@@ -377,7 +414,8 @@ bool aligned16(const void* p, const Layout& st, int which) {
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int Hkv, const Layout& st, int causal, int window, cudaStream_t stream) {
+                   int Hkv, int dh, const Layout& st, int causal, int window,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<T, DH>();
   const void* fn = reinterpret_cast<const void*>(flash_attention_kernel<T, DH>);
   if (smem > 48 * 1024) {
@@ -385,12 +423,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const float scale_log2 = static_cast<float>(kLog2e / sqrt(static_cast<double>(DH)));
-  const int vec = aligned16<T>(q, st, 0) && aligned16<T>(k, st, 1) && aligned16<T>(v, st, 2);
+  const float scale_log2 = static_cast<float>(kLog2e / sqrt(static_cast<double>(dh)));
+  const int vec = (dh * sizeof(T)) % 16 == 0 && aligned16<T>(q, st, 0) &&
+                  aligned16<T>(k, st, 1) && aligned16<T>(v, st, 2);
   const dim3 grid(H, B, (S + kBlockQ - 1) / kBlockQ);
   flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, st, causal, window, scale_log2, vec);
+      static_cast<T*>(o), S, H, Hkv, dh, st, causal, window, scale_log2, vec);
   return cudaGetLastError();
 }
 
@@ -398,13 +437,13 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                      int Hkv, int dh, const Layout& st, int causal, int window,
                      cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hkv, st, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, st, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, st, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, Hkv, st, causal, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dh < 1) return cudaErrorInvalidValue;
+  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, S, H, Hkv, dh, st, causal, window, stream);
+  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, S, H, Hkv, dh, st, causal, window, stream);
+  if (dh <= 96) return launch<T, 96>(q, k, v, o, B, S, H, Hkv, dh, st, causal, window, stream);
+  if (dh <= 128) return launch<T, 128>(q, k, v, o, B, S, H, Hkv, dh, st, causal, window, stream);
+  if (dh <= 256) return launch<T, 256>(q, k, v, o, B, S, H, Hkv, dh, st, causal, window, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -414,7 +453,7 @@ using namespace repro_torch;
 
 // q (B, S, H, dh), k and v (B, S, Hkv, dh) by strides in elements (dh
 // contiguous), float32 (bf16 = 0) or bfloat16 (bf16 = 1); H % Hkv == 0,
-// dh in {32, 64, 128, 256} -> o (B, S, H, dh) contiguous, in q's type.
+// 1 <= dh <= 256 -> o (B, S, H, dh) contiguous, in q's type.
 // window 0 means no band.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int S, int H, int Hkv, int dh, long long q_sb, long long q_ss,

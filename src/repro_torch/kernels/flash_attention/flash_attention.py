@@ -16,10 +16,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention", "flash_attention_plain", "band_mask"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain", "band_mask"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
+MAX_HEAD_DIM = 256  # the kernel's largest head (it pads dh up to 32, 64, 96, 128 or 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -81,15 +81,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     any S. The mask is causal (``k <= q``) when ``causal`` and a band
     (``k > q - window``) when ``window`` > 0. Returns (B, S, H, dh) in q's
     dtype, accumulated in f32. On CUDA the inputs may be strided views with
-    a contiguous last dim, and dh must be one of ``HEAD_DIMS``.
+    a contiguous last dim, and dh must be at most ``MAX_HEAD_DIM``.
     """
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal=causal, window=window)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+            window: int) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors, after the checks."""
     _check(q, k, v)
     b, s, h, dh = q.shape
     hkv = k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not among the kernel's {HEAD_DIMS}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {dh} outside the kernel's 1..{MAX_HEAD_DIM}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):

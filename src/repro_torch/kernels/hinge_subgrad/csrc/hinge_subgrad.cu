@@ -7,14 +7,31 @@
 // fleet_half_step (pallas_call at :106, body _fleet_kernel at :80). Per node
 // i: m_b = y_b <X_i[b], w_i>, coeff_b = 1[m_b < 1] y_b row_mask_b,
 // W_half_i = (1 - s0) w_i + s1 (coeff^T X_i). It moves 4(mBd + 2md + mB + B)
-// bytes for 4mBd flops, so HBM bandwidth bounds it. The TPU kernel kept the
-// whole (B, d) tile in VMEM and fell back to two kernels above a VMEM budget;
-// here one block per node streams X_i twice instead (phase 1 margins, one
-// warp per row with 16-byte loads; phase 2 each thread owns columns and sums
-// over b in a fixed order). The second read comes from L2 (the tile of the
-// paper's reuters run is 33 KB), so there is no tile limit and no fallback.
-// No atomics: repeated runs are bit-identical. With one block per node the
-// grid is m blocks, 10 of the card's 132 SMs at the paper's m = 10.
+// bytes for 4mBd flops, so HBM bandwidth bounds it: 0.30 us at the paper's
+// (m, B, d) = (10, 1, 8315), about 1 MB. The TPU kernel kept the whole
+// (B, d) tile in VMEM and fell back to two kernels above a VMEM budget. Here
+// each node is a thread-block cluster of CL blocks (the wrapper picks the
+// largest CL in {1, 2, 4, 8, 16} with m CL <= the SM count: 8 at m = 10,
+// 80 blocks, where one block a node filled 10 SMs; on an H100 SXM clusters
+// of 8 took 5.47 us there, of 16 5.61), each block an even share
+// of the d columns:
+//  * phase 1: the block's warps split its rows x column share evenly (a
+//    row's share is cut into up to 8 pieces when B < 8, so B = 1 still uses
+//    every warp), read X_i's slice once from HBM with coalesced scalar loads
+//    (rows of d = 8,315 start at every 4-byte phase, so no alignment is
+//    assumed), four a lane in flight at once, keep it in shared memory when
+//    B x share fits, and leave each row's partial margin in the block's
+//    shared memory; cluster.sync();
+//  * every block then reads the CL partials of each row through distributed
+//    shared memory (map_shared_rank), in rank order, so all blocks of a node
+//    get the same margin bits and the same coeff, with no atomics;
+//  * phase 2: each thread owns columns of the share and sums coeff_b X_i[b, j]
+//    over b in order, from shared memory (or from L2 when the share does not
+//    fit: no tile limit and no fallback). A block arrives at the cluster
+//    barrier once it has read its peers' partials and waits on it only
+//    before it exits, so its shared memory outlives every read of it while
+//    phase 2 overlaps the barrier.
+// Fixed orders everywhere: repeated runs are bit-identical.
 //
 // margins replaces hinge_subgrad.py margins (pallas_call at :63): y (X w) for
 // one node's (B, d) minibatch, one warp per row. grad_update replaces
@@ -22,36 +39,141 @@
 // one thread per column with a fixed-order loop over B and the axpy fused.
 // Both read X once and are bandwidth-bound; the TPU kernels' (8, 128)
 // blocking and padding do not carry over: every edge is masked here.
+#include <cooperative_groups.h>
+
+#include <mutex>
+
 #include "warp_dot.cuh"
 
 namespace repro_torch {
 namespace {
 
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 16;
+constexpr int kPieceSlots = 16;  // row pieces when B < kWarps: B ceil(8 / B) <= 14
+constexpr int kLoads = 4;        // loads a thread keeps in flight
+
+// Start of part i of n items split into parts contiguous ranges, the first
+// n % parts one item longer (python: predict.even_split).
+__device__ __forceinline__ int split_start(int n, int parts, int i) {
+  const int q = n / parts, r = n - q * parts;
+  return i * q + (i < r ? i : r);
+}
+
+// Shared memory of one block, in floats: part (B), coeff (B), the row
+// pieces' partials (kPieceSlots) and, when cached, X_i's slice (B x share).
+__host__ __device__ constexpr size_t fleet_smem_floats(int B, int share, bool cache) {
+  return 2 * static_cast<size_t>(B) + kPieceSlots +
+         (cache ? static_cast<size_t>(B) * share : 0);
+}
+
+template <bool CACHE>
 __global__ void __launch_bounds__(kThreads)
 fleet_half_step_kernel(const float* __restrict__ X, const float* __restrict__ W,
                        const float* __restrict__ y, const float* __restrict__ row_mask,
                        float* __restrict__ out, int B, int d,
                        float one_minus_s0, float s1) {
-  extern __shared__ float coeff[];  // (B,) violator coefficients of this node
-  const int i = blockIdx.x;
-  const float* Xi = X + static_cast<size_t>(i) * B * d;
-  const float* wi = W + static_cast<size_t>(i) * d;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int i = blockIdx.x / CL;  // the node
+  const int c0 = split_start(d, CL, rank);
+  const int len = split_start(d, CL, rank + 1) - c0;  // this block's column share
+  extern __shared__ float smem[];
+  float* part = smem;               // (B,) this block's partial margin of each row
+  float* coeff = part + B;          // (B,) the node's violator coefficients
+  float* pieces = coeff + B;        // (kPieceSlots,)
+  float* xs = pieces + kPieceSlots;  // (B, len) X_i's slice, when CACHE
+  const float* Xi = X + static_cast<size_t>(i) * B * d + c0;
+  const float* wi = W + static_cast<size_t>(i) * d + c0;
   const float* yi = y + static_cast<size_t>(i) * B;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int b = warp; b < B; b += kWarps) {
-    const float dot = warp_dot(Xi + static_cast<size_t>(b) * d, wi, d, lane);
+
+  // phase 1: unit u is piece p of row b; warp q takes units q, q + 8, ...
+  const int P = B >= kWarps ? 1 : (kWarps + B - 1) / B;
+  for (int u = warp; u < B * P; u += kWarps) {
+    const int b = u / P, p = u - b * P;
+    const int lo = split_start(len, P, p), hi = split_start(len, P, p + 1);
+    const float* xr = Xi + static_cast<size_t>(b) * d;
+    float acc = 0.f;
+    for (int j0 = lo + lane; j0 < hi; j0 += 32 * kLoads) {
+      float xv[kLoads], wv[kLoads];  // every load of the pass in flight at once
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int j = j0 + 32 * q;
+        xv[q] = j < hi ? __ldg(xr + j) : 0.f;
+        wv[q] = j < hi ? __ldg(wi + j) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int j = j0 + 32 * q;
+        if (CACHE && j < hi) xs[static_cast<size_t>(b) * len + j] = xv[q];
+        acc = fmaf(xv[q], wv[q], acc);
+      }
+    }
+    acc = warp_sum(acc);
     if (lane == 0) {
-      const float yb = yi[b];
-      coeff[b] = (yb * dot < 1.f ? yb : 0.f) * row_mask[b];
+      if (P == 1) part[b] = acc;
+      else pieces[u] = acc;
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    float g = 0.f;
-    for (int b = 0; b < B; ++b) g = fmaf(coeff[b], Xi[static_cast<size_t>(b) * d + j], g);
-    out[static_cast<size_t>(i) * d + j] = one_minus_s0 * wi[j] + s1 * g;
+  if (P > 1) {
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < B) {
+      float s = 0.f;
+      for (int p = 0; p < P; ++p) s += pieces[threadIdx.x * P + p];
+      part[threadIdx.x] = s;
+    }
   }
+  cluster.sync();  // every block's partials are written and visible to the cluster
+
+  // the margins, every block the same: the CL partials of row b in rank order
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    float pr[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) pr[q] = q < CL ? cluster.map_shared_rank(part, q)[b] : 0.f;
+    float dot = pr[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) {
+      if (q < CL) dot += pr[q];
+    }
+    const float yb = yi[b];
+    coeff[b] = (yb * dot < 1.f ? yb : 0.f) * row_mask[b];
+  }
+  // done with the peers' partials: arrive now, wait before exiting
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  __syncthreads();
+
+  // phase 2: thread t owns columns t, t + 256, ... of the share
+  for (int j0 = threadIdx.x; j0 < len; j0 += kThreads * kLoads) {
+    float wv[kLoads], g[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int j = j0 + kThreads * q;
+      wv[q] = j < len ? __ldg(wi + j) : 0.f;
+      g[q] = 0.f;
+    }
+    for (int b = 0; b < B; ++b) {
+      const float cb = coeff[b];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int j = j0 + kThreads * q;
+        if (j < len) {
+          const float x = CACHE ? xs[static_cast<size_t>(b) * len + j]
+                                : __ldg(Xi + static_cast<size_t>(b) * d + j);
+          g[q] = fmaf(cb, x, g[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int j = j0 + kThreads * q;
+      if (j < len) out[static_cast<size_t>(i) * d + c0 + j] = one_minus_s0 * wv[q] + s1 * g[q];
+    }
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // peers done with ours
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -79,25 +201,88 @@ grad_update_kernel(const float* __restrict__ X, const float* __restrict__ w,
 
 using namespace repro_torch;
 
+namespace {
+
+// What launch_fleet<CACHE> has set up and checked on a device: the kernel's
+// shared-memory ceiling and the largest cluster size known to fit with it.
+// The training loop launches once an iteration with the same shape, so the
+// attribute calls and the occupancy query run once, not every launch.
+struct FleetReady {
+  int dev = -1, cluster = 0;
+  size_t smem = 0;
+};
+std::mutex fleet_mutex;
+
+template <bool CACHE>
+cudaError_t launch_fleet(const float* X, const float* W, const float* y, const float* row_mask,
+                         float* out, int m, int B, int d, int CL, size_t smem, float s0,
+                         float s1, int dev, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(fleet_half_step_kernel<CACHE>);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(m * CL));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(CL);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    static FleetReady ready;
+    std::lock_guard<std::mutex> lock(fleet_mutex);
+    if (ready.dev != dev || ready.smem < smem || ready.cluster < CL) {
+      cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+      if (e == cudaSuccess && CL > 8)
+        e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      int fits = 0;  // a cluster that cannot be placed would fail at launch
+      if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&fits, fn, &cfg);
+      if (e != cudaSuccess) return e;
+      if (fits < 1) return cudaErrorLaunchOutOfResources;
+      ready = {dev, CL, smem};
+    }
+  }
+  cudaError_t e = cudaLaunchKernelEx(&cfg, fleet_half_step_kernel<CACHE>, X, W, y, row_mask,
+                                     out, B, d, 1.f - s0, s1);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // X (m, B, d), W (m, d), y (m, B), row_mask (B,) -> out (m, d); all float32,
-// contiguous. s0 = lam * alpha, s1 = alpha / B, both formed in float32.
+// contiguous. s0 = lam * alpha, s1 = alpha / B, both formed in float32. Each
+// node is a cluster of `cluster` blocks (1, 2, 4, 8 or 16; the wrapper's
+// hinge_subgrad.fleet_cluster).
 extern "C" int fleet_half_step(const void* X, const void* W, const void* y,
                                const void* row_mask, void* out, int m, int B, int d,
-                               float s0, float s1, void* stream) {
-  const size_t smem = static_cast<size_t>(B) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fleet_half_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (m > 0 && d > 0) {
-    fleet_half_step_kernel<<<m, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(X), static_cast<const float*>(W),
-        static_cast<const float*>(y), static_cast<const float*>(row_mask),
-        static_cast<float*>(out), B, d, 1.f - s0, s1);
-  }
-  return static_cast<int>(cudaGetLastError());
+                               int cluster, float s0, float s1, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || d <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int share = (d + cluster - 1) / cluster;  // the largest column share
+  const size_t cached = fleet_smem_floats(B, share, true) * sizeof(float);
+  const size_t streamed = fleet_smem_floats(B, share, false) * sizeof(float);
+  const float* Xf = static_cast<const float*>(X);
+  const float* Wf = static_cast<const float*>(W);
+  const float* yf = static_cast<const float*>(y);
+  const float* mf = static_cast<const float*>(row_mask);
+  float* of = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cached <= static_cast<size_t>(optin))
+    e = launch_fleet<true>(Xf, Wf, yf, mf, of, m, B, d, cluster, cached, s0, s1, dev, st);
+  else if (streamed <= static_cast<size_t>(optin))
+    e = launch_fleet<false>(Xf, Wf, yf, mf, of, m, B, d, cluster, streamed, s0, s1, dev, st);
+  else
+    e = cudaErrorInvalidValue;  // B beyond the wrapper's limit
+  return static_cast<int>(e);
 }
 
 // X (B, d), w (d,), y (B,) -> out (B,) = y * (X w).

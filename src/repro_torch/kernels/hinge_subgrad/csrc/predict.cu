@@ -51,9 +51,13 @@
 // Both kernels take W as (C, d) unpadded: no 128-lane class padding and no
 // zero landing block. The argmax runs over the first n_classes rows with a
 // strict '>' scan, which keeps the first occurrence of a tie as jnp.argmax
-// does; an all-pad row scores 0 everywhere and gets class 0. Fixed lane
-// mappings and a fixed shuffle tree, no float atomics: a rerun gives the
-// same bits.
+// does; an all-pad row scores 0 everywhere and gets class 0, a row whose
+// ranked scores are all -inf class 0 too. A row with a NaN among them gets
+// nan_label, which the wrapper sets to the reference's pad-lane count
+// 128 ceil(C / 128) (its _argmax_lanes finds no lane equal to a NaN maximum
+// and returns the lane count): one isnan flag a row, raised in the same
+// scan. Fixed lane mappings and a fixed shuffle tree, no float atomics: a
+// rerun gives the same bits.
 #include <math.h>
 
 #include "ell_gather.cuh"
@@ -240,8 +244,8 @@ __device__ __forceinline__ void row_shifted(const float4* __restrict__ xa4, long
 template <int CT>
 __device__ __forceinline__ void finish_row(float* __restrict__ S, int* __restrict__ labels,
                                            long long r, const float (&vals)[CT], int C,
-                                           int n_classes, int c0, int ct, int accumulate,
-                                           int last) {
+                                           int n_classes, int nan_label, int c0, int ct,
+                                           int accumulate, int last) {
   float* srow = S + r * C;
 #pragma unroll
   for (int c = 0; c < CT; ++c) {
@@ -250,24 +254,29 @@ __device__ __forceinline__ void finish_row(float* __restrict__ S, int* __restric
   if (!last) return;
   float best = -INFINITY;
   int arg = 0;
+  bool nan = false;
   if (c0 == 0 && ct == C && !accumulate) {  // one launch: the scores are at hand
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
-      if (c < n_classes && vals[c] > best) {
-        best = vals[c];
-        arg = c;
+      if (c < n_classes) {
+        nan |= isnan(vals[c]);
+        if (vals[c] > best) {
+          best = vals[c];
+          arg = c;
+        }
       }
     }
   } else {
     for (int c = 0; c < n_classes; ++c) {
       const float s = srow[c];
+      nan |= isnan(s);
       if (s > best) {
         best = s;
         arg = c;
       }
     }
   }
-  labels[r] = arg;
+  labels[r] = nan ? nan_label : arg;
 }
 
 // One slab [j0, j0 + dslab) of the columns and one tile [c0, c0 + ct) of the
@@ -276,7 +285,8 @@ template <int CT, bool PHASED>
 __global__ void __launch_bounds__(kDenseThreads, 1)
 dense_scores_kernel(const float* __restrict__ X, const float* __restrict__ W,
                     float* __restrict__ S, int* __restrict__ labels, int B, int d, int C,
-                    int n_classes, int j0, int dslab, int c0, int ct, int accumulate, int last) {
+                    int n_classes, int nan_label, int j0, int dslab, int c0, int ct,
+                    int accumulate, int last) {
   constexpr int U = CT <= 2 ? 8 : 4;
   constexpr int kCopies = PHASED ? 4 : 1;
   extern __shared__ float4 smem4[];
@@ -293,7 +303,7 @@ dense_scores_kernel(const float* __restrict__ X, const float* __restrict__ W,
   if (n4 == 0) {  // d == 0: every score is 0
     float zeros[CT] = {};
     for (long long r = r0 + threadIdx.x; r < r1; r += kDenseThreads)
-      finish_row<CT>(S, labels, r, zeros, C, n_classes, c0, ct, accumulate, last);
+      finish_row<CT>(S, labels, r, zeros, C, n_classes, nan_label, c0, ct, accumulate, last);
     return;
   }
 
@@ -424,7 +434,8 @@ dense_scores_kernel(const float* __restrict__ X, const float* __restrict__ W,
       for (int c = 0; c < CT; ++c) acc[c] = warp_sum(acc[c]);
       if (lane == 0) {
         if (ma == 0 && mb == nu) {
-          finish_row<CT>(S, labels, r0 + rr, acc, C, n_classes, c0, ct, accumulate, last);
+          finish_row<CT>(S, labels, r0 + rr, acc, C, n_classes, nan_label, c0, ct, accumulate,
+                         last);
         } else {  // split between warps: leave the partial for the combine
           float* slot = part + ((rr == fr ? 0 : 1) * kDenseWarps + warp) * CT;
 #pragma unroll
@@ -459,7 +470,7 @@ dense_scores_kernel(const float* __restrict__ X, const float* __restrict__ W,
 #pragma unroll
       for (int c = 0; c < CT; ++c) sum[c] += slot[c];
     }
-    finish_row<CT>(S, labels, r0 + rr, sum, C, n_classes, c0, ct, accumulate, last);
+    finish_row<CT>(S, labels, r0 + rr, sum, C, n_classes, nan_label, c0, ct, accumulate, last);
   }
 }
 
@@ -467,8 +478,8 @@ __global__ void __launch_bounds__(kThreads)
 ell_scores_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                            const float* __restrict__ W, const int* __restrict__ block_ids,
                            float* __restrict__ S, int* __restrict__ labels, int B, int k,
-                           int d, int C, int n_classes, int n_blocks_max, int blk_d,
-                           int n_d_blocks) {
+                           int d, int C, int n_classes, int nan_label, int n_blocks_max,
+                           int blk_d, int n_d_blocks) {
   extern __shared__ unsigned bitmap[];  // one bit per d-block of the batch's map
   build_block_bitmap(bitmap, block_ids, n_blocks_max, n_d_blocks);
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -478,18 +489,22 @@ ell_scores_prefetch_kernel(const int* __restrict__ cols, const float* __restrict
   const float* v = vals + static_cast<size_t>(b) * k;
   float best = -INFINITY;
   int arg = 0;
+  bool nan = false;
   for (int cls = 0; cls < C; ++cls) {
     const float s = row_gather_dot(c, v, W + static_cast<size_t>(cls) * d, k, d, lane,
                                    bitmap, blk_d);
     if (lane == 0) {
       S[static_cast<size_t>(b) * C + cls] = s;
-      if (cls < n_classes && s > best) {
-        best = s;
-        arg = cls;
+      if (cls < n_classes) {
+        nan |= isnan(s);
+        if (s > best) {
+          best = s;
+          arg = cls;
+        }
       }
     }
   }
-  if (lane == 0) labels[b] = arg;
+  if (lane == 0) labels[b] = nan ? nan_label : arg;
 }
 
 struct DenseArgs {
@@ -497,7 +512,7 @@ struct DenseArgs {
   const float* W;
   float* S;
   int* labels;
-  int B, d, C, n_classes, n_blocks, j0, dslab, c0, ct, accumulate, last;
+  int B, d, C, n_classes, nan_label, n_blocks, j0, dslab, c0, ct, accumulate, last;
 };
 
 template <int CT, bool PHASED>
@@ -509,8 +524,8 @@ cudaError_t launch_dense(const DenseArgs& a, cudaStream_t stream) {
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return e;
   dense_scores_kernel<CT, PHASED><<<a.n_blocks, kDenseThreads, smem, stream>>>(
-      a.X, a.W, a.S, a.labels, a.B, a.d, a.C, a.n_classes, a.j0, a.dslab, a.c0, a.ct,
-      a.accumulate, a.last);
+      a.X, a.W, a.S, a.labels, a.B, a.d, a.C, a.n_classes, a.nan_label, a.j0, a.dslab, a.c0,
+      a.ct, a.accumulate, a.last);
   return cudaGetLastError();
 }
 
@@ -528,12 +543,14 @@ cudaError_t launch_tile(const DenseArgs& a, cudaStream_t stream) {
 
 using namespace repro_torch;
 
-// X (B, d), W (C, d) float32 contiguous -> S (B, C) float32, labels (B,) int32,
-// over n_blocks blocks (one wave: min(B, SMs)). One launch when every class's
+// X (B, d), W (C, d) float32 contiguous -> S (B, C) float32, labels (B,) int32
+// (nan_label for a row with a NaN among its first n_classes scores), over
+// n_blocks blocks (one wave: min(B, SMs)). One launch when every class's
 // padded row fits the shared-memory budget, as at every width the paper's
 // datasets have (d <= 47,236 at C = 1).
 extern "C" int dense_scores(const void* X, const void* W, void* S, void* labels,
-                            int B, int d, int C, int n_classes, int n_blocks, void* stream) {
+                            int B, int d, int C, int n_classes, int nan_label, int n_blocks,
+                            void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -543,7 +560,7 @@ extern "C" int dense_scores(const void* X, const void* W, void* S, void* labels,
                            static_cast<long long>(kStaticBytes);
   const long long slab_quads = budget / 16;  // one class row of a slab fits
   DenseArgs a{static_cast<const float*>(X), static_cast<const float*>(W), static_cast<float*>(S),
-              static_cast<int*>(labels), B, d, C, n_classes, n_blocks, 0, 0, 0, 0, 0, 0};
+              static_cast<int*>(labels), B, d, C, n_classes, nan_label, n_blocks, 0, 0, 0, 0, 0, 0};
   const auto tile_cap = [](long long fit) { return fit < kMaxClassTile ? fit : kMaxClassTile; };
   for (int j0 = 0; j0 == 0 || j0 < d; j0 += static_cast<int>(4 * slab_quads)) {
     const int dslab = static_cast<int>(d - j0 < 4 * slab_quads ? d - j0 : 4 * slab_quads);
@@ -569,12 +586,13 @@ extern "C" int dense_scores(const void* X, const void* W, void* S, void* labels,
 }
 
 // cols, vals (B, k) int32 / float32, W (C, d), block_ids (n_blocks_max,) int32
-// -> S (B, C) float32, labels (B,) int32, counting only the entries whose
-// d-block is in block_ids; ids >= n_d_blocks are sentinels.
+// -> S (B, C) float32, labels (B,) int32 (nan_label for a row with a NaN among
+// its first n_classes scores), counting only the entries whose d-block is in
+// block_ids; ids >= n_d_blocks are sentinels.
 extern "C" int ell_scores_prefetch(const void* cols, const void* vals, const void* W,
                                    const void* block_ids, void* S, void* labels, int B, int k,
-                                   int d, int C, int n_classes, int n_blocks_max, int blk_d,
-                                   int n_d_blocks, void* stream) {
+                                   int d, int C, int n_classes, int nan_label, int n_blocks_max,
+                                   int blk_d, int n_d_blocks, void* stream) {
   const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(ell_scores_prefetch_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -583,7 +601,7 @@ extern "C" int ell_scores_prefetch(const void* cols, const void* vals, const voi
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
         static_cast<const float*>(W), static_cast<const int*>(block_ids),
-        static_cast<float*>(S), static_cast<int*>(labels), B, k, d, C, n_classes,
+        static_cast<float*>(S), static_cast<int*>(labels), B, k, d, C, n_classes, nan_label,
         n_blocks_max, blk_d, n_d_blocks);
   }
   return static_cast<int>(cudaGetLastError());

@@ -21,18 +21,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["fleet_half_step", "margins", "grad_update",
+__all__ = ["fleet_half_step", "margins", "grad_update", "fleet_cluster",
            "fleet_half_step_plain", "margins_plain", "grad_update_plain"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "hinge_subgrad.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fleet_half_step": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "fleet_half_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "margins": [_P, _P, _P, _P, _I, _I, _P],
     "grad_update": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
 }
-# one block's shared memory holds the (B,) coefficients of fleet_half_step
-_MAX_FLEET_B = 227 * 1024 // 4
+# one block's shared memory holds fleet_half_step's (B,) partial margins and
+# (B,) coefficients beside 16 floats of row pieces
+_MAX_FLEET_B = (227 * 1024 // 4 - 16) // 2
+_CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size on Hopper
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,6 +51,14 @@ def _one_minus(s0: float) -> float:
 
 
 # ------------------------------------------------------------ fleet_half_step
+
+def fleet_cluster(m: int, n_sm: int) -> int:
+    """Blocks of the thread-block cluster each node gets: the largest power
+    of two up to 16 with m·CL <= the card's ``n_sm`` SMs, so every block has
+    an SM of its own (1 when m > n_sm). 8 at the paper's m = 10 on 132 SMs,
+    where clusters of 16 (160 blocks) measured slower."""
+    return max([c for c in _CLUSTERS if m * c <= n_sm] or [1])
+
 
 def fleet_half_step_plain(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
                           row_mask: torch.Tensor, scal) -> torch.Tensor:
@@ -68,9 +78,19 @@ def fleet_half_step(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
     X: (m, B, d) per-node minibatch tiles, W: (m, d), y: (m, B),
     row_mask: (B,) float validity of the rows, ``scal`` = (λα, α/B).
     Returns W_half (m, d). No ball projection (``ops.fleet_half_step`` does it).
+    On CUDA each node runs as a cluster of ``fleet_cluster(m, SMs)`` blocks.
     """
     if _build.on_cpu(X, W, y, row_mask):
         return fleet_half_step_plain(X, W, y, row_mask, scal)
+    return _launch_fleet(X, W, y, row_mask, scal,
+                         fleet_cluster(X.shape[0], _build.sm_count(X.device.index)))
+
+
+def _launch_fleet(X, W, y, row_mask, scal, cluster: int) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors with ``cluster`` blocks a node
+    (one of 1, 2, 4, 8, 16); ``fleet_half_step`` passes ``fleet_cluster``'s."""
+    if X.ndim != 3:
+        raise ValueError(f"X must be (m, B, d), got shape {tuple(X.shape)}")
     m, B, d = X.shape
     _build.check_tensor("X", X, (m, B, d))
     _build.check_tensor("W", W, (m, d))
@@ -78,12 +98,14 @@ def fleet_half_step(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
     _build.check_tensor("row_mask", row_mask, (B,))
     if not 1 <= B <= _MAX_FLEET_B:
         raise ValueError(f"fleet_half_step takes 1 <= B <= {_MAX_FLEET_B}, got B={B}")
+    if cluster not in _CLUSTERS:
+        raise ValueError(f"cluster must be one of {_CLUSTERS}, got {cluster}")
     s0, s1 = _f32_pair(scal)
     out = torch.empty_like(W)
     with torch.cuda.device(X.device):
         code = _lib().fleet_half_step(
             X.data_ptr(), W.data_ptr(), y.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
-            m, B, d, s0, s1, _build.stream(X))
+            m, B, d, cluster, s0, s1, _build.stream(X))
     _build.check(code, "fleet_half_step")
     fleet_half_step.launches += 1
     return out

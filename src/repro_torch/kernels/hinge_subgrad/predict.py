@@ -9,7 +9,6 @@ wrapper's ``launches``, and nothing else does.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -18,19 +17,29 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.ref import ell_predict_scores_ref
 from repro_torch.kernels.hinge_subgrad.sparse import _MAX_BITMAP_BYTES
 
-__all__ = ["dense_scores", "dense_scores_plain", "dense_grid", "even_split",
+__all__ = ["dense_scores", "dense_scores_plain", "dense_grid", "even_split", "nan_label",
            "ell_scores_prefetch", "ell_scores_prefetch_plain"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "predict.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+_SIGNATURES = {"dense_scores": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                "ell_scores_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _P]}
+                                       _I, _I, _I, _P]}
+
+
+def nan_label(C: int) -> int:
+    """The label of a row with a NaN among its ranked scores: the
+    reference's pad-lane count ``128·⌈C/128⌉`` for C class rows, outside
+    ``[0, C)``, which its ``dense_predict`` and ``ell_predict`` return."""
+    return 128 * -(-C // 128)
 
 
 def _argmax(S: torch.Tensor, n_classes: int) -> torch.Tensor:
-    """First-occurrence argmax over the first ``n_classes`` classes, int32."""
-    return torch.argmax(S[:, :n_classes], dim=-1).to(torch.int32)
+    """First-occurrence argmax over the first ``n_classes`` classes, int32;
+    a row with a NaN among them gets :func:`nan_label` of S's width."""
+    head = S[:, :n_classes]
+    labels = torch.argmax(head, dim=-1).to(torch.int32)
+    return torch.where(torch.isnan(head).any(dim=-1), nan_label(S.shape[1]), labels)
 
 
 def even_split(n: int, parts: int) -> list[tuple[int, int]]:
@@ -42,11 +51,6 @@ def even_split(n: int, parts: int) -> list[tuple[int, int]]:
     return list(zip(starts[:-1], starts[1:]))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def dense_grid(B: int, n_sm: int) -> int:
     """Blocks of the ``dense_scores`` launch: one wave of one block per SM,
     and no block without a row."""
@@ -56,7 +60,8 @@ def dense_grid(B: int, n_sm: int) -> int:
 def dense_scores_plain(X: torch.Tensor, W: torch.Tensor, *,
                        n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch scores S = X Wᵀ and first-occurrence argmax over the
-    first ``n_classes`` class rows (int32)."""
+    first ``n_classes`` class rows (int32; ``nan_label(C)`` for a row with a
+    NaN among them)."""
     S = X @ W.T
     return S, _argmax(S, n_classes)
 
@@ -65,7 +70,8 @@ def dense_scores(X: torch.Tensor, W: torch.Tensor, *,
                  n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused scores and argmax in one launch: X (B, d) queries against W (C, d)
     class weights → (scores (B, C) float32, labels (B,) int32), the labels
-    being the first-occurrence argmax over classes ``c < n_classes``."""
+    being the first-occurrence argmax over classes ``c < n_classes``, and
+    ``nan_label(C)`` for a row with a NaN among those classes."""
     if _build.on_cpu(X, W):
         return dense_scores_plain(X, W, n_classes=n_classes)
     B, d = X.shape
@@ -77,10 +83,10 @@ def dense_scores(X: torch.Tensor, W: torch.Tensor, *,
     S = torch.empty((B, C), dtype=torch.float32, device=X.device)
     labels = torch.empty((B,), dtype=torch.int32, device=X.device)
     with torch.cuda.device(X.device):
-        n_sm = _sm_count(X.device.index)
+        n_sm = _build.sm_count(X.device.index)
         code = _build.load(_SOURCE, _SIGNATURES).dense_scores(
             X.data_ptr(), W.data_ptr(), S.data_ptr(), labels.data_ptr(),
-            B, d, C, n_classes, dense_grid(B, n_sm), _build.stream(X))
+            B, d, C, n_classes, nan_label(C), dense_grid(B, n_sm), _build.stream(X))
     _build.check(code, "dense_scores")
     dense_scores.launches += 1
     return S, labels
@@ -93,7 +99,8 @@ def ell_scores_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.T
                               block_ids: torch.Tensor, *, blk_d: int, n_d_blocks: int,
                               n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch scores over the entries whose d-block is in the map,
-    and the first-occurrence argmax over the first ``n_classes`` classes."""
+    and the first-occurrence argmax over the first ``n_classes`` classes
+    (``nan_label(C)`` for a row with a NaN among them)."""
     table = torch.zeros(n_d_blocks + 1, dtype=torch.bool, device=cols.device)
     table[block_ids.long().clamp(0, n_d_blocks)] = True
     table[n_d_blocks] = False  # the sentinel marks nothing
@@ -115,7 +122,8 @@ def ell_scores_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
     as on the TPU: with a sound cap that is every live entry, with an
     undersized one the dropped blocks' entries are lost. Returns
     (scores (B, C) float32, labels (B,) int32), the labels the
-    first-occurrence argmax over classes ``c < n_classes``.
+    first-occurrence argmax over classes ``c < n_classes`` and
+    ``nan_label(C)`` for a row with a NaN among them.
     """
     if _build.on_cpu(cols, vals, W, block_ids):
         return ell_scores_prefetch_plain(cols, vals, W, block_ids, blk_d=blk_d,
@@ -138,8 +146,8 @@ def ell_scores_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
     with torch.cuda.device(W.device):
         code = _build.load(_SOURCE, _SIGNATURES).ell_scores_prefetch(
             cols.data_ptr(), vals.data_ptr(), W.data_ptr(), block_ids.data_ptr(),
-            S.data_ptr(), labels.data_ptr(), B, k, d, C, n_classes, n_blocks_max, blk_d,
-            n_d_blocks, _build.stream(W))
+            S.data_ptr(), labels.data_ptr(), B, k, d, C, n_classes, nan_label(C), n_blocks_max,
+            blk_d, n_d_blocks, _build.stream(W))
     _build.check(code, "ell_scores_prefetch")
     ell_scores_prefetch.launches += 1
     return S, labels

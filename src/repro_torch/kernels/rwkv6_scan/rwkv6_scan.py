@@ -16,9 +16,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import scan_ref
 
-__all__ = ["HEAD_DIMS", "wkv_scan", "wkv_scan_plain"]
+__all__ = ["MAX_HEAD_SIZE", "wkv_scan", "wkv_scan_plain"]
 
-HEAD_DIMS = (16, 32, 64)  # the kernel's instantiations
+MAX_HEAD_SIZE = 256  # the kernel's largest n (a lane holds at most 32 rows of 4 columns)
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv_scan.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -35,14 +35,19 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """r, k, v, w: (B, S, H, n) float32; u: (H, n). Returns out (B, S, H, n)
     with ``out_t = r_t (S + diag(u) k_tᵀ v_t)`` and
     ``S <- diag(w_t) S + k_tᵀ v_t`` per (batch, head), S_0 = 0. On CUDA, n
-    must be one of ``HEAD_DIMS``."""
+    must be at most ``MAX_HEAD_SIZE``."""
     if _build.on_cpu(r, k, v, w, u):
         return wkv_scan_plain(r, k, v, w, u)
+    return _launch(r, k, v, w, u)
+
+
+def _launch(r, k, v, w, u) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors, after the checks."""
     if r.ndim != 4:
         raise ValueError(f"r must be (B, S, H, n), got shape {tuple(r.shape)}")
     B, S, H, n = r.shape
-    if n not in HEAD_DIMS:
-        raise ValueError(f"head size {n} not among the kernel's {HEAD_DIMS}")
+    if not 1 <= n <= MAX_HEAD_SIZE:
+        raise ValueError(f"head size {n} outside the kernel's 1..{MAX_HEAD_SIZE}")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _build.check_tensor(name, t, (B, S, H, n))
     _build.check_tensor("u", u, (H, n))

@@ -56,6 +56,29 @@ def test_matches_reference_kernel(b, s, h, hkv, dh, causal, window, dtype):
                                atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dh", [80, 40, 33])
+def test_head_sizes_between_instantiations_match_reference_kernel(dh):
+    """Head sizes the kernel pads to its next instantiation (80 is
+    hubert-xlarge's; 33 fills no 16-byte chunk), f32 at the reference
+    test's 2e-5."""
+    b, s, h, hkv = 1, 96, 4, 2
+    q, k, v = _qkv(b, s, h, hkv, dh, seed=dh)
+    want = ref_gqa(*(jnp.asarray(x) for x in (q, k, v)), causal=True, window=32,
+                   blk_q=32, blk_k=32, interpret=True)
+    got = gqa_flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True, window=32)
+    assert tuple(got.shape) == (b, s, h, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_head_size_limit_is_named():
+    """The launch path takes every dh from 1 to MAX_HEAD_DIM and raises
+    above it, naming the limit, before it builds or launches anything."""
+    assert FA.MAX_HEAD_DIM == 256
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 2, 1, 257))
+    with pytest.raises(ValueError, match="1..256"):
+        FA._launch(q, k, v, causal=True, window=0)
+
+
 @pytest.mark.parametrize("s,window,causal", [(100, 0, True), (100, 16, True), (37, 64, True),
                                              (37, 64, False), (100, 250, True)])
 def test_any_length_matches_oracle(s, window, causal):

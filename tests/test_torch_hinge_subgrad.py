@@ -13,6 +13,7 @@ from repro.kernels.hinge_subgrad import hinge_subgrad as RK  # noqa: E402
 from repro.kernels.hinge_subgrad import ops as RO  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import hinge_subgrad as TK  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import ops as TO  # noqa: E402
+from repro_torch.kernels.hinge_subgrad import predict as TP  # noqa: E402
 
 ATOL = 1e-5
 SHAPES = [(B, d) for B in (1, 5, 8) for d in (100, 130, 300)]
@@ -129,3 +130,28 @@ def test_wrappers_refuse_mixed_devices():
 def test_padded_row_mask(n_padded, n_valid):
     np.testing.assert_array_equal(TO.padded_row_mask(n_padded, n_valid).numpy(),
                                   np.asarray(RO.padded_row_mask(n_padded, n_valid)))
+
+
+@pytest.mark.parametrize("m,n_sm,want", [(10, 132, 8), (1, 132, 16), (32, 132, 4), (33, 132, 4),
+                                         (64, 132, 2), (132, 132, 1), (500, 132, 1), (10, 66, 4)])
+def test_fleet_cluster_gives_every_block_an_sm(m, n_sm, want):
+    """fleet_half_step's cluster size: the largest power of two up to 16 with
+    m·CL blocks on at most the card's SMs (8 at the paper's m = 10 on an H100
+    SXM's 132), 1 when the nodes alone outnumber the SMs."""
+    cl = TK.fleet_cluster(m, n_sm)
+    assert cl == want
+    assert m * cl <= n_sm or cl == 1
+    assert cl == 16 or m * 2 * cl > n_sm
+
+
+@pytest.mark.parametrize("d,cluster", [(8315, 16), (8315, 8), (1001, 16), (70001, 16), (5, 16),
+                                       (1, 1)])
+def test_fleet_column_shares_cover_d_once(d, cluster):
+    """The kernel cuts d as predict.even_split does: the cluster's blocks own
+    contiguous shares that cover [0, d) once, none wider than ⌈d / CL⌉ (the
+    shared memory the kernel sizes for X's slice), some empty when d < CL."""
+    shares = TP.even_split(d, cluster)
+    assert shares[0][0] == 0 and shares[-1][1] == d
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    assert max(hi - lo for lo, hi in shares) == -(-d // cluster)
+    assert sum(hi - lo for lo, hi in shares) == d

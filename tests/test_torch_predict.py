@@ -1,5 +1,7 @@
 """The port's dense_predict against the reference's fused dense_scores
-kernel (interpret mode), binary and multiclass, ties included."""
+kernel (interpret mode), binary and multiclass, ties included; rows with
+NaN and infinite scores against the reference's dense_predict and
+ell_predict, labels bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.hinge_subgrad import ops as RO  # noqa: E402
+from repro.kernels.hinge_subgrad import predict as RP  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import ops as TO  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import predict as TP  # noqa: E402
 
@@ -86,3 +89,81 @@ def test_dense_scores_masks_classes_beyond_n_classes():
 def test_dense_predict_rejects_3d_weights():
     with pytest.raises(ValueError):
         TO.dense_predict(torch.zeros(2, 3, 4), torch.zeros(5, 4))
+
+
+def _nan_rows(B, d, C, seed):
+    """X (B, d) and W (C, d) whose scores hold, in row 1, NaN for every class
+    (a NaN feature); in row 2, NaN for class C - 1 only (an infinite feature
+    against its zero weight) and +-inf for the others; in row 3, -inf for
+    every class; finite scores elsewhere."""
+    rng = np.random.default_rng(seed)
+    X = (rng.normal(size=(B, d)) / np.sqrt(d)).astype(np.float32)
+    W = rng.normal(size=(C, d)).astype(np.float32)
+    X[1, 5] = np.nan
+    X[2, 7], W[C - 1, 7] = np.inf, 0.0
+    X[3, 9], W[:, 9] = -np.inf, 1.0
+    return X, W
+
+
+@pytest.mark.parametrize("C", [1, 3, 130])
+def test_dense_predict_nan_rows_match_reference(C):
+    """A row with a NaN among its class scores is labelled with the
+    reference's pad-lane count 128·⌈C/128⌉ (128 at C 1 and 3, 256 at 130);
+    a row of -inf scores takes class 0; the rest the first-occurrence argmax."""
+    X, W = _nan_rows(8, 300, C, seed=C)
+    s_ref, l_ref = RO.dense_predict(jnp.asarray(W), jnp.asarray(X), interpret=True)
+    s_port, l_port = TO.dense_predict(torch.from_numpy(W), torch.from_numpy(X))
+    np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(l_port.numpy(), np.asarray(l_ref))
+    assert TP.nan_label(C) == 128 * -(-C // 128)
+    assert l_port[1] == l_port[2] == TP.nan_label(C) and l_port[3] == 0
+
+
+@pytest.mark.parametrize("C", [1, 3, 130])
+def test_ell_predict_nan_rows_match_reference(C):
+    """The padded-ELL twin: a NaN value, an infinite value against a zero
+    weight of class C - 1, and a -inf value against weights of 1. Every
+    entry lies in the first 128-column block: the reference's one-hot gather
+    multiplies each value by the one-hot rows of every visited block, which
+    turns an infinite value into NaN (inf x 0) as soon as a second block is
+    visited; the port gathers, so its -inf stays -inf (ROADMAP C)."""
+    B, k, d = 8, 6, 700
+    rng = np.random.default_rng(20 + C)
+    cols = rng.integers(0, 128, size=(B, k)).astype(np.int32)
+    vals = rng.normal(size=(B, k)).astype(np.float32)
+    W = rng.normal(size=(C, d)).astype(np.float32)
+    cols[:, 0] = np.arange(B) * 15 + 3  # a distinct first column a row
+    vals[1, 0] = np.nan
+    vals[2, 0], W[C - 1, cols[2, 0]] = np.inf, 0.0
+    vals[3, 0], W[:, cols[3, 0]] = -np.inf, 1.0
+    vals[4, 2:] = 0.0  # pad entries (col, 0) stay inert
+    s_ref, l_ref = RO.ell_predict(jnp.asarray(W), jnp.asarray(cols), jnp.asarray(vals),
+                                  interpret=True)
+    s_port, l_port = TO.ell_predict(torch.from_numpy(W), torch.from_numpy(cols),
+                                    torch.from_numpy(vals))
+    np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(l_port.numpy(), np.asarray(l_ref))
+    assert l_port[1] == l_port[2] == TP.nan_label(C) and l_port[3] == 0
+
+
+def test_nan_past_n_classes_is_ignored_as_by_the_reference_kernel():
+    """At the kernel level (n_classes < C): a NaN in an unranked class changes
+    no label, a NaN in a ranked one gives the pad-lane count; the reference
+    kernel on the same planes, its class rows padded to 128 with zeros."""
+    B, d, C, n_classes = 8, 256, 4, 3
+    X, W = _nan_rows(B, d, C, seed=9)
+    W[3, 0] = np.nan  # class 3 unranked: NaN on every row
+    Wp = np.zeros((128, d), np.float32)
+    Wp[:C] = W
+    s_ref, l_ref = RP.dense_scores(jnp.asarray(X), jnp.asarray(Wp), n_classes=n_classes,
+                                   blk_b=8, blk_d=128, interpret=True)
+    s_port, l_port = TP.dense_scores(torch.from_numpy(X), torch.from_numpy(W),
+                                     n_classes=n_classes)
+    np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref)[:, :C], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(l_port.numpy(), np.asarray(l_ref))
+    # row 1 holds a NaN among the ranked classes; row 2's NaN is class 3,
+    # unranked, so it and every other row rank classes 0-2 (+-inf included)
+    assert l_port[1] == TP.nan_label(C) and l_port[3] == 0
+    others = np.delete(np.arange(B), 1)
+    np.testing.assert_array_equal(l_port.numpy()[others],
+                                  np.argmax(s_port.numpy()[others, :n_classes], axis=1))

@@ -18,6 +18,7 @@ from repro.kernels.rwkv6_scan.ref import scan_ref as ref_wkv_oracle  # noqa: E40
 from repro_torch.kernels.rglru_scan import ops as RO  # noqa: E402
 from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as WO  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as WK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import wkv_scan  # noqa: E402
 
 
@@ -67,6 +68,17 @@ def test_wkv_matches_reference_kernel(B, S, H, n, bs):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("n", [24, 40, 80])
+def test_wkv_head_sizes_between_powers_of_two_match_reference(n):
+    """Head sizes the kernel took only from PR 16 on (24: reduced rwkv6
+    configs; 40, 80), against the reference's kernel (2e-5) and oracle (1e-5)."""
+    r, k, v, w, u = _rkvwu(2, 20, 2, n, seed=n)
+    args = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    got = WO.wkv(*(torch.from_numpy(x) for x in (r, k, v, w, u))).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref_wkv(*args, blk_s=8, interpret=True)), atol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(ref_wkv_oracle(*args)), atol=1e-5)
+
+
 @settings(max_examples=8, deadline=None)
 @given(st.integers(1, 2), st.integers(1, 40), st.integers(1, 3), st.sampled_from([4, 8, 16]))
 def test_wkv_property(B, S, H, n):
@@ -92,6 +104,15 @@ def test_wrappers_take_plain_versions_on_cpu_and_reject_other_devices():
     assert wkv_scan.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         wkv_scan(*(x.to("meta") for x in (r, k, v, w, u)))
+
+
+def test_wkv_scan_names_its_head_size_limit():
+    """Every n from 1 to MAX_HEAD_SIZE is taken; above it the launch path
+    raises, naming the limit, before it builds or launches anything."""
+    assert WK.MAX_HEAD_SIZE == 256
+    big = torch.zeros((1, 2, 1, 257))
+    with pytest.raises(ValueError, match="1..256"):
+        WK._launch(big, big, big, big, torch.zeros((1, 257)))
 
 
 def test_launch_costs():

@@ -353,6 +353,35 @@ def test_scripted_server_run_matches_reference(tmp_path, C):
     assert serve_series(servers["repro_torch"]) == serve_series(servers["repro"])
 
 
+@pytest.mark.parametrize("C", [1, 3, 130])
+def test_servers_label_nan_rows_as_the_reference(C):
+    """Both servers on the kernel route, multiclass W (C, d): a query whose
+    class scores hold a NaN is labelled 128·⌈C/128⌉, dense and sparse; the
+    servers guard no query. Sparse entries lie in one 128-column block (see
+    test_torch_predict.py: the reference's one-hot gather turns an infinite
+    value into NaN in every other visited block)."""
+    d = 300
+    rng = np.random.default_rng(40 + C)
+    W = rng.normal(size=(C, d)).astype(np.float32)
+    X = (rng.normal(size=(6, d)) / np.sqrt(d)).astype(np.float32)
+    X[1, 4] = np.nan
+    X[2, 6] = np.inf
+    W[C - 1, 6] = 0.0  # row 2: class C - 1 NaN, the others +-inf
+    cols = rng.integers(0, BLK, size=(6, 5)).astype(np.int32)
+    vals = rng.normal(size=(6, 5)).astype(np.float32)
+    vals[1, 0] = np.nan
+    vals[3, 2] = np.nan
+    servers = {"repro": R_serve.SvmServer(W, use_kernels=True),
+               "repro_torch": T_serve.SvmServer(W, device="cpu")}
+    for fn in (lambda s: s.score(X), lambda s: s.score_sparse(cols, vals)):
+        port, ref = fn(servers["repro_torch"]), fn(servers["repro"])
+        _assert_same(port, ref)
+        assert np.isnan(port[0][1]).all()
+    nan_label = 128 * -(-C // 128)
+    assert servers["repro_torch"].score(X)[1][[1, 2]].tolist() == [nan_label] * 2
+    assert servers["repro_torch"].score_sparse(cols, vals)[1][[1, 3]].tolist() == [nan_label] * 2
+
+
 def test_kernel_and_oracle_routes_agree():
     d = 300
     w = np.random.default_rng(16).normal(size=d).astype(np.float32)

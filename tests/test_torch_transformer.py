@@ -33,11 +33,11 @@ DECODE_ATOL, DECODE_RTOL = 5e-4, 1e-3  # tests/test_decode_consistency.py's
 B, S = 2, 24
 
 
-def _pair(arch, n_layers, seed=1):
-    cfg = ref_config(arch).reduced(n_layers=n_layers)
+def _pair(arch, n_layers, seed=1, d_model=256):
+    cfg = ref_config(arch).reduced(n_layers=n_layers, d_model=d_model)
     ref = RefModel(cfg)
     params = ref.init(jax.random.PRNGKey(seed))
-    port = model_to_torch(get_config(arch).reduced(n_layers=n_layers),
+    port = model_to_torch(get_config(arch).reduced(n_layers=n_layers, d_model=d_model),
                           jax.tree.map(np.asarray, params), device="cpu")
     return cfg, ref, params, port
 
@@ -67,6 +67,20 @@ def test_forward_and_decode_match_reference(arch, n_layers, atol):
                                                            device="cpu")):
         for a, b in zip(mine, theirs):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=atol)
+
+
+def test_reduced_rwkv6_with_heads_of_24_matches_reference():
+    """d_model 96 gives reduced rwkv6 configs heads of n = 24
+    (``models/config.py``), a size the WKV kernel took only from PR 16 on:
+    the forward against the reference's on the same params, at the rwkv6
+    bound of CASES."""
+    cfg, ref, params, port = _pair("rwkv6-3b", 2, d_model=96)
+    assert cfg.rwkv_head_dim == 24 and port.cfg.rwkv_head_dim == 24
+    toks = _tokens(cfg)
+    want, _ = jax.jit(ref.forward)(params, {"tokens": jnp.asarray(toks)})
+    got = make_prefill_step(port)({"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=dict(
+        (a, t) for a, _, t in CASES)["rwkv6-3b"])
 
 
 @pytest.mark.parametrize("arch,n_layers", [("llama3-8b", 2), ("recurrentgemma-9b", 5),
