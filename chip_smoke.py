@@ -7,7 +7,7 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
-3. kernels: each of the twelve kernels against its plain PyTorch version on
+3. kernels: each of the thirteen kernels against its plain PyTorch version on
    the card, at the shapes of its main path and at ragged shapes (for the
    sparse kernels: pad entries, a pad row, an all-pad node, and a touched-
    block map one slot too short; for the serving kernel: tied classes, pad
@@ -29,7 +29,11 @@ Phases, each of which exits non-zero on failure:
    at serving batches of 8 and 64 rows beside ``torch.mm``, held at
    d = 70,001 with 20 classes (column slabs and class tiles), and with NaN
    rows (labelled ``nan_label(C)``, the reference's rule) at C 3, 4 and
-   130, as ``ell_scores_prefetch`` is at C 4; ``fleet_half_step`` at m 1,
+   130, as ``ell_scores_prefetch`` is at C 4; ``margins`` for the fleet
+   (10, 1, 8315) beside ``torch.bmm``, for one node (1, 8315) beside
+   ``torch.mv``, at 2 x 1100 rows (a block a row) and by blocks a row;
+   ``ell_grad_update_prefetch_fold`` bit for bit the buckets kernel
+   followed by ``fold_buckets``; ``fleet_half_step`` at m 1,
    10 and 32, B 1 and 37 (rows masked), d 8315, 1001 and 70,001, and a B
    whose X slice overflows shared memory, with clusters of 8 and 16 timed;
    ``rglru_scan`` at (2, 4096, 4096) and ragged shapes; ``wkv_scan`` at
@@ -40,17 +44,20 @@ Phases, each of which exits non-zero on failure:
    fused), then the test set scored with ``dense_predict``; held to test
    accuracy >= 0.72 and final objective <= 0.50, and every launch counted;
 5. unfused path: the same data with ``fused=False`` for 400 iterations,
-   ``margins`` and ``grad_update`` launched m times per iteration;
+   ``margins`` launched once and ``grad_update`` m times per iteration;
+   device time and kernel launches an iteration from torch.profiler;
 6. whole path against the CPU: 200 iterations of the phase 4 config on the
    card with its draws recorded, replayed with ``device="cpu"`` (the plain
    versions), W within 1e-4 and the objective trace within 1e-5 relative;
 7. sparse main path: GADGET on CCAT as ELL planes at full width
    (d = 47,236, k = 76; rows cut to scale 0.1) with the paper's CCAT config
    and ``sparse_schedule="auto"``, which must resolve to the prefetch pair
-   at blk_d = 128; ``ell_margins_prefetch`` and ``ell_grad_update_prefetch``
-   launched once per iteration, held to the quality limits below;
+   at blk_d = 128; ``ell_margins_prefetch`` and ``ell_grad_update_prefetch_fold``
+   launched once per iteration, held to the quality limits below; device
+   time and kernel launches an iteration from torch.profiler;
 8. sweep path: the same data with ``sparse_schedule="sweep"`` for 400
-   iterations, ``ell_margins`` and ``ell_grad_update`` once per iteration;
+   iterations, ``ell_margins`` and ``ell_grad_update`` once per iteration,
+   profiled as phase 7;
 9. sparse parity: 200 iterations of the phase 7 config on the card against
    their CPU replay (W within 1e-4, objective 1e-5 relative), prefetch
    against sweep on the card on the same draws (W within 1e-5), and reuters'
@@ -139,6 +146,7 @@ REPLACES = {
     "ell_grad_update": "src/repro/kernels/hinge_subgrad/sparse.py:138",
     "ell_margins_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:210",
     "ell_grad_update_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:259",
+    "ell_grad_update_prefetch_fold": "src/repro/kernels/hinge_subgrad/sparse.py:259",
     "ell_scores_prefetch": "src/repro/kernels/hinge_subgrad/predict.py:169",
 }
 TRANSFORMER_REPLACES = {
@@ -286,17 +294,19 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
         library=None, cost=ops.launch_cost("fleet_half_step", m=N_NODES, B=1, d=d),
         shape=f"X ({N_NODES}, 1, {d})")
 
-    # margins and grad_update: one node's (B, d) = (1, 8315) on the unfused path
+    # margins: the fleet's (m, B, d) = (10, 1, 8315) once an unfused
+    # iteration; grad_update: one node's (B, d) = (1, 8315), once a node
+    out["margins"] = dict(
+        main=fleet_case(N_NODES, 1, d)[:3], ragged=fleet_case(3, 37, 1001)[:3], kernel=K.margins,
+        plain=K.margins_plain, library=lambda X, W, y: torch.bmm(X, W[:, :, None]),
+        cost=ops.launch_cost("margins", m=N_NODES, B=1, d=d), shape=f"X ({N_NODES}, 1, {d})")
+
     def node_case(B, dd):
         X, y = rows(B, dd), labels(B)
         w = 10 * torch.randn(dd, generator=gen, device=dev)
         return X, w, y
     X1, w1, y1 = node_case(1, d)
     Xr, wr, yr = node_case(37, 1001)
-    out["margins"] = dict(
-        main=(X1, w1, y1), ragged=(Xr, wr, yr), kernel=K.margins, plain=K.margins_plain,
-        library=lambda X, w, y: torch.mv(X, w),
-        cost=ops.launch_cost("margins", B=1, d=d), shape=f"X (1, {d})")
     coeff1, coeffr = y1.clone(), torch.where(torch.arange(37, device=dev) % 2 == 0, yr, 0.0)
     sr = ops.step_scalars(REUTERS["lam"], 1000, 37)
     one_minus = float(np.float32(1) - np.float32(scal[0]))
@@ -391,6 +401,41 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
         f"{cluster_ms[16] * 1e3:.2f} us (the wrapper takes {chosen} at m = {N_NODES})")
     results["fleet_half_step"].update(other_shapes_max_abs_err=worst, cluster=chosen,
                                       cluster_ms={str(k): v for k, v in cluster_ms.items()})
+
+    # margins: one node's (1, 8315) (the m = 1 case) beside torch.mv, and a
+    # block a row at 2 x 1100 rows; held, reruns bit for bit; then the
+    # cluster sizes timed at the main shape (the wrapper picks margins_cluster's)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    X1m, W1m, y1m = (a[0] for a in fleet_case(1, 1, d)[:3])
+    Xwm, Wwm, ywm = fleet_case(2, 1100, 1001)[:3]
+    require(K.margins_cluster(2 * 1100, n_sm) == 1, "2 x 1100 rows do not take a block a row")
+    errs = []
+    for args in ((X1m, W1m, y1m), (Xwm, Wwm, ywm)):
+        got = K.margins(*args)
+        errs.append(rel_err(got, K.margins_plain(*args)))
+        require(errs[-1][1] <= KERNEL_RTOL and torch.equal(got, K.margins(*args)),
+                f"margins at X {tuple(args[0].shape)}: rel err {errs[-1][1]:.3e}, or reruns differ")
+    t = device_ms(torch, lambda: K.margins(X1m, W1m, y1m), 200)
+    t_mv = device_ms(torch, lambda: torch.mv(X1m, W1m), 200)
+    b_ms, b_by = bound(ops.launch_cost("margins", B=1, d=d))
+    results["margins"]["one_node"] = dict(
+        shape=f"X (1, {d})", max_abs_err=errs[0][0], ms=t, library_ms=t_mv, bound_ms=b_ms,
+        bound_by=b_by, cluster=K.margins_cluster(1, n_sm))
+    log(f"  {'margins':16s} X (1, {d}): err {errs[0][0]:.3e}, kernel {t * 1e3:.2f} us, torch.mv "
+        f"{t_mv * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}); X (2, 1100, 1001), a block a "
+        f"row: err {errs[1][0]:.3e}")
+    main_m = out["margins"]["main"]
+    margins_ms = {}
+    for cl in (1, 4, 8, 16):
+        err = rel_err(K._launch_margins(*main_m, cl), K.margins_plain(*main_m))
+        require(err[1] <= KERNEL_RTOL, f"margins with clusters of {cl}: rel err {err[1]:.3e}")
+        margins_ms[cl] = device_ms(torch, lambda cl=cl: K._launch_margins(*main_m, cl), 200)
+    chosen = K.margins_cluster(N_NODES, n_sm)
+    log(f"  {'margins':16s} X ({N_NODES}, 1, {d}) by blocks a row: "
+        + ", ".join(f"{cl}: {t * 1e3:.2f} us" for cl, t in margins_ms.items())
+        + f" (the wrapper takes {chosen})")
+    results["margins"].update(cluster=chosen,
+                              cluster_ms={str(k): v for k, v in margins_ms.items()})
 
     # NaN rows (ROADMAP C1): a row with a NaN among its ranked scores gets
     # nan_label(C) from kernel and plain version alike; a NaN only in a
@@ -491,12 +536,14 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
     scal = ops.step_scalars(CCAT["lam"], 1000, B)
 
     # ragged: (m, B, k, d) = (3, 5, 13, 1001), 25% pad entries, row 2 a pad
-    # row, node 1 all pads (its map all sentinel)
+    # row, node 1 all pads (its map all sentinel), rows 0 and 1 of node 0
+    # sharing a column (two entries on one lane: the grad kernels' ordered walk)
     rm, rB, rk, rd = 3, 5, 13, 1001
     rcols = torch.randint(0, rd, (rm, rB, rk), generator=gen, device=dev, dtype=torch.int32)
     rvals = torch.rand(rm, rB, rk, generator=gen, device=dev)
     pad = torch.rand(rm, rB, rk, generator=gen, device=dev) < 0.25
     rcols[pad], rvals[pad] = 0, 0.0
+    rcols[0, :2, 0], rvals[0, :2, 0] = 17, 0.5
     ry = torch.where(torch.rand(rm, rB, generator=gen, device=dev) < 0.5, -1.0, 1.0)
     rcols[:, 2], rvals[:, 2], ry[:, 2] = 0, 0.0, 0.0
     rcols[1], rvals[1], ry[1] = 0, 0.0, 0.0
@@ -522,6 +569,12 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
         return (lambda c, v, cf, b: S.ell_grad_update_prefetch(c, v, cf, b, blk_d=blk, n_d_blocks=n_d),
                 lambda c, v, cf, b: S.ell_grad_update_prefetch_plain(c, v, cf, b, blk_d=blk,
                                                                      n_d_blocks=n_d))
+
+    def fold_pf(blk, n_d):
+        return (lambda c, v, cf, b, w, sc: S.ell_grad_update_prefetch_fold(
+                    c, v, cf, b, w, sc, blk_d=blk, n_d_blocks=n_d),
+                lambda c, v, cf, b, w, sc: S.ell_grad_update_prefetch_fold_plain(
+                    c, v, cf, b, w, sc, blk_d=blk, n_d_blocks=n_d))
     # the library yardstick of both margins kernels: one embedding_bag over
     # the planes as they are, each node's columns offset into a flattened W
     # (made here, outside the timed call); it returns the unsigned margins
@@ -558,12 +611,54 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
             cost=ops.launch_cost("ell_grad_update_prefetch", m=m, B=B, k=k,
                                  n_blocks_max=n_blocks_max, blk_d=blk_pf),
             shape=f"{main_shape}, map ({m}, {n_blocks_max}), G ({m}, {n_blocks_max}, {blk_pf})"),
+        "ell_grad_update_prefetch_fold": dict(
+            run=fold_pf(blk_pf, nd), inputs={
+                "main": (cols, vals, coeff, bids, W, scal),
+                "ragged": (rcols, rvals, rcoeff, rbids, rW, rscal),
+                "undersized": (rcols, rvals, rcoeff, rcut, rW, rscal)},
+            ragged_run=fold_pf(blk_pf, rnd),
+            cost=ops.launch_cost("ell_grad_update_prefetch_fold", m=m, B=B, k=k, d=d,
+                                 n_blocks_max=n_blocks_max, blk_d=blk_pf),
+            shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
     }
     # the short map really loses entries, or the undersized case tests nothing
     cut = S.ell_margins_prefetch_plain(rcols, rvals, rW, ry, rcut, blk_d=blk_pf, n_d_blocks=rnd)
     require(not torch.allclose(cut, S.ell_margins_plain(rcols, rvals, rW, ry)),
             "the undersized map dropped no entry")
     require(bool((rbids[1] == rnd).all()), "the all-pad node's map is not all sentinel")
+    # the fused prefetch grad is the G kernel folded by fold_buckets, bit for bit
+    for which, (c_, v_, cf_, b_, w_, sc_), n_d in (
+            ("main", (cols, vals, coeff, bids, W, scal), nd),
+            ("ragged", (rcols, rvals, rcoeff, rbids, rW, rscal), rnd),
+            ("undersized", (rcols, rvals, rcoeff, rcut, rW, rscal), rnd)):
+        fused = S.ell_grad_update_prefetch_fold(c_, v_, cf_, b_, w_, sc_, blk_d=blk_pf,
+                                                n_d_blocks=n_d)
+        G_ = S.ell_grad_update_prefetch(c_, v_, cf_, b_, blk_d=blk_pf, n_d_blocks=n_d)
+        s0_, s1_ = (float(np.float32(x)) for x in sc_)
+        folded = S.fold_buckets(w_, G_, b_, blk_pf, float(np.float32(1) - np.float32(s0_)), s1_)
+        require(torch.equal(fused, folded),
+                f"ell_grad_update_prefetch_fold {which}: not the G kernel + fold_buckets bit for "
+                f"bit (max diff {float((fused - folded).abs().max()):.3e})")
+    # what the fused entry replaces on the path: the G kernel, then fold_buckets
+    one_minus = float(np.float32(1) - np.float32(scal[0]))
+
+    def buckets_then_fold():
+        G_ = S.ell_grad_update_prefetch(cols, vals, coeff, bids, blk_d=blk_pf, n_d_blocks=nd)
+        return S.fold_buckets(W, G_, bids, blk_pf, one_minus, scal[1])
+
+    def fused():
+        return S.ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, scal, blk_d=blk_pf,
+                                               n_d_blocks=nd)
+    # kernel time from torch.profiler over 20 calls of each: device_ms would
+    # queue 200 x 14 launches, more than the launch queue holds, and time the host
+    n_calls = 20
+    pair, one = (profile_iterations(torch, lambda f=f: [f() for _ in range(n_calls)])
+                 for f in (buckets_then_fold, fused))
+    replaced = pair["kernel_launches"] / n_calls
+    replaced_us, fused_us = pair["kernel_us"] / n_calls, one["kernel_us"] / n_calls
+    log("  ell_grad_update_prefetch_fold equals ell_grad_update_prefetch + fold_buckets bit for "
+        f"bit (main, ragged, undersized); kernel time a call (torch.profiler): the two "
+        f"{replaced:.0f} launches {replaced_us:.2f} us, the fused entry {fused_us:.2f} us")
     lib_margins = margins_library().reshape(m, B) * y
     require(rel_err(lib_margins, S.ell_margins_plain(cols, vals, W, y))[1] <= KERNEL_RTOL,
             "embedding_bag does not compute the margins")
@@ -597,6 +692,9 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
             + f"), kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library "
             f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    results["ell_grad_update_prefetch_fold"].update(
+        replaced_launches=replaced, replaced_kernel_ms=replaced_us * 1e-3,
+        profiled_kernel_ms=fused_us * 1e-3)
     return results
 
 
@@ -1146,11 +1244,14 @@ def phase_models(torch, get_config, Model, make_prefill_step, make_serve_step, s
 
 
 def profile_iterations(torch, run) -> dict:
-    """Device time by kernel and host time by operator over ``run()``, from
-    torch.profiler. Only device-side events (kernels, copies) count as
-    device time: an operator's row repeats the time of the kernels it
-    launched. The profiler slows the host, so the caller divides the device
-    time by an unprofiled wall time."""
+    """Device time by kernel, in all and in kernels alone (copies, such as
+    pageable uploads whose time follows the host's, left out), kernel
+    launches and copies on the device, and host time by operator over
+    ``run()``, from torch.profiler. Only
+    device-side events (kernels, copies) count as device time: an
+    operator's row repeats the time of the kernels it launched. The
+    profiler slows the host, so the caller divides the device time by an
+    unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1161,7 +1262,12 @@ def profile_iterations(torch, run) -> dict:
                        key=lambda e: e.self_device_time_total, reverse=True)
     on_host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                      key=lambda e: e.self_cpu_time_total, reverse=True)
-    return {"device_us": sum(e.self_device_time_total for e in on_device),
+    copies = [e for e in on_device if e.key.startswith(("Memcpy", "Memset"))]
+    device_us = sum(e.self_device_time_total for e in on_device)
+    copy_us = sum(e.self_device_time_total for e in copies)
+    return {"device_us": device_us, "kernel_us": device_us - copy_us,
+            "kernel_launches": sum(e.count for e in on_device) - sum(e.count for e in copies),
+            "copies": sum(e.count for e in copies),
             "top_device": [(e.key[:70], e.count, e.self_device_time_total)
                            for e in on_device[:8]],
             "top_host": [(e.key[:70], e.count, e.self_cpu_time_total) for e in on_host[:8]]}
@@ -1172,7 +1278,7 @@ def wrappers(K, P, S, X) -> tuple:
     holds the transformer kernels' wrappers."""
     return (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores, S.ell_margins,
             S.ell_grad_update, S.ell_margins_prefetch, S.ell_grad_update_prefetch,
-            P.ell_scores_prefetch, *X)
+            S.ell_grad_update_prefetch_fold, P.ell_scores_prefetch, *X)
 
 
 def reset_counts(K, P, S, X) -> None:
@@ -1309,7 +1415,8 @@ def main() -> int:
     host_us = train_s / res.iters * 1e6
     busy = device_us / host_us
     log(f"  profile of {n_prof} iterations: device {device_us:.1f} us/iteration against "
-        f"{host_us:.1f} us/iteration of wall time unprofiled: device busy {busy:.3f}")
+        f"{host_us:.1f} us/iteration of wall time unprofiled: device busy {busy:.3f}, "
+        f"{prof['kernel_launches'] / n_prof:.2f} kernel launches an iteration")
     for key, count, us in prof["top_device"]:
         log(f"    device {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
     for key, count, us in prof["top_host"]:
@@ -1327,10 +1434,20 @@ def main() -> int:
     log(f"  {res_u.iters} iterations in {unfused_s:.3f} s ({res_u.iters / unfused_s:.1f} it/s), "
         f"objective {float(res_u.objective_trace[-1]):.4f}, launches {unfused_counts}")
     require(bool(torch.isfinite(res_u.W).all()), "unfused W not finite")
-    for name in ("margins", "grad_update"):
-        require(unfused_counts[name] == N_NODES * res_u.iters,
-                f"{name} launched {unfused_counts[name]} times, want {N_NODES * res_u.iters}")
+    for name, want in (("margins", res_u.iters), ("grad_update", N_NODES * res_u.iters)):
+        require(unfused_counts[name] == want,
+                f"{name} launched {unfused_counts[name]} times, want {want}")
     require(unfused_counts["fleet_half_step"] == 0, "the unfused path launched the fleet kernel")
+    prof_u = profile_iterations(torch, lambda: gadget_train(
+        X_dev, y_dev, cfg_u._replace(max_iters=n_prof), n_counts=n_counts, device=dev))
+    device_us_u = prof_u["device_us"] / n_prof
+    kernel_us_u = prof_u["kernel_us"] / n_prof
+    launches_u = prof_u["kernel_launches"] / n_prof
+    log(f"  profile of {n_prof} iterations: device {device_us_u:.1f} us/iteration (kernels "
+        f"{kernel_us_u:.1f}), {launches_u:.2f} kernel launches and "
+        f"{prof_u['copies'] / n_prof:.2f} copies an iteration")
+    for key, count, us in prof_u["top_device"]:
+        log(f"    device {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
 
     log("phase 6: whole path on the card against the CPU, 200 iterations")
 
@@ -1398,16 +1515,21 @@ def main() -> int:
     require(acc_c >= CCAT_MIN_ACCURACY, f"CCAT test accuracy {acc_c:.4f} < {CCAT_MIN_ACCURACY}")
     require(obj_c <= CCAT_MAX_OBJECTIVE, f"CCAT objective {obj_c:.4f} > {CCAT_MAX_OBJECTIVE}")
     for name in KERNELS:
-        want = res_c.iters if name in ("ell_margins_prefetch", "ell_grad_update_prefetch") else 0
+        on_path = name in ("ell_margins_prefetch", "ell_grad_update_prefetch_fold")
+        want = res_c.iters if on_path else 0
         require(sparse_counts[name] == want,
                 f"{name} launched {sparse_counts[name]} times in {res_c.iters} sparse iterations")
     prof_c = profile_iterations(torch, lambda: gadget_train(
         parts_c, y_c, cfg_c._replace(max_iters=n_prof), n_counts=n_c, device=dev))
     device_us_c = prof_c["device_us"] / n_prof
+    kernel_us_c = prof_c["kernel_us"] / n_prof
+    launches_c = prof_c["kernel_launches"] / n_prof
     host_us_c = sparse_s / res_c.iters * 1e6
     busy_c = device_us_c / host_us_c
-    log(f"  profile of {n_prof} iterations: device {device_us_c:.1f} us/iteration against "
-        f"{host_us_c:.1f} us/iteration of wall time unprofiled: device busy {busy_c:.3f}")
+    log(f"  profile of {n_prof} iterations: device {device_us_c:.1f} us/iteration (kernels "
+        f"{kernel_us_c:.1f}) against {host_us_c:.1f} us/iteration of wall time unprofiled: "
+        f"device busy {busy_c:.3f}, {launches_c:.2f} kernel launches and "
+        f"{prof_c['copies'] / n_prof:.2f} copies an iteration")
     for key, count, us in prof_c["top_device"]:
         log(f"    device {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
     for key, count, us in prof_c["top_host"]:
@@ -1429,6 +1551,14 @@ def main() -> int:
         want = res_sw.iters if name in ("ell_margins", "ell_grad_update") else 0
         require(sweep_counts[name] == want,
                 f"{name} launched {sweep_counts[name]} times in {res_sw.iters} sweep iterations")
+    prof_sw = profile_iterations(torch, lambda: gadget_train(
+        parts_c, y_c, cfg_sw._replace(max_iters=n_prof), n_counts=n_c, device=dev))
+    device_us_sw = prof_sw["device_us"] / n_prof
+    kernel_us_sw = prof_sw["kernel_us"] / n_prof
+    launches_sw = prof_sw["kernel_launches"] / n_prof
+    log(f"  profile of {n_prof} iterations: device {device_us_sw:.1f} us/iteration (kernels "
+        f"{kernel_us_sw:.1f}), {launches_sw:.2f} kernel launches an iteration; prefetch "
+        f"{res_c.iters / sparse_s:.1f} against sweep {res_sw.iters / sweep_s:.1f} iterations/s")
 
     log("phase 9: sparse parity, 200 iterations each")
     cfg_9 = cfg_c._replace(max_iters=200)
@@ -1588,6 +1718,7 @@ def main() -> int:
                 "grad_update": unfused_counts["grad_update"],
                 "ell_margins_prefetch": sparse_counts["ell_margins_prefetch"],
                 "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
+                "ell_grad_update_prefetch_fold": sparse_counts["ell_grad_update_prefetch_fold"],
                 "ell_margins": sweep_counts["ell_margins"],
                 "ell_grad_update": sweep_counts["ell_grad_update"],
                 "ell_scores_prefetch": serve_counts["ell_scores_prefetch"],
@@ -1597,7 +1728,9 @@ def main() -> int:
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
              "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
              "ell_margins_prefetch": "sparse training, auto = prefetch (phase 7)",
-             "ell_grad_update_prefetch": "sparse training, auto = prefetch (phase 7)",
+             "ell_grad_update_prefetch": "none: the buckets entry, held in phase 3; sparse "
+                                         "training (phase 7) runs ell_grad_update_prefetch_fold",
+             "ell_grad_update_prefetch_fold": "sparse training, auto = prefetch (phase 7)",
              "ell_margins": "sparse training, sweep (phase 8)",
              "ell_grad_update": "sparse training, sweep (phase 8)",
              "ell_scores_prefetch": "sparse serving (phase 10)",
@@ -1621,7 +1754,11 @@ def main() -> int:
                           "test_accuracy": acc, "objective": objective,
                           "device_us_per_iter": device_us, "host_us_per_iter": host_us,
                           "device_busy_share": busy,
+                          "kernel_launches_per_iter": prof["kernel_launches"] / n_prof,
                           "unfused_iters_per_s": res_u.iters / unfused_s,
+                          "unfused_device_us_per_iter": device_us_u,
+                          "unfused_kernel_us_per_iter": kernel_us_u,
+                          "unfused_kernel_launches_per_iter": launches_u,
                           "cpu_parity_w_err": w_err, "cpu_parity_obj_rel_err": obj_err},
             "sparse_path": {"dataset": f"ccat scale {CCAT_SCALE}", "generate_s": gen_s,
                             "schedule": list(schedule), "iters": res_c.iters,
@@ -1629,7 +1766,12 @@ def main() -> int:
                             "test_accuracy": acc_c, "objective": obj_c,
                             "device_us_per_iter": device_us_c, "host_us_per_iter": host_us_c,
                             "device_busy_share": busy_c,
+                            "kernel_us_per_iter": kernel_us_c,
+                            "kernel_launches_per_iter": launches_c,
                             "sweep_iters_per_s": res_sw.iters / sweep_s,
+                            "sweep_device_us_per_iter": device_us_sw,
+                            "sweep_kernel_us_per_iter": kernel_us_sw,
+                            "sweep_kernel_launches_per_iter": launches_sw,
                             "cpu_parity_w_err": w_err_c, "cpu_parity_obj_rel_err": obj_err_c,
                             "prefetch_vs_sweep_w_err": sched_err,
                             "reuters_ell_vs_dense_err": ell_err},

@@ -285,11 +285,8 @@ def _gossip_step(cfg: GadgetConfig, X, y, counts_f, total, node_index, row_mask,
                                      project=cfg.project_before_gossip,
                                      row_mask=row_mask)
     else:
-        Xb = X[node_index, ids]
-        W_half = torch.stack([
-            ops.local_half_step(W[i], Xb[i], yb[i], lam=cfg.lam, t=t,
-                                project=cfg.project_before_gossip)
-            for i in range(W.shape[0])])
+        W_half = ops.unfused_fleet_half_step(W, X[node_index, ids], yb, lam=cfg.lam, t=t,
+                                             project=cfg.project_before_gossip)
     mix = mix_collapsed if cfg.fused else mix_rounds
     vals, wts = mix(W_half * counts_f[:, None], counts_f, Bs)
     W_new = vals / wts[:, None]

@@ -12,7 +12,7 @@
 // (id >= n_d_blocks) set no bit.
 #pragma once
 
-#include "warp_dot.cuh"
+#include "warp.cuh"
 
 namespace repro_torch {
 

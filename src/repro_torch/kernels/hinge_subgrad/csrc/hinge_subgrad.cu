@@ -33,17 +33,31 @@
 //    phase 2 overlaps the barrier.
 // Fixed orders everywhere: repeated runs are bit-identical.
 //
-// margins replaces hinge_subgrad.py margins (pallas_call at :63): y (X w) for
-// one node's (B, d) minibatch, one warp per row. grad_update replaces
-// hinge_subgrad.py grad_update (pallas_call at :151): (1 - s0) w + s1 coeff^T X,
-// one thread per column with a fixed-order loop over B and the axpy fused.
-// Both read X once and are bandwidth-bound; the TPU kernels' (8, 128)
-// blocking and padding do not carry over: every edge is masked here.
+// margins replaces hinge_subgrad.py margins (pallas_call at :63), vmapped
+// over the nodes as the reference's unfused step runs it: y_i (X_i w_i) for
+// the whole fleet's (m, B, d) minibatch in one launch. It moves 4(mBd + md +
+// 2mB) bytes for 2mBd flops, so HBM bandwidth bounds it: 0.20 us at the
+// paper's (10, 1, 8315), 665 KB. The cost is latency: one warp per row left
+// 10 of 132 SMs working and each warp ~260 dependent passes over its row.
+// So each (node, row) is a thread-block cluster of CL blocks (the wrapper's
+// margins_cluster: the largest power of two up to 16 with at most two
+// blocks an SM, so 16 at m B = 10 and at one row, 1 from 2 rows an SM up),
+// each block an even share of d that its 256 threads stride over with
+// coalesced scalar loads, four a lane in flight (no alignment is assumed);
+// the warps' partials are summed in warp order in shared memory, each block
+// pushes its sum into rank 0's shared memory, and rank 0 adds them in rank
+// order. No atomics: reruns are bit-identical.
+//
+// grad_update replaces hinge_subgrad.py grad_update (pallas_call at :151):
+// (1 - s0) w + s1 coeff^T X, one thread per column with a fixed-order loop
+// over B and the axpy fused. It reads X once and is bandwidth-bound; the TPU
+// kernels' (8, 128) blocking and padding do not carry over: every edge is
+// masked here.
 #include <cooperative_groups.h>
 
 #include <mutex>
 
-#include "warp_dot.cuh"
+#include "warp.cuh"
 
 namespace repro_torch {
 namespace {
@@ -176,13 +190,54 @@ fleet_half_step_kernel(const float* __restrict__ X, const float* __restrict__ W,
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // peers done with ours
 }
 
+// One cluster of CL blocks per row r (node r / B), each block a share of d.
+// Each block pushes its partial into rank 0's shared memory; one cluster
+// barrier after the loads (its arrival at entry proves every block has
+// started, so rank 0's shared memory is live) and one after the pushes.
 __global__ void __launch_bounds__(kThreads)
-margins_kernel(const float* __restrict__ X, const float* __restrict__ w,
-               const float* __restrict__ y, float* __restrict__ out, int B, int d) {
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // whole warps leave together, so the shuffles stay full
-  const float dot = warp_dot(X + static_cast<size_t>(b) * d, w, d, threadIdx.x & 31);
-  if ((threadIdx.x & 31) == 0) out[b] = y[b] * dot;
+margins_cluster_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                       const float* __restrict__ y, float* __restrict__ out, int B, int d) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long r = blockIdx.x / CL;
+  const int c0 = split_start(d, CL, rank);
+  const int len = split_start(d, CL, rank + 1) - c0;
+  const float* x = X + static_cast<size_t>(r) * d + c0;
+  const float* w = W + static_cast<size_t>(r / B) * d + c0;
+  __shared__ float warp_part[kWarps];
+  __shared__ float parts[kMaxCluster];  // rank 0's: every block's partial, by rank
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  float acc = 0.f;
+  for (int j0 = threadIdx.x; j0 < len; j0 += kThreads * kLoads) {
+    float xv[kLoads], wv[kLoads];  // every load of the pass in flight at once
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int j = j0 + kThreads * q;
+      xv[q] = j < len ? __ldg(x + j) : 0.f;
+      wv[q] = j < len ? __ldg(w + j) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) acc = fmaf(xv[q], wv[q], acc);
+  }
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  float part = 0.f;
+  if (threadIdx.x == 0) {
+    part = warp_part[0];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) part += warp_part[q];
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every block has started
+  if (threadIdx.x == 0) *cluster.map_shared_rank(parts + rank, 0) = part;
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // every push is in
+  if (rank == 0 && threadIdx.x == 0) {
+    float dot = parts[0];
+    for (int q = 1; q < CL; ++q) dot += parts[q];
+    out[r] = y[r] * dot;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -285,14 +340,48 @@ extern "C" int fleet_half_step(const void* X, const void* W, const void* y,
   return static_cast<int>(e);
 }
 
-// X (B, d), w (d,), y (B,) -> out (B,) = y * (X w).
-extern "C" int margins(const void* X, const void* w, const void* y, void* out,
-                       int B, int d, void* stream) {
-  if (B > 0) {
-    margins_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(X), static_cast<const float*>(w),
-        static_cast<const float*>(y), static_cast<float*>(out), B, d);
+// X (m, B, d), W (m, d), y (m, B) -> out (m, B) = y_i * (X_i w_i), each row
+// a thread-block cluster of `cluster` blocks (1, 2, 4, 8 or 16; the
+// wrapper's hinge_subgrad.margins_cluster).
+extern "C" int margins(const void* X, const void* W, const void* y, void* out,
+                       int m, int B, int d, int cluster, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(m) * B;
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows * cluster > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float* Xf = static_cast<const float*>(X);
+  const float* Wf = static_cast<const float*>(W);
+  const float* yf = static_cast<const float*>(y);
+  float* of = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster > 8) {  // a non-portable cluster size: allowed once per device
+    static int allowed_on = -1;
+    static std::mutex mutex;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    std::lock_guard<std::mutex> lock(mutex);
+    if (allowed_on != dev) {
+      e = cudaFuncSetAttribute(reinterpret_cast<const void*>(margins_cluster_kernel),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      allowed_on = dev;
+    }
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, margins_cluster_kernel, Xf, Wf, yf, of, B, d);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

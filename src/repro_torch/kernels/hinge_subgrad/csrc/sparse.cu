@@ -14,7 +14,8 @@
 //   ell_margins               (pallas_call at :100, body :74)
 //   ell_grad_update           (pallas_call at :138, body :122)
 //   ell_margins_prefetch      (pallas_call at :210, body :172)
-//   ell_grad_update_prefetch  (pallas_call at :259, body :234)
+//   ell_grad_update_prefetch  (pallas_call at :259, body :234), as two entries:
+//                             the buckets G, and G folded into W
 // The TPU kernels walk w in d-blocks and gather or scatter with a one-hot
 // (B*k, blk_d) matrix product, the TPU's way to gather on its matrix unit;
 // the prefetch pair scalar-prefetches a map of live block ids so that each
@@ -37,16 +38,43 @@
 //   this equals the sweep, with an undersized cap it drops what the TPU
 //   kernel drops. Sentinel slots (id >= n_d_blocks) set no bit and so read
 //   nothing of W.
-// * Grad, both schedules: one block per (node, output tile of blk_d lanes),
-//   which owns its slice of the output, so there are no atomics and the
-//   result is deterministic by construction, as on the TPU. The block
-//   stages the node's B*k pairs (lane in tile, coeff_b * val) in shared
-//   memory, kChunk at a time, so B*k has no limit; each thread owns the
-//   lanes tid + q * kThreads of the tile and adds, in entry order, the
-//   contributions that land on them. Cost is O(B*k) per tile, as the TPU's
-//   one-hot contraction is. The sweep grad then writes
-//   (1 - s0) * w + s1 * g over all of W; the prefetch grad writes the raw
-//   bucket G[i, j, :] (zero for a sentinel slot) and the wrapper folds it.
+// * Sweep grad: one block per (node, output tile of blk_d lanes), which
+//   owns its slice of the output, so there are no atomics and the result is
+//   deterministic by construction, as on the TPU. The block stages the
+//   node's B*k pairs (lane in tile, coeff_b * val) in shared memory, kChunk
+//   at a time, so B*k has no limit; each thread owns the lanes
+//   tid + q * kThreads of the tile and adds, in entry order, the
+//   contributions that land on them, then writes (1 - s0) * w + s1 * g over
+//   all of W.
+// * Prefetch grad, two entries over one scatter (scatter_own). At CCAT a
+//   node has 76 entries and 36 buckets of 128 lanes, so the work is the
+//   launch and one chain of dependent loads; reading each entry once per
+//   bucket (36 times) and walking every staged entry in every thread was
+//   what cost. Here a block owns a set of lanes, reads each of its node's
+//   entries once (one entry a thread a round: col, val and coeff loads in
+//   flight together, the first round's issued before the block reads the
+//   map, so the two round trips overlap), finds the entry's lane in its set
+//   once, keeps the entries that land there compacted in entry order (warp
+//   ballots and a prefix over the warps), and adds them into a
+//   shared-memory row in entry order: each entry by the thread that found
+//   it when no two kept entries of a round share a lane (an integer
+//   atomicMin per lane tells), else by the lane's owner walking the round's
+//   kept entries in order. CCAT's frequent features crowd the first
+//   blocks, so one block keeps most of a node's 76 entries, and a walk over
+//   them (one warp adding one entry after another) was most of the G
+//   entry's time. No float atomics: reruns are bit-identical.
+//   The G entry (ell_grad_update_prefetch) gives a block up to kMaxSlots
+//   map slots (kTileLanes lanes) and writes the raw buckets G[i, j, :], a
+//   sentinel slot's as zeros, with coalesced stores. The fused entry
+//   (ell_grad_update_prefetch_fold) gives a block kTileLanes columns of W
+//   (copied to shared memory by cp.async while the entries are read),
+//   marks which of their d-blocks are in the node's map, and writes
+//   W_half = (1 - s0) w everywhere plus s1 g at the live blocks' lanes
+//   below d, each lane as __fadd_rn(__fmul_rn(w, 1 - s0), __fmul_rn(s1, g))
+//   with g summed as the G entry sums it: bit for bit the G entry followed
+//   by the plain fold (sparse.py's fold_buckets), in one launch that reads
+//   W and the entries once and writes W_half once (3.8 MB at CCAT, a
+//   bandwidth bound of 1.13 us; the launch and two round trips cost more).
 #include "ell_gather.cuh"
 
 namespace repro_torch {
@@ -55,6 +83,8 @@ namespace {
 constexpr int kChunk = 1024;   // entries staged in shared memory at a time
 constexpr int kMaxLanesPerThread = 4;
 constexpr int kMaxTile = kThreads * kMaxLanesPerThread;   // largest blk_d
+constexpr int kTileLanes = kMaxTile;  // lanes a prefetch grad block owns
+constexpr int kMaxSlots = 8;          // map slots a G-entry block owns
 
 __global__ void __launch_bounds__(kThreads)
 ell_margins_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
@@ -140,27 +170,194 @@ ell_grad_update_kernel(const int* __restrict__ cols, const float* __restrict__ v
   }
 }
 
+// One round's kept entries, compacted in entry order.
+struct KeptEntries {
+  int lane[kThreads];
+  float contrib[kThreads];
+  int per_warp[kWarps];
+};
+
+// Entry e of a node's n = B k entries (col -1 past the end): column, value
+// and its row's coefficient, loaded together.
+struct Entry {
+  int col;
+  float val, c;
+};
+
+__device__ __forceinline__ Entry load_entry(const int* __restrict__ cols,
+                                            const float* __restrict__ vals,
+                                            const float* __restrict__ coeff, int k,
+                                            long long n, long long e) {
+  if (e >= n) return {-1, 0.f, 0.f};
+  return {__ldg(cols + e), __ldg(vals + e), __ldg(coeff + e / k)};
+}
+
+// acc[0, n_lanes) (shared memory) = per lane, the sum in entry order of
+// coeff_b * vals[b, e] over the node's entries that own(col) maps to that
+// lane (own gives -1 for an entry outside this block's lanes). Pad entries
+// (val = 0) are skipped: each would add +-0, which changes no sum. Every
+// entry is read once, a round of kThreads at a time; `first` is this
+// thread's entry of the first round, which the caller loads before its own
+// set-up so that the two loads overlap. claim (n_lanes ints of shared
+// memory) marks, per lane, the first kept entry of the round that lands
+// there (an integer atomicMin on the entry's place in the round). When no
+// two kept entries of a round share a lane (always so for one row, whose
+// columns are distinct), each entry is added by the thread that found it;
+// otherwise every thread walks the round's kept entries in order and adds
+// those on its lanes l (l % kThreads == thread), so each lane's sum runs in
+// entry order either way. The caller may read any lane after the return.
+template <class Own>
+__device__ __forceinline__ void scatter_own(const int* __restrict__ cols,
+                                            const float* __restrict__ vals,
+                                            const float* __restrict__ coeff, int B, int k,
+                                            Entry first, const Own& own, float* acc, int* claim,
+                                            int n_lanes, KeptEntries& kept) {
+  for (int l = threadIdx.x; l < n_lanes; l += kThreads) {
+    acc[l] = 0.f;
+    claim[l] = kThreads;
+  }
+  const long long n = static_cast<long long>(B) * k;
+  const int warp = threadIdx.x >> 5;
+  const int wl = threadIdx.x & 31;
+  const int me = static_cast<int>(threadIdx.x);
+  for (long long s = 0; s < n; s += kThreads) {
+    const Entry en = s == 0 ? first : load_entry(cols, vals, coeff, k, n, s + me);
+    int lane = -1;
+    float v = 0.f;
+    if (en.val != 0.f) {
+      lane = own(en.col);
+      v = __fmul_rn(en.c, en.val);
+    }
+    const unsigned keep = __ballot_sync(kFullMask, lane >= 0);
+    if (wl == 0) kept.per_warp[warp] = __popc(keep);
+    __syncthreads();  // the counts are in; acc, claim and the last round are settled
+    int at = 0, total = 0;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+      const int c = kept.per_warp[q];
+      at += q < warp ? c : 0;
+      total += c;
+    }
+    if (lane >= 0) {
+      at += __popc(keep & ((1u << wl) - 1u));
+      kept.lane[at] = lane;
+      kept.contrib[at] = v;
+      atomicMin(claim + lane, at);
+    }
+    __syncthreads();
+    const bool shared_lane = lane >= 0 && claim[lane] != at;
+    if (!__syncthreads_or(shared_lane)) {
+      if (lane >= 0) acc[lane] = __fadd_rn(acc[lane], v);
+    } else {
+      for (int q = 0; q < total; ++q) {
+        const int l = kept.lane[q];
+        if ((l & (kThreads - 1)) == me) acc[l] = __fadd_rn(acc[l], kept.contrib[q]);
+      }
+    }
+    if (lane >= 0) claim[lane] = kThreads;  // every read of claim was before the barrier
+  }
+  __syncthreads();
+}
+
+// The G entry's lanes: slot q of the block's ns slots (ids, sentinels as -1)
+// at lane col - id * blk_d.
+struct SlotLanes {
+  const int* ids;
+  int ns, blk_d;
+  __device__ __forceinline__ int operator()(int col) const {
+    if (col < 0) return -1;
+    const int blk = col / blk_d;
+    for (int q = 0; q < ns; ++q) {
+      if (ids[q] == blk) return q * blk_d + (col - blk * blk_d);
+    }
+    return -1;
+  }
+};
+
+// The fused entry's lanes: columns [c0, c0 + lanes) of W whose d-block is
+// live (live[blk - b0], the node's map restricted to the tile).
+struct TileLanes {
+  const unsigned char* live;
+  int c0, lanes, b0, blk_d;
+  __device__ __forceinline__ int operator()(int col) const {
+    const int l = col - c0;
+    if (static_cast<unsigned>(l) >= static_cast<unsigned>(lanes)) return -1;
+    return live[col / blk_d - b0] ? l : -1;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 ell_grad_update_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                                 const float* __restrict__ coeff,
                                 const int* __restrict__ block_ids, float* __restrict__ G,
-                                int B, int k, int n_blocks_max, int blk_d, int n_d_blocks) {
+                                int B, int k, int n_blocks_max, int blk_d, int n_d_blocks,
+                                int slots) {
+  __shared__ float acc[kTileLanes];
+  __shared__ int claim[kTileLanes];
+  __shared__ KeptEntries kept;
+  __shared__ int ids[kMaxSlots];
   const int i = blockIdx.y;
-  const int j = blockIdx.x;
-  const int bid = __ldg(block_ids + static_cast<size_t>(i) * n_blocks_max + j);
-  float* g = G + (static_cast<size_t>(i) * n_blocks_max + j) * blk_d;
-  if (bid < 0 || bid >= n_d_blocks) {  // sentinel slot: a zero bucket
-    for (int lane = threadIdx.x; lane < blk_d; lane += kThreads) g[lane] = 0.f;
-    return;  // uniform over the block: no thread is left at a barrier
-  }
+  const int j0 = blockIdx.x * slots;
+  const int ns = min(slots, n_blocks_max - j0);
   const size_t plane = static_cast<size_t>(i) * B * k;
-  float acc[kMaxLanesPerThread] = {0.f, 0.f, 0.f, 0.f};
-  tile_scatter(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k,
-               bid * blk_d, blk_d, acc);
-#pragma unroll
-  for (int q = 0; q < kMaxLanesPerThread; ++q) {
-    const int lane = threadIdx.x + q * kThreads;
-    if (lane < blk_d) g[lane] = acc[q];
+  const Entry first = load_entry(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B,
+                                 k, static_cast<long long>(B) * k, threadIdx.x);
+  if (static_cast<int>(threadIdx.x) < ns) {
+    const int bid = __ldg(block_ids + static_cast<size_t>(i) * n_blocks_max + j0 + threadIdx.x);
+    ids[threadIdx.x] = (bid >= 0 && bid < n_d_blocks) ? bid : -1;  // a sentinel matches nothing
+  }
+  __syncthreads();
+  const int n_lanes = ns * blk_d;
+  scatter_own(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k, first,
+              SlotLanes{ids, ns, blk_d}, acc, claim, n_lanes, kept);
+  float* g = G + (static_cast<size_t>(i) * n_blocks_max + j0) * blk_d;
+  for (int l = threadIdx.x; l < n_lanes; l += kThreads) g[l] = acc[l];
+}
+
+__global__ void __launch_bounds__(kThreads)
+ell_grad_update_prefetch_fold_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                                     const float* __restrict__ coeff,
+                                     const int* __restrict__ block_ids,
+                                     const float* __restrict__ W, float* __restrict__ out,
+                                     int B, int k, int d, int n_blocks_max, int blk_d,
+                                     int n_d_blocks, float one_minus_s0, float s1) {
+  __shared__ float acc[kTileLanes];
+  __shared__ int claim[kTileLanes];
+  __shared__ float w_tile[kTileLanes];
+  __shared__ KeptEntries kept;
+  __shared__ unsigned char live[kTileLanes];  // the tile's d-blocks: at most one a lane
+  const int i = blockIdx.y;
+  const int c0 = blockIdx.x * kTileLanes;
+  const int lanes = min(kTileLanes, d - c0);
+  const int b0 = c0 / blk_d;
+  const int nb = (c0 + lanes - 1) / blk_d - b0 + 1;
+  // W's tile copied to shared memory in the background (each thread its own
+  // lanes), while the entries and the map are read
+  const float* wi = W + static_cast<size_t>(i) * d + c0;
+  for (int l = threadIdx.x; l < lanes; l += kThreads) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(w_tile + l));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(wi + l) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const size_t plane = static_cast<size_t>(i) * B * k;
+  const Entry first = load_entry(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B,
+                                 k, static_cast<long long>(B) * k, threadIdx.x);
+  const int* row = block_ids + static_cast<size_t>(i) * n_blocks_max;
+  const int bid0 = static_cast<int>(threadIdx.x) < n_blocks_max ? __ldg(row + threadIdx.x) : -1;
+  for (int q = threadIdx.x; q < nb; q += kThreads) live[q] = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_blocks_max; j += kThreads) {
+    const int bid = j == static_cast<int>(threadIdx.x) ? bid0 : __ldg(row + j);
+    if (bid >= b0 && bid - b0 < nb && bid < n_d_blocks) live[bid - b0] = 1;
+  }
+  __syncthreads();
+  scatter_own(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k, first,
+              TileLanes{live, c0, lanes, b0, blk_d}, acc, claim, lanes, kept);
+  asm volatile("cp.async.wait_all;" ::: "memory");  // this thread's lanes of W have landed
+  float* oi = out + static_cast<size_t>(i) * d + c0;
+  for (int l = threadIdx.x; l < lanes; l += kThreads) {
+    const float decayed = __fmul_rn(w_tile[l], one_minus_s0);
+    oi[l] = live[(c0 + l) / blk_d - b0] ? __fadd_rn(decayed, __fmul_rn(s1, acc[l])) : decayed;
   }
 }
 
@@ -227,13 +424,34 @@ extern "C" int ell_grad_update_prefetch(const void* cols, const void* vals,
                                         const void* coeff, const void* block_ids, void* G,
                                         int m, int B, int k, int n_blocks_max, int blk_d,
                                         int n_d_blocks, void* stream) {
-  if (blk_d < 1 || blk_d > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (blk_d < 1 || blk_d > kTileLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const int fit = kTileLanes / blk_d;  // whole buckets in a block's lanes, at least one
+  const int slots = fit < 1 ? 1 : (fit > kMaxSlots ? kMaxSlots : fit);
   if (m > 0 && n_blocks_max > 0) {
-    const dim3 grid(n_blocks_max, m);
+    const dim3 grid((n_blocks_max + slots - 1) / slots, m);
     ell_grad_update_prefetch_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
         static_cast<const float*>(coeff), static_cast<const int*>(block_ids),
-        static_cast<float*>(G), B, k, n_blocks_max, blk_d, n_d_blocks);
+        static_cast<float*>(G), B, k, n_blocks_max, blk_d, n_d_blocks, slots);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ell_grad_update_prefetch, folded into W (m, d): out (m, d) =
+// (1 - s0) W everywhere, plus s1 G at the live buckets' lanes below d.
+extern "C" int ell_grad_update_prefetch_fold(const void* cols, const void* vals,
+                                             const void* coeff, const void* block_ids,
+                                             const void* W, void* out, int m, int B, int k,
+                                             int d, int n_blocks_max, int blk_d, int n_d_blocks,
+                                             float s0, float s1, void* stream) {
+  if (blk_d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 0 && d > 0) {
+    const dim3 grid((d + kTileLanes - 1) / kTileLanes, m);
+    ell_grad_update_prefetch_fold_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const float*>(coeff), static_cast<const int*>(block_ids),
+        static_cast<const float*>(W), static_cast<float*>(out), B, k, d, n_blocks_max, blk_d,
+        n_d_blocks, 1.f - s0, s1);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,14 +21,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["fleet_half_step", "margins", "grad_update", "fleet_cluster",
+__all__ = ["fleet_half_step", "margins", "grad_update", "fleet_cluster", "margins_cluster",
            "fleet_half_step_plain", "margins_plain", "grad_update_plain"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "hinge_subgrad.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fleet_half_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "margins": [_P, _P, _P, _P, _I, _I, _P],
+    "margins": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "grad_update": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
 }
 # one block's shared memory holds fleet_half_step's (B,) partial margins and
@@ -116,23 +116,49 @@ fleet_half_step.launches = 0
 
 # -------------------------------------------------------------------- margins
 
-def margins_plain(X: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch margins y·(X w). X: (B, d), w: (d,), y: (B,)."""
-    return y * (X @ w)
+def margins_cluster(rows: int, n_sm: int) -> int:
+    """Blocks of the thread-block cluster each ``margins`` row gets on a card
+    of ``n_sm`` SMs: the largest power of two up to 16 with at most two
+    blocks an SM (16 at the unfused reuters fleet's 10 rows and at one row),
+    1 from twice the SM count of rows up."""
+    return fleet_cluster(rows, 2 * n_sm)
 
 
-def margins(X: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """y·(X w) for one node's (B, d) minibatch, one launch. Returns (B,)."""
-    if _build.on_cpu(X, w, y):
-        return margins_plain(X, w, y)
-    B, d = X.shape
-    _build.check_tensor("X", X, (B, d))
-    _build.check_tensor("w", w, (d,))
-    _build.check_tensor("y", y, (B,))
-    out = torch.empty((B,), dtype=torch.float32, device=X.device)
+def margins_plain(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch margins y_i·(X_i w_i) per node: X (m, B, d), W (m, d),
+    y (m, B) → (m, B); or one node's X (B, d), w (d,), y (B,) → (B,)."""
+    if X.ndim == 2:
+        return margins_plain(X[None], W[None], y[None])[0]
+    return y * torch.bmm(X, W[:, :, None])[:, :, 0]
+
+
+def margins(X: torch.Tensor, W: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y_i·(X_i w_i) for the whole fleet in one launch: X (m, B, d), W (m, d),
+    y (m, B) → (m, B). One node's X (B, d), w (d,), y (B,) → (B,) is the
+    m = 1 case. On CUDA each row is a cluster of ``margins_cluster`` blocks."""
+    if X.ndim == 2:
+        return margins(X[None], W[None], y[None])[0]
+    if _build.on_cpu(X, W, y):
+        return margins_plain(X, W, y)
+    if X.ndim != 3:
+        raise ValueError(f"X must be (m, B, d) or (B, d), got shape {tuple(X.shape)}")
+    m, B, d = X.shape
+    return _launch_margins(X, W, y, margins_cluster(m * B, _build.sm_count(X.device.index)))
+
+
+def _launch_margins(X, W, y, cluster: int) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors, ``cluster`` blocks a row (one of
+    1, 2, 4, 8, 16); ``margins`` passes ``margins_cluster``'s."""
+    m, B, d = X.shape
+    _build.check_tensor("X", X, (m, B, d))
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("y", y, (m, B))
+    if cluster not in _CLUSTERS:
+        raise ValueError(f"cluster must be one of {_CLUSTERS}, got {cluster}")
+    out = torch.empty((m, B), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
-        code = _lib().margins(X.data_ptr(), w.data_ptr(), y.data_ptr(), out.data_ptr(),
-                              B, d, _build.stream(X))
+        code = _lib().margins(X.data_ptr(), W.data_ptr(), y.data_ptr(), out.data_ptr(),
+                              m, B, d, cluster, _build.stream(X))
     _build.check(code, "margins")
     margins.launches += 1
     return out

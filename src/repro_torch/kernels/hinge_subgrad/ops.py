@@ -6,12 +6,13 @@ the launch accounting on a telemetry registry (``launch_cost``,
 
 The step scalars ``α = 1/(λt)``, ``λα`` and ``α/B`` are formed in float32 as
 the reference forms them; the violator coefficients, the touched-block map
-of the prefetch schedule, its fold into W and the ball projection are plain
-PyTorch around the kernels, as they are jnp in the reference. The kernels
-stream their inputs from device memory and have no tile limit, so unlike
-the reference there is no padding to (8, 128) blocks, no 128-lane class
-padding, no zero landing block after W, and no VMEM cut-over from the fused
-fleet kernel to the two-kernel path. ``resolve_ell_schedule`` keeps the
+of the prefetch schedule and the ball projection are plain PyTorch around
+the kernels, as they are jnp in the reference (the prefetch buckets' fold
+into W, jnp there, is part of a kernel here). The kernels stream their
+inputs from device memory and have no tile limit, so unlike the reference
+there is no padding to (8, 128) blocks, no 128-lane class padding, no zero
+landing block after W, and no VMEM cut-over from the fused fleet kernel to
+the two-kernel path. ``resolve_ell_schedule`` keeps the
 reference's arithmetic all the same, so the port picks the same sparse
 kernel pair and ``blk_d`` as the reference at every shape.
 """
@@ -28,9 +29,9 @@ from repro_torch.sparse.formats import DEFAULT_BUCKET_BLK_D
 from repro_torch.telemetry import registry as tmr
 
 __all__ = ["step_scalars", "padded_row_mask", "local_half_step", "fleet_half_step",
-           "ell_fleet_half_step", "ell_block_map", "resolve_ell_schedule",
-           "pegasos_step", "dense_predict", "ell_predict", "resolve_block_cap",
-           "launch_cost", "record_launch", "DEFAULT_BLK_D_SPARSE",
+           "unfused_fleet_half_step", "ell_fleet_half_step", "ell_block_map",
+           "resolve_ell_schedule", "pegasos_step", "dense_predict", "ell_predict",
+           "resolve_block_cap", "launch_cost", "record_launch", "DEFAULT_BLK_D_SPARSE",
            "ELL_ONEHOT_BUDGET", "ELL_PREFETCH_BLK_D"]
 
 # The reference's sweep block width and its per-program one-hot budget: they
@@ -83,6 +84,20 @@ def fleet_half_step(W: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
     if row_mask is None:
         row_mask = torch.ones((B,), dtype=torch.float32, device=X.device)
     W_half = K.fleet_half_step(X, W, y, row_mask, step_scalars(lam, t, B))
+    return project_ball(W_half, lam) if project else W_half
+
+
+def unfused_fleet_half_step(W: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
+                            lam: float, t: int, project: bool = True) -> torch.Tensor:
+    """GADGET steps (e)+(f) for all m nodes as the reference's vmapped
+    ``local_half_step``: one ``margins`` launch for the fleet, the violator
+    coefficients, one ``grad_update`` launch per node, then the optional
+    per-row ball projection. W: (m, d), X: (m, B, d), y: (m, B)."""
+    B = X.shape[1]
+    coeff = torch.where(K.margins(X, W, y) < 1.0, y, torch.zeros_like(y))
+    scal = step_scalars(lam, t, B)
+    W_half = torch.stack([K.grad_update(X[i], W[i], coeff[i], scal)
+                          for i in range(W.shape[0])])
     return project_ball(W_half, lam) if project else W_half
 
 
@@ -154,26 +169,6 @@ def resolve_ell_schedule(schedule: str, *, B: int, k: int, d: int,
     return "sweep", sweep_blk, 0
 
 
-def _fold_buckets(W: torch.Tensor, G: torch.Tensor, bids: torch.Tensor, blk_d: int,
-                  one_minus_s0: float, s1: float) -> torch.Tensor:
-    """(1 − s0)·W everywhere, plus s1·G at the live buckets' lanes. A lane
-    at or past d (a sentinel bucket's, or the tail of the last block's; all
-    zero in G) adds into a spill slot of its own after the (m, d) plane,
-    which is never read. A node's live ids are distinct, so no two
-    additions meet one address, and the sum does not depend on their
-    order."""
-    m, d = W.shape
-    n = G.numel()
-    lanes = bids.long()[:, :, None] * blk_d + torch.arange(blk_d, device=W.device)
-    rows = torch.arange(m, device=W.device)[:, None, None] * d
-    spill = torch.arange(m * d, m * d + n, device=W.device).view(G.shape)
-    idx = torch.where(lanes < d, rows + lanes, spill).reshape(-1)
-    out = torch.empty(m * d + n, dtype=torch.float32, device=W.device)
-    torch.mul(W.reshape(-1), one_minus_s0, out=out[:m * d])
-    out.index_add_(0, idx, (s1 * G).reshape(-1))
-    return out[:m * d].view(m, d)
-
-
 def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                         y: torch.Tensor, *, lam: float, t: int, project: bool = True,
                         schedule: str = "auto", n_blocks_max: int | None = None,
@@ -189,8 +184,8 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
       the decayed and updated W itself, in tiles of ``blk_d`` columns.
     * ``"prefetch"``: the touched-block map (:func:`ell_block_map`, with the
       static ``n_blocks_max`` from ``formats.minibatch_block_bound``), then
-      ``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, whose
-      per-bucket sums are folded into the decayed W here.
+      ``ell_margins_prefetch`` and ``ell_grad_update_prefetch_fold``, which
+      scatters per bucket and folds the sums into the decayed W.
     * ``"auto"``: prefetch exactly when it is cheaper in w-lanes.
 
     k = 0 planes are widened to one inert (0, 0) entry per row.
@@ -211,9 +206,8 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         margins = S.ell_margins_prefetch(cols, vals, W, y, bids, blk_d=blk_d,
                                          n_d_blocks=n_d_blocks)
         coeff = torch.where(margins < 1.0, y, torch.zeros_like(y))
-        G = S.ell_grad_update_prefetch(cols, vals, coeff, bids, blk_d=blk_d,
-                                       n_d_blocks=n_d_blocks)
-        W_half = _fold_buckets(W, G, bids, blk_d, float(np.float32(1) - np.float32(s0)), s1)
+        W_half = S.ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, (s0, s1),
+                                                 blk_d=blk_d, n_d_blocks=n_d_blocks)
     else:
         margins = S.ell_margins(cols, vals, W, y)
         # pad rows carry y=0, so their coefficient is 0 although margin 0 < 1
@@ -312,7 +306,7 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     element the function needs read from device memory once and each output
     written once (float32 and int32 both 4 bytes), whatever a kernel reads
     again from cache; flops count a multiply-add as 2. This is the byte
-    model behind the kernels' bandwidth bounds. Kinds: ``margins``,
+    model behind the kernels' bandwidth bounds. Kinds: ``margins`` (over m nodes),
     ``grad_update``, ``local_half_step`` (the two launches of the unfused
     node step), ``fleet_half_step`` (always one launch: the port has no tile
     limit), ``dense_predict``, ``ell_predict`` (a (B, k) query batch: the
@@ -321,8 +315,10 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     kernels over (m, B, k) planes:
     ``ell_margins`` and ``ell_margins_prefetch`` (a gather reads the
     ``m·B·k`` entries of W it needs, not all of W), ``ell_grad_update``
-    (all of W read and W_half written) and ``ell_grad_update_prefetch``
-    (the buckets G, ``m·n_blocks_max·blk_d``, written).
+    (all of W read and W_half written), ``ell_grad_update_prefetch``
+    (the buckets G, ``m·n_blocks_max·blk_d``, written) and
+    ``ell_grad_update_prefetch_fold`` (the entries and the map read, all of
+    W read and W_half written).
     """
     entries = m * B * k
     if kind in ("ell_margins", "ell_margins_prefetch"):
@@ -336,9 +332,13 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
         return {"launches": 1,
                 "bytes": 4 * (2 * entries + m * B + m * n_blocks_max * (1 + blk_d)),
                 "flops": 2 * entries}
+    if kind == "ell_grad_update_prefetch_fold":
+        return {"launches": 1,
+                "bytes": 4 * (2 * entries + m * B + m * n_blocks_max + 2 * m * d),
+                "flops": 2 * entries + 3 * m * d}
     if kind == "margins":
-        return {"launches": 1, "bytes": 4 * (B * d + d + 2 * B),
-                "flops": 2 * B * d + B}
+        return {"launches": 1, "bytes": 4 * m * (B * d + d + 2 * B),
+                "flops": m * (2 * B * d + B)}
     if kind == "grad_update":
         return {"launches": 1, "bytes": 4 * (B * d + 2 * d + B),
                 "flops": 2 * B * d + 3 * d}

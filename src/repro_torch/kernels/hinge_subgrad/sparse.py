@@ -1,6 +1,7 @@
 """Wrappers of the sparse (padded-ELL) Pegasos kernels: the sweep pair
 ``ell_margins`` and ``ell_grad_update`` and the touched-block pair
-``ell_margins_prefetch`` and ``ell_grad_update_prefetch`` (CUDA source:
+``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, the latter also
+folded into W as ``ell_grad_update_prefetch_fold`` (CUDA source:
 ``csrc/sparse.cu``).
 
 The minibatch is two (m, B, k) planes, ``cols`` int32 and ``vals`` float32,
@@ -33,8 +34,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _f32_pair, _one_minus
 
 __all__ = ["ell_margins", "ell_grad_update", "ell_margins_prefetch",
-           "ell_grad_update_prefetch", "ell_margins_plain", "ell_grad_update_plain",
-           "ell_margins_prefetch_plain", "ell_grad_update_prefetch_plain", "MAX_BLK_D"]
+           "ell_grad_update_prefetch", "ell_grad_update_prefetch_fold", "ell_margins_plain",
+           "ell_grad_update_plain", "ell_margins_prefetch_plain",
+           "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
+           "fold_buckets", "MAX_BLK_D"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,6 +46,8 @@ _SIGNATURES = {
     "ell_margins_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "ell_grad_update_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ell_grad_update_prefetch_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      _F, _F, _P],
 }
 MAX_BLK_D = 1024           # a grad block's 256 threads own at most 4 lanes each
 _MAX_NODES = 65535         # the node axis is the grid's y dimension
@@ -243,3 +248,67 @@ def ell_grad_update_prefetch(cols: torch.Tensor, vals: torch.Tensor, coeff: torc
 
 
 ell_grad_update_prefetch.launches = 0
+
+
+# ---------------------------------------------- ell_grad_update_prefetch_fold
+
+def fold_buckets(W: torch.Tensor, G: torch.Tensor, block_ids: torch.Tensor, blk_d: int,
+                 one_minus_s0: float, s1: float) -> torch.Tensor:
+    """(1 − s0)·W everywhere, plus s1·G at the live buckets' lanes: the fold
+    of :func:`ell_grad_update_prefetch`'s buckets into W, in plain PyTorch.
+    A lane at or past d (a sentinel bucket's, or the tail of the last
+    block's; all zero in G) adds into a spill slot of its own after the
+    (m, d) plane, which is never read. A node's live ids are distinct, so no
+    two additions meet one address, and the sum does not depend on their
+    order."""
+    m, d = W.shape
+    n = G.numel()
+    lanes = block_ids.long()[:, :, None] * blk_d + torch.arange(blk_d, device=W.device)
+    rows = torch.arange(m, device=W.device)[:, None, None] * d
+    spill = torch.arange(m * d, m * d + n, device=W.device).view(G.shape)
+    idx = torch.where(lanes < d, rows + lanes, spill).reshape(-1)
+    out = torch.empty(m * d + n, dtype=torch.float32, device=W.device)
+    torch.mul(W.reshape(-1), one_minus_s0, out=out[:m * d])
+    out.index_add_(0, idx, (s1 * G).reshape(-1))
+    return out[:m * d].view(m, d)
+
+
+def ell_grad_update_prefetch_fold_plain(cols: torch.Tensor, vals: torch.Tensor,
+                                        coeff: torch.Tensor, block_ids: torch.Tensor,
+                                        W: torch.Tensor, scal, *, blk_d: int,
+                                        n_d_blocks: int) -> torch.Tensor:
+    """Plain PyTorch: the plain buckets, then :func:`fold_buckets`."""
+    s0, s1 = _f32_pair(scal)
+    G = ell_grad_update_prefetch_plain(cols, vals, coeff, block_ids, blk_d=blk_d,
+                                       n_d_blocks=n_d_blocks)
+    return fold_buckets(W, G, block_ids, blk_d, _one_minus(s0), s1)
+
+
+def ell_grad_update_prefetch_fold(cols: torch.Tensor, vals: torch.Tensor, coeff: torch.Tensor,
+                                  block_ids: torch.Tensor, W: torch.Tensor, scal, *,
+                                  blk_d: int, n_d_blocks: int) -> torch.Tensor:
+    """W_half = (1 − s0)·W + s1·G at the live buckets' lanes below d, in one
+    launch, G as :func:`ell_grad_update_prefetch` sums it: bit for bit that
+    entry followed by :func:`fold_buckets`. W: (m, d); ``scal`` = (λα, α/B).
+    Returns (m, d)."""
+    if _build.on_cpu(cols, vals, coeff, block_ids, W):
+        return ell_grad_update_prefetch_fold_plain(cols, vals, coeff, block_ids, W, scal,
+                                                   blk_d=blk_d, n_d_blocks=n_d_blocks)
+    m, B, k = _check_planes(cols, vals)
+    d = W.shape[1] if W.ndim == 2 else -1
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("coeff", coeff, (m, B))
+    n_blocks_max = _check_blocks(block_ids, m, blk_d, n_d_blocks)
+    s0, s1 = _f32_pair(scal)
+    out = torch.empty_like(W)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_grad_update_prefetch_fold(
+            cols.data_ptr(), vals.data_ptr(), coeff.data_ptr(), block_ids.data_ptr(),
+            W.data_ptr(), out.data_ptr(), m, B, k, d, n_blocks_max, blk_d, n_d_blocks, s0, s1,
+            _build.stream(W))
+    _build.check(code, "ell_grad_update_prefetch_fold")
+    ell_grad_update_prefetch_fold.launches += 1
+    return out
+
+
+ell_grad_update_prefetch_fold.launches = 0

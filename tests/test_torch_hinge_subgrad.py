@@ -3,6 +3,7 @@ kernels, run in interpret mode. On CPU tensors the port's wrappers take
 their kernels' plain versions, which is what these tests hold to the
 reference (the CUDA kernels themselves are held to the plain versions on
 the card by chip_smoke.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.hinge_subgrad import hinge_subgrad as RK  # noqa: E402
 from repro.kernels.hinge_subgrad import ops as RO  # noqa: E402
+from repro_torch.core import gadget as TG  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import hinge_subgrad as TK  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import ops as TO  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import predict as TP  # noqa: E402
@@ -99,6 +101,74 @@ def test_kernel_functions(B, d):
     _close(g_port, g_ref)
 
 
+@pytest.mark.parametrize("d", [129, 1001])
+@pytest.mark.parametrize("B", [1, 5, 37])
+@pytest.mark.parametrize("m", [1, 3])
+def test_fleet_margins_matches_vmapped_reference(m, B, d):
+    """The fleet form of ``margins`` (X (m, B, d), W (m, d), y (m, B)) against
+    the reference's Pallas ``margins`` vmapped over the nodes, as its unfused
+    step runs it."""
+    X, W, y = _inputs(B, d, m=m, seed=7)
+    ref = jax.vmap(lambda Xi, wi, yi: RK.margins(Xi, wi, yi, blk_b=B, blk_d=d, interpret=True))(
+        jnp.asarray(X), jnp.asarray(W), jnp.asarray(y))
+    port = TK.margins(torch.from_numpy(X), torch.from_numpy(W), torch.from_numpy(y))
+    assert port.shape == (m, B)
+    _close(port, ref)
+
+
+@pytest.mark.parametrize("B,d", [(1, 129), (5, 1001), (37, 300)])
+def test_margins_one_node_form_is_the_m1_fleet(B, d):
+    X, W, y = (torch.from_numpy(a) for a in _inputs(B, d, m=1, seed=3))
+    one = TK.margins(X[0], W[0], y[0])
+    assert one.shape == (B,)
+    assert torch.equal(one, TK.margins(X, W, y)[0])
+    assert torch.equal(one, TK.margins_plain(X[0], W[0], y[0]))
+
+
+@pytest.mark.parametrize("rows,n_sm,want", [(10, 132, 16), (1, 132, 16), (17, 132, 8),
+                                            (111, 132, 2), (133, 132, 1), (264, 132, 1),
+                                            (5000, 132, 1), (10, 66, 8)])
+def test_margins_cluster(rows, n_sm, want):
+    """Blocks a margins row gets: the largest power of two up to 16 with at
+    most two blocks an SM (16 at the unfused reuters fleet's 10 rows on an
+    H100 SXM's 132 SMs), one block a row from 2 SMs' worth of rows up."""
+    cl = TK.margins_cluster(rows, n_sm)
+    assert cl == want
+    assert rows * cl <= 2 * n_sm or cl == 1
+
+
+def test_unfused_train_launches_margins_once_per_iteration(monkeypatch):
+    """The unfused step calls the fleet ``margins`` once an iteration and
+    ``grad_update`` once a node (the reference vmaps one node's step)."""
+    calls = {"margins": [], "grad_update": []}
+    for name in calls:
+        fn = getattr(TK, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            calls[_name].append(tuple(args[0].shape))
+            return _fn(*args)
+        monkeypatch.setattr(TK, name, spy)
+    m, n_i, B, d, iters = 3, 12, 2, 40, 7
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(m, n_i, d)) / np.sqrt(d)).astype(np.float32)
+    y = np.where(rng.random((m, n_i)) < 0.5, -1.0, 1.0).astype(np.float32)
+    cfg = TG.GadgetConfig(lam=1e-2, batch_size=B, gossip_rounds=2, topology="ring",
+                          epsilon=0.0, check_every=5, max_iters=iters, fused=False)
+    res = TG.gadget_train(X, y, cfg, device="cpu")
+    assert res.iters == iters
+    assert calls["margins"] == [(m, B, d)] * iters
+    assert calls["grad_update"] == [(B, d)] * (m * iters)
+
+
+def test_launch_cost_margins_counts_nodes():
+    """The fleet margins read X, W and y and write the margins once: 665 KB
+    at the unfused reuters shape (10, 1, 8315); m = 1 is one node's call."""
+    assert TO.launch_cost("margins", m=10, B=1, d=8315) == {
+        "launches": 1, "bytes": 4 * (10 * 8315 + 10 * 8315 + 2 * 10), "flops": 10 * (2 * 8315 + 1)}
+    assert TO.launch_cost("margins", B=5, d=130) == {
+        "launches": 1, "bytes": 4 * (5 * 130 + 130 + 2 * 5), "flops": 2 * 5 * 130 + 5}
+
+
 def test_step_scalars_are_float32_as_reference():
     for lam, t, B in ((1.29e-4, 1, 1), (1e-3, 37, 5), (3.07e-5, 4000, 8)):
         tf = jnp.float32(t)
@@ -145,11 +215,12 @@ def test_fleet_cluster_gives_every_block_an_sm(m, n_sm, want):
 
 
 @pytest.mark.parametrize("d,cluster", [(8315, 16), (8315, 8), (1001, 16), (70001, 16), (5, 16),
-                                       (1, 1)])
+                                       (1, 1), (129, 16), (1001, 1)])
 def test_fleet_column_shares_cover_d_once(d, cluster):
-    """The kernel cuts d as predict.even_split does: the cluster's blocks own
-    contiguous shares that cover [0, d) once, none wider than ⌈d / CL⌉ (the
-    shared memory the kernel sizes for X's slice), some empty when d < CL."""
+    """fleet_half_step and margins cut d as predict.even_split does: a
+    cluster's blocks own contiguous shares that cover [0, d) once, none
+    wider than ⌈d / CL⌉ (the shared memory fleet_half_step sizes for X's
+    slice), some empty when d < CL."""
     shares = TP.even_split(d, cluster)
     assert shares[0][0] == 0 and shares[-1][1] == d
     assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))

@@ -245,11 +245,76 @@ def test_fold_drops_sentinel_and_tail_lanes():
     W = torch.arange(m * d, dtype=torch.float32).reshape(m, d)
     G = torch.ones((m, 2, blk_d))
     bids = torch.tensor([[2, 3], [0, 3]], dtype=torch.int32)  # 3 = sentinel
-    got = TO._fold_buckets(W, G, bids, blk_d, 0.5, 2.0)
+    got = TS.fold_buckets(W, G, bids, blk_d, 0.5, 2.0)
     want = 0.5 * W
     want[0, 256:300] += 2.0
     want[1, 0:128] += 2.0
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _fold_case(case):
+    """(cols, vals, coeff, bids, W, n_d_blocks) as numpy for one edge of the
+    fused prefetch grad, blk_d 128 and d = 1001 (the last block 896..1023
+    runs past d): ``sentinel`` a map wider than the live count (sentinel
+    slots), ``tail`` entries at the last columns below d, ``undersized`` a
+    map one slot short, ``pad_node`` an all-pad node (all-sentinel map),
+    ``k0`` no entries at all."""
+    blk_d, d = 128, D
+    n_d_blocks = -(-d // blk_d)
+    k = 0 if case == "k0" else 13
+    cols, vals, W, y = _planes(3, 5, k, d, seed=41, pad_node=case == "pad_node")
+    if case == "tail":
+        cols[:, :, 0] = d - 1 - np.arange(5)[None, :]
+    coeff = np.where(np.arange(5)[None, :] % 2 == 0, y, 0.0).astype(np.float32)
+    if case == "undersized":
+        bids = _maps(cols, vals, blk_d, n_d_blocks, undersized=True)
+    else:
+        live = max(1, max(len(np.unique(c[v != 0] // blk_d)) for c, v in
+                          zip(cols.reshape(3, -1), vals.reshape(3, -1))))
+        wide = live + 3 if case == "sentinel" else live
+        bids = TO.ell_block_map(*_t(cols, vals), blk_d=blk_d, n_d_blocks=n_d_blocks,
+                                n_blocks_max=wide).numpy()
+    return cols, vals, coeff, bids, W, n_d_blocks
+
+
+@pytest.mark.parametrize("case", ["sentinel", "tail", "undersized", "pad_node", "k0"])
+def test_fused_prefetch_grad_is_buckets_then_fold(case):
+    """The fused entry's plain version is bit for bit the G entry's plain
+    version followed by ``fold_buckets``, which the kernel must reproduce;
+    and both are W_half = (1 − s0)·W + s1·scatter of the entries whose block
+    is in the map, computed here in float64."""
+    cols, vals, coeff, bids, W, n_d_blocks = _fold_case(case)
+    (s0, s1), _ = _scal(5)
+    om = float(np.float32(1) - np.float32(s0))
+    tc, tv, tcf, tb, tW = _t(cols, vals, coeff, bids, W)
+    got = TS.ell_grad_update_prefetch_fold(tc, tv, tcf, tb, tW, (s0, s1), blk_d=128,
+                                           n_d_blocks=n_d_blocks)
+    G = TS.ell_grad_update_prefetch(tc, tv, tcf, tb, blk_d=128, n_d_blocks=n_d_blocks)
+    assert torch.equal(got, TS.fold_buckets(tW, G, tb, 128, om, s1))
+    want = om * W.astype(np.float64)
+    for i in range(3):
+        live = set(bids[i][bids[i] < n_d_blocks].tolist())
+        for b, e in np.ndindex(cols.shape[1:]):
+            if cols[i, b, e] // 128 in live:
+                want[i, cols[i, b, e]] += s1 * float(coeff[i, b]) * float(vals[i, b, e])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    if case == "pad_node":  # the all-sentinel node is only decayed
+        assert (bids[1] == n_d_blocks).all()
+        assert torch.equal(got[1], tW[1] * om)
+    if case == "undersized":  # the dropped block's lanes are only decayed
+        assert not np.allclose(got.numpy(), TS.ell_grad_update_prefetch_fold(
+            tc, tv, tcf, torch.from_numpy(_maps(cols, vals, 128, n_d_blocks, False)), tW,
+            (s0, s1), blk_d=128, n_d_blocks=n_d_blocks).numpy())
+
+
+def test_launch_cost_fused_prefetch_grad():
+    """The fused entry reads the entries, coeff, the map and W once and
+    writes W_half once: 3.79 MB at CCAT's (10, 1, 76), d 47,236, map 36."""
+    cost = TO.launch_cost("ell_grad_update_prefetch_fold", m=10, B=1, k=76, d=47236,
+                          n_blocks_max=36, blk_d=128)
+    assert cost == {"launches": 1, "bytes": 4 * (2 * 760 + 10 + 360 + 2 * 10 * 47236),
+                    "flops": 2 * 760 + 3 * 10 * 47236}
+    assert cost["bytes"] == 3786440
 
 
 def test_primal_objective_masked_ell_matches_reference():
@@ -283,3 +348,4 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="devices"):
         TS.ell_margins(cols, vals, W.to("meta"), y)
     assert TS.ell_margins.launches == 0 and TS.ell_grad_update_prefetch.launches == 0
+    assert TS.ell_grad_update_prefetch_fold.launches == 0

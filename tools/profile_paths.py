@@ -1,0 +1,93 @@
+"""Device time, kernel launches and iteration rate of the port's SVM
+training paths on one CUDA card, for this checkout or another one.
+
+Runs ``repro_torch`` from ``<root>/src`` (this checkout's by default) on the
+paper's reuters run (10 nodes, B=1, R=4, random topology) fused and
+unfused, and on its CCAT run as ELL planes at full width (rows cut to a
+tenth) with the prefetch and the sweep schedule. For each path it prints
+the iterations per second of an unprofiled run of ``--iters`` iterations
+(host clock, ending in a device sync), and from torch.profiler over a run
+of ``--profile-iters``: device time (in all, and in kernels alone),
+kernel launches and copies per iteration
+(``chip_smoke.profile_iterations``). The configurations are
+``chip_smoke.py``'s phases 4, 5, 7 and 8, so two checkouts' paths compare
+by one method, in turns within one call on one card.
+
+Usage:
+    python3 tools/profile_paths.py [--root CHECKOUT] [--iters 400]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    """Profile every path; one JSON line at the end."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="checkout whose src/repro_torch is profiled")
+    ap.add_argument("--iters", type=int, default=400)
+    ap.add_argument("--profile-iters", type=int, default=200)
+    args = ap.parse_args()
+    root = args.root.resolve()
+    if not (root / "src" / "repro_torch").is_dir():
+        print(f"profile_paths: no src/repro_torch under {root}", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_paths: needs one CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(root / "src"))
+    from chip_smoke import CCAT, CCAT_SCALE, N_NODES, REUTERS, profile_iterations
+    from repro_torch.core.gadget import GadgetConfig, gadget_train
+    from repro_torch.data.svm_datasets import make_dataset, partition
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{card}; repro_torch from {root / 'src'}", flush=True)
+    dev = torch.device("cuda")
+    ds = make_dataset("reuters", scale=1.0, seed=0)
+    Xp, yp, n_r = partition(ds.X_train, ds.y_train, N_NODES, seed=0)
+    dense = (torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev), n_r)
+    ds_c = make_dataset("ccat", scale=CCAT_SCALE, seed=0, sparse=True)
+    sparse = partition(ds_c.X_train, ds_c.y_train, N_NODES, seed=0)
+    cfg_r, cfg_c = GadgetConfig(**REUTERS), GadgetConfig(**CCAT)
+    paths = {"reuters fused": (dense, cfg_r),
+             "reuters unfused": (dense, cfg_r._replace(fused=False)),
+             "ccat prefetch": (sparse, cfg_c._replace(sparse_schedule="prefetch")),
+             "ccat sweep": (sparse, cfg_c._replace(sparse_schedule="sweep"))}
+    out = {"card": card}
+    for name, ((X, y, n_counts), cfg) in paths.items():
+        def run(iters, X=X, y=y, n_counts=n_counts, cfg=cfg):
+            return gadget_train(X, y, cfg._replace(max_iters=iters), n_counts=n_counts, device=dev)
+        run(20)  # warm-up: the libraries and cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(args.iters)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        prof = profile_iterations(torch, lambda: run(args.profile_iters))
+        n = args.profile_iters
+        out[name] = {"iters_per_s": res.iters / wall_s,
+                     "device_us_per_iter": prof["device_us"] / n,
+                     "kernel_us_per_iter": prof["kernel_us"] / n,
+                     "kernel_launches_per_iter": prof["kernel_launches"] / n,
+                     "copies_per_iter": prof["copies"] / n,
+                     "busy_share": prof["device_us"] / n / (wall_s / res.iters * 1e6)}
+        print(f"{name}: " + ", ".join(f"{k} {v:.3f}" for k, v in out[name].items()), flush=True)
+        for key, count, us in prof["top_device"]:
+            print(f"    device {us / n:9.2f} us/it  x{count:<6d} {key}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
