@@ -7,7 +7,7 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
-3. kernels: each of the thirteen kernels against its plain PyTorch version on
+3. kernels: each of the fourteen kernels against its plain PyTorch version on
    the card, at the shapes of its main path and at ragged shapes (for the
    sparse kernels: pad entries, a pad row, an all-pad node, and a touched-
    block map one slot too short; for the serving kernel: tied classes, pad
@@ -33,10 +33,14 @@ Phases, each of which exits non-zero on failure:
    (10, 1, 8315) beside ``torch.bmm``, for one node (1, 8315) beside
    ``torch.mv``, at 2 x 1100 rows (a block a row) and by blocks a row;
    ``ell_grad_update_prefetch_fold`` bit for bit the buckets kernel
-   followed by ``fold_buckets``; ``fleet_half_step`` at m 1,
+   followed by ``fold_buckets``; ``ell_margins_prefetch_coeff``'s margins
+   bit for bit the margins entry's and its coefficients bit for bit
+   ``torch.where(margins < 1, y, 0)`` (main, ragged, undersized), timed
+   beside the margins entry followed by that ``where``; ``fleet_half_step`` at m 1,
    10 and 32, B 1 and 37 (rows masked), d 8315, 1001 and 70,001, and a B
    whose X slice overflows shared memory, with clusters of 8 and 16 timed;
-   ``rglru_scan`` at (2, 4096, 4096) and ragged shapes; ``wkv_scan`` at
+   ``rglru_scan`` bit for bit its plain version at (2, 4096, 4096), at a
+   D of 130 (4-byte copies) and 4100, and at S = 1; ``wkv_scan`` at
    RWKV6-3B's (2, 4096, 40, 64), at n 16, 24, 64, 80 and 256 with T 1, 33
    and 4097, and ragged shapes;
 4. main path: GADGET on the paper's reuters dataset at full size with the
@@ -52,8 +56,9 @@ Phases, each of which exits non-zero on failure:
 7. sparse main path: GADGET on CCAT as ELL planes at full width
    (d = 47,236, k = 76; rows cut to scale 0.1) with the paper's CCAT config
    and ``sparse_schedule="auto"``, which must resolve to the prefetch pair
-   at blk_d = 128; ``ell_margins_prefetch`` and ``ell_grad_update_prefetch_fold``
-   launched once per iteration, held to the quality limits below; device
+   at blk_d = 128; ``ell_margins_prefetch_coeff`` and
+   ``ell_grad_update_prefetch_fold`` launched once per iteration (the
+   margins-only entry never), held to the quality limits below; device
    time and kernel launches an iteration from torch.profiler;
 8. sweep path: the same data with ``sparse_schedule="sweep"`` for 400
    iterations, ``ell_margins`` and ``ell_grad_update`` once per iteration,
@@ -145,6 +150,7 @@ REPLACES = {
     "ell_margins": "src/repro/kernels/hinge_subgrad/sparse.py:100",
     "ell_grad_update": "src/repro/kernels/hinge_subgrad/sparse.py:138",
     "ell_margins_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:210",
+    "ell_margins_prefetch_coeff": "src/repro/kernels/hinge_subgrad/sparse.py:210",
     "ell_grad_update_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:259",
     "ell_grad_update_prefetch_fold": "src/repro/kernels/hinge_subgrad/sparse.py:259",
     "ell_scores_prefetch": "src/repro/kernels/hinge_subgrad/predict.py:169",
@@ -565,6 +571,13 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
                 lambda c, v, w, yy, b: S.ell_margins_prefetch_plain(c, v, w, yy, b, blk_d=blk,
                                                                     n_d_blocks=n_d))
 
+    def coeff_pf(blk, n_d, stack=True):  # stacked (margins; coefficients): one tensor to compare
+        join = torch.stack if stack else tuple
+        return (lambda c, v, w, yy, b: join(S.ell_margins_prefetch_coeff(
+                    c, v, w, yy, b, blk_d=blk, n_d_blocks=n_d)),
+                lambda c, v, w, yy, b: join(S.ell_margins_prefetch_coeff_plain(
+                    c, v, w, yy, b, blk_d=blk, n_d_blocks=n_d)))
+
     def grad_pf(blk, n_d):
         return (lambda c, v, cf, b: S.ell_grad_update_prefetch(c, v, cf, b, blk_d=blk, n_d_blocks=n_d),
                 lambda c, v, cf, b: S.ell_grad_update_prefetch_plain(c, v, cf, b, blk_d=blk,
@@ -603,6 +616,14 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
             ragged_run=margins_pf(blk_pf, rnd), library=margins_library,
             cost=ops.launch_cost("ell_margins_prefetch", m=m, B=B, k=k, n_blocks_max=n_blocks_max),
             shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
+        "ell_margins_prefetch_coeff": dict(
+            run=coeff_pf(blk_pf, nd), inputs={
+                "main": (cols, vals, W, y, bids), "ragged": (rcols, rvals, rW, ry, rbids),
+                "undersized": (rcols, rvals, rW, ry, rcut)},
+            ragged_run=coeff_pf(blk_pf, rnd), timed=coeff_pf(blk_pf, nd, stack=False),
+            cost=ops.launch_cost("ell_margins_prefetch_coeff", m=m, B=B, k=k,
+                                 n_blocks_max=n_blocks_max),
+            shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
         "ell_grad_update_prefetch": dict(
             run=grad_pf(blk_pf, nd), inputs={
                 "main": (cols, vals, coeff, bids), "ragged": (rcols, rvals, rcoeff, rbids),
@@ -639,6 +660,25 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
         require(torch.equal(fused, folded),
                 f"ell_grad_update_prefetch_fold {which}: not the G kernel + fold_buckets bit for "
                 f"bit (max diff {float((fused - folded).abs().max()):.3e})")
+    # the coefficient entry: its margins are the margins entry's, and its
+    # coefficients torch.where of them, bit for bit
+    for which, (c_, v_, w_, y_, b_), n_d in (("main", (cols, vals, W, y, bids), nd),
+                                             ("ragged", (rcols, rvals, rW, ry, rbids), rnd),
+                                             ("undersized", (rcols, rvals, rW, ry, rcut), rnd)):
+        mg, cf = S.ell_margins_prefetch_coeff(c_, v_, w_, y_, b_, blk_d=blk_pf, n_d_blocks=n_d)
+        alone = S.ell_margins_prefetch(c_, v_, w_, y_, b_, blk_d=blk_pf, n_d_blocks=n_d)
+        require(torch.equal(mg, alone), f"ell_margins_prefetch_coeff {which}: margins differ from "
+                f"the margins entry's (max diff {float((mg - alone).abs().max()):.3e})")
+        require(torch.equal(cf, torch.where(mg < 1.0, y_, torch.zeros_like(y_))),
+                f"ell_margins_prefetch_coeff {which}: coefficients are not torch.where of its "
+                "margins bit for bit")
+    # what the coefficient entry replaces on the path: the margins entry, then
+    # the comparison, fill and where
+    margins_then_where_ms = device_ms(torch, lambda: torch.where(S.ell_margins_prefetch(
+        cols, vals, W, y, bids, blk_d=blk_pf, n_d_blocks=nd) < 1.0, y, torch.zeros_like(y)), 200)
+    log("  ell_margins_prefetch_coeff equals ell_margins_prefetch + torch.where bit for bit (main, "
+        f"ragged, undersized); the margins entry and the 3 launches of the where take "
+        f"{margins_then_where_ms * 1e3:.2f} us")
     # what the fused entry replaces on the path: the G kernel, then fold_buckets
     one_minus = float(np.float32(1) - np.float32(scal[0]))
 
@@ -679,6 +719,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
         args = case["inputs"]["main"]
         require(torch.equal(kernel(*args), kernel(*args)),
                 f"{name}: two runs on the same inputs differ")
+        kernel, plain = case.get("timed", case["run"])  # the entries as the path calls them
         ms = device_ms(torch, lambda: kernel(*args), 200)
         plain_ms = device_ms(torch, lambda: plain(*args), 200)
         lib_ms = None if "library" not in case else device_ms(torch, case["library"], 200)
@@ -695,6 +736,8 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
     results["ell_grad_update_prefetch_fold"].update(
         replaced_launches=replaced, replaced_kernel_ms=replaced_us * 1e-3,
         profiled_kernel_ms=fused_us * 1e-3)
+    results["ell_margins_prefetch_coeff"].update(replaced_launches=4,
+                                                 replaced_ms=margins_then_where_ms)
     return results
 
 
@@ -937,18 +980,22 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         f"{bf16_bound_ms:.4f} ms ({ATTN_BF16_ROUTE[0]}; {bf16_mma_bound_ms:.4f} ms on bf16 MMA)")
     del qb, kb_, vb
 
-    # rglru_scan: a in (0.8, 0.999) as the gates give it near 1, b normal
+    # rglru_scan: a in (0.8, 0.999) as the gates give it near 1, b normal;
+    # bit for bit the plain version (the same carry order, each step a
+    # multiply then an add), at the path shape, D = 130 (rows of 520 bytes:
+    # 4-byte copies), D = 4100 with S off the stage size, and S = 1
     scan_errs, main = {}, None
     for which, (B, S, D) in {"main": (PREFILL_BATCH, PREFILL_LEN, 4096), "tiny": (1, 17, 130),
-                             "ragged": (3, 100, 4100)}.items():
+                             "ragged": (3, 100, 4100), "s1": (2, 1, 4096),
+                             "s1_tiny": (1, 1, 130)}.items():
         a = 0.8 + 0.199 * torch.rand(B, S, D, generator=gen, device=dev)
         bb = randn(B, S, D)
         got, want = RG.rglru_scan(a, bb), RG.rglru_scan_plain(a, bb)
         torch.cuda.synchronize()
         require(bool(torch.isfinite(got).all()), f"rglru_scan non-finite ({which})")
         scan_errs[which] = rel_err(got, want)
-        require(scan_errs[which][1] <= KERNEL_RTOL,
-                f"rglru_scan {which}: kernel against plain rel err {scan_errs[which][1]:.3e}")
+        require(torch.equal(got, want), f"rglru_scan {which}: not the plain version bit for bit "
+                f"(max diff {scan_errs[which][0]:.3e})")
         require(torch.equal(got, RG.rglru_scan(a, bb)), f"rglru_scan {which}: reruns differ")
         if which == "main":
             main = (a, bb)
@@ -1277,8 +1324,9 @@ def wrappers(K, P, S, X) -> tuple:
     """Every kernel wrapper of the port, in the order of ``KERNELS``; ``X``
     holds the transformer kernels' wrappers."""
     return (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores, S.ell_margins,
-            S.ell_grad_update, S.ell_margins_prefetch, S.ell_grad_update_prefetch,
-            S.ell_grad_update_prefetch_fold, P.ell_scores_prefetch, *X)
+            S.ell_grad_update, S.ell_margins_prefetch, S.ell_margins_prefetch_coeff,
+            S.ell_grad_update_prefetch, S.ell_grad_update_prefetch_fold, P.ell_scores_prefetch,
+            *X)
 
 
 def reset_counts(K, P, S, X) -> None:
@@ -1515,7 +1563,7 @@ def main() -> int:
     require(acc_c >= CCAT_MIN_ACCURACY, f"CCAT test accuracy {acc_c:.4f} < {CCAT_MIN_ACCURACY}")
     require(obj_c <= CCAT_MAX_OBJECTIVE, f"CCAT objective {obj_c:.4f} > {CCAT_MAX_OBJECTIVE}")
     for name in KERNELS:
-        on_path = name in ("ell_margins_prefetch", "ell_grad_update_prefetch_fold")
+        on_path = name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold")
         want = res_c.iters if on_path else 0
         require(sparse_counts[name] == want,
                 f"{name} launched {sparse_counts[name]} times in {res_c.iters} sparse iterations")
@@ -1717,6 +1765,7 @@ def main() -> int:
                 "margins": unfused_counts["margins"],
                 "grad_update": unfused_counts["grad_update"],
                 "ell_margins_prefetch": sparse_counts["ell_margins_prefetch"],
+                "ell_margins_prefetch_coeff": sparse_counts["ell_margins_prefetch_coeff"],
                 "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
                 "ell_grad_update_prefetch_fold": sparse_counts["ell_grad_update_prefetch_fold"],
                 "ell_margins": sweep_counts["ell_margins"],
@@ -1727,7 +1776,9 @@ def main() -> int:
                 "wkv_scan": transformer["rwkv6-3b"]["prefill"]["launches"]["wkv_scan"]}
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
              "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
-             "ell_margins_prefetch": "sparse training, auto = prefetch (phase 7)",
+             "ell_margins_prefetch": "none: the margins-only entry, held in phase 3; sparse "
+                                     "training (phase 7) runs ell_margins_prefetch_coeff",
+             "ell_margins_prefetch_coeff": "sparse training, auto = prefetch (phase 7)",
              "ell_grad_update_prefetch": "none: the buckets entry, held in phase 3; sparse "
                                          "training (phase 7) runs ell_grad_update_prefetch_fold",
              "ell_grad_update_prefetch_fold": "sparse training, auto = prefetch (phase 7)",
@@ -1745,6 +1796,9 @@ def main() -> int:
     sources = {name: f"{SOURCE_DIR}/{src}" for name, src in sources.items()}
     sources.update(TRANSFORMER_SOURCES)
     tolerance = {name: f"rel {KERNEL_RTOL}" for name in KERNELS}
+    tolerance["ell_margins_prefetch_coeff"] += ("; margins bit for bit the margins entry's, "
+                                                "coefficients bit for bit torch.where of them")
+    tolerance["rglru_scan"] = "bit for bit"
     tolerance["flash_attention"] += f"; bf16 abs {BF16_ATOL} and one bf16 ulp + {KERNEL_RTOL}"
     line = {"kernels": [dict(name=name, route="cuda", source=sources[name],
                              replaces=REPLACES[name], launches=launches[name], path=paths[name],

@@ -1,7 +1,9 @@
 // Gather-dot over padded-ELL rows and the shared-memory bitmap of a
-// touched-block map, shared by the sparse kernels of this directory:
-// ell_margins and ell_margins_prefetch (sparse.cu), ell_scores_prefetch
-// (predict.cu).
+// touched-block map, shared by the sparse kernels of this directory: the
+// gather-dot by ell_margins (sparse.cu) and ell_scores_prefetch
+// (predict.cu), the bitmap's size by ell_margins_prefetch (sparse.cu),
+// which builds and reads it in its own way, and the bitmap itself by
+// ell_scores_prefetch.
 //
 // The TPU kernels contract only the d-blocks named in their map, so with a
 // map one slot too short they lose the dropped blocks' entries. A kernel

@@ -1,6 +1,7 @@
 // Sparse (padded-ELL) Pegasos half-step kernels for Hopper (sm_90a):
 // ell_margins, ell_grad_update (the sweep pair) and ell_margins_prefetch,
-// ell_grad_update_prefetch (the touched-block pair). Plain C entry points,
+// ell_grad_update_prefetch (the touched-block pair), each of the latter
+// also as a second entry. Plain C entry points,
 // loaded with ctypes by repro_torch/kernels/hinge_subgrad/sparse.py; each
 // returns cudaGetLastError() after its launch.
 //
@@ -13,7 +14,8 @@
 // Replaces src/repro/kernels/hinge_subgrad/sparse.py:
 //   ell_margins               (pallas_call at :100, body :74)
 //   ell_grad_update           (pallas_call at :138, body :122)
-//   ell_margins_prefetch      (pallas_call at :210, body :172)
+//   ell_margins_prefetch      (pallas_call at :210, body :172), as two entries:
+//                             the margins, and the margins with the coefficients
 //   ell_grad_update_prefetch  (pallas_call at :259, body :234), as two entries:
 //                             the buckets G, and G folded into W
 // The TPU kernels walk w in d-blocks and gather or scatter with a one-hot
@@ -29,15 +31,37 @@
 // and prefetch kernels, and device-memory bandwidth the sweep grad.
 //
 // Design.
-// * Margins, both schedules: one warp per (node, row). Lanes stride over k,
-//   load (col, val), gather W[i, col], multiply-add; a fixed shuffle tree
-//   reduces the warp; lane 0 writes y * sum. The prefetch kernel first
-//   builds a bitmap of the node's map (n_d_blocks bits) in shared memory
-//   and counts an entry only if its block col / blk_d is set, which is
-//   exactly the set of entries the TPU kernel contracts: with a sound cap
-//   this equals the sweep, with an undersized cap it drops what the TPU
-//   kernel drops. Sentinel slots (id >= n_d_blocks) set no bit and so read
-//   nothing of W.
+// * Sweep margins: one warp per (node, row). Lanes stride over k, load
+//   (col, val), gather W[i, col], multiply-add; a fixed shuffle tree
+//   reduces the warp; lane 0 writes y * sum.
+// * Prefetch margins, two entries over one kernel: ell_margins_prefetch
+//   writes y * sum, ell_margins_prefetch_coeff also the violator
+//   coefficient (margin < 1) ? y : 0 of each row, which the path's grad
+//   reads, so the comparison, fill and where launches around it go. The
+//   kernel counts an entry only if its block col / blk_d is in a bitmap of
+//   the node's map (n_d_blocks bits, shared memory): exactly the set of
+//   entries the TPU kernel contracts, so with a sound cap this equals the
+//   sweep and with an undersized cap it drops what the TPU kernel drops;
+//   sentinel slots (id >= n_d_blocks) set no bit. At CCAT (B = 1, k = 76,
+//   a 36-slot map) the work is a launch and a few kilobytes, so the cost is
+//   the chain of dependent round trips and, at this size, each load
+//   instruction. A block holds a few rows, each the fewest warps whose
+//   lanes hold its k entries four to a thread (one warp at k = 76), slot j
+//   of lane l holding entry l + j * (the row's threads), so that a warp's loads
+//   are coalesced.
+//   Every thread puts its entries, its row's y and two map slots (64 ids a
+//   warp; wider maps read the rest later) in flight at once, gathers W for
+//   every entry that can count while the bitmap is built (an entry the map
+//   drops is read for nothing), and adds only after the map's bits are in:
+//   two round trips (entries with the map, then W) where the walk of three
+//   32-entry rounds behind the bitmap took seven. A power-of-two blk_d
+//   finds an entry's block by a shift, not a division. Measured at CCAT on
+//   an H100 (tools/kernel_probes.py), of about 2.7-2.9 us: a division
+//   costs 0.16 us, four map slots a thread instead of two 0.06-0.07, and
+//   four consecutive entries a thread gain nothing consistent (-0.08 and
+//   -0.01). Lanes add their entries in order, a fixed
+//   shuffle tree reduces a warp and the row's first thread adds its warps'
+//   sums in warp order: no float atomics, reruns are bit-identical.
 // * Sweep grad: one block per (node, output tile of blk_d lanes), which
 //   owns its slice of the output, so there are no atomics and the result is
 //   deterministic by construction, as on the TPU. The block stages the
@@ -85,6 +109,9 @@ constexpr int kMaxLanesPerThread = 4;
 constexpr int kMaxTile = kThreads * kMaxLanesPerThread;   // largest blk_d
 constexpr int kTileLanes = kMaxTile;  // lanes a prefetch grad block owns
 constexpr int kMaxSlots = 8;          // map slots a G-entry block owns
+constexpr int kMarginThreads = 128;   // most threads of a prefetch-margins block
+constexpr int kRowEntries = 4;        // entries a prefetch-margins thread holds at once
+constexpr int kMapSlots = 2;          // map slots a prefetch-margins thread loads up front
 
 __global__ void __launch_bounds__(kThreads)
 ell_margins_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
@@ -99,23 +126,131 @@ ell_margins_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
   if (lane == 0) out[row] = __ldg(y + row) * dot;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Threads per row of the prefetch margins: the fewest whole warps (one, two
+// or four) whose kRowEntries registers each hold the row's k entries; past
+// 4 * 128 entries four warps walk the row in waves of 512.
+__host__ __device__ __forceinline__ int margin_row_threads(int k) {
+  int t = 32;
+  while (t < kMarginThreads && t * kRowEntries < k) t *= 2;
+  return t;
+}
+
+// The entries [s, s + tpr * kRowEntries) of a row, kRowEntries a thread
+// (entry s + lane + j * tpr in slot j, so each load instruction of a warp
+// reads 32 consecutive entries; past k or in a dead row, val 0).
+__device__ __forceinline__ void load_wave(int (&c)[kRowEntries], float (&v)[kRowEntries],
+                                          const int* __restrict__ cols,
+                                          const float* __restrict__ vals, int k, int s,
+                                          int lane, int tpr, bool live) {
+#pragma unroll
+  for (int j = 0; j < kRowEntries; ++j) {
+    const int e = s + lane + j * tpr;
+    const bool in = live && e < k;
+    c[j] = in ? __ldg(cols + e) : 0;
+    v[j] = in ? __ldg(vals + e) : 0.f;
+  }
+}
+
+// W[col] of every slot that can count (val != 0, col in [0, d)), all in
+// flight together; the map's verdict comes later.
+__device__ __forceinline__ void gather_wave(float (&w)[kRowEntries], const int (&c)[kRowEntries],
+                                            const float (&v)[kRowEntries],
+                                            const float* __restrict__ Wi, int d) {
+#pragma unroll
+  for (int j = 0; j < kRowEntries; ++j) {
+    const bool use = v[j] != 0.f && static_cast<unsigned>(c[j]) < static_cast<unsigned>(d);
+    w[j] = use ? __ldg(Wi + c[j]) : 0.f;
+  }
+}
+
+// acc plus, in slot order, val * W[col] of the slots that count and whose
+// d-block col / blk_d (a shift by blk_shift when blk_d is a power of two)
+// is set in the bitmap.
+__device__ __forceinline__ float add_wave(float acc, const int (&c)[kRowEntries],
+                                          const float (&v)[kRowEntries],
+                                          const float (&w)[kRowEntries],
+                                          const unsigned* bitmap, int d, int blk_d,
+                                          int blk_shift) {
+#pragma unroll
+  for (int j = 0; j < kRowEntries; ++j) {
+    if (v[j] == 0.f || static_cast<unsigned>(c[j]) >= static_cast<unsigned>(d)) continue;
+    const int blk = blk_shift >= 0 ? c[j] >> blk_shift : c[j] / blk_d;
+    if ((bitmap[blk >> 5] >> (blk & 31)) & 1u) acc = fmaf(v[j], w[j], acc);
+  }
+  return acc;
+}
+
+// Prefetch margins of rows_per_block = blockDim.x / tpr rows of node
+// blockIdx.y, tpr threads a row; with kCoeff also the violator coefficient
+// (margin < 1) ? y : 0 of each row, as torch.where computes it (a NaN
+// margin gives 0). Every thread first puts its first wave of entries, its
+// row's y and kMapSlots slots of the node's map in flight together, then
+// gathers the wave's W while it zeroes the bitmap; the map's bits are set
+// between two barriers, and only then does it add. Dead rows (b >= B) and
+// entries past k take part in the barriers with val 0.
+template <bool kCoeff>
+__global__ void __launch_bounds__(kMarginThreads)
 ell_margins_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                             const float* __restrict__ W, const float* __restrict__ y,
                             const int* __restrict__ block_ids, float* __restrict__ out,
-                            int B, int k, int d, int n_blocks_max, int blk_d,
-                            int n_d_blocks) {
+                            float* __restrict__ coeff, int B, int k, int d, int n_blocks_max,
+                            int blk_d, int blk_shift, int n_d_blocks, int tpr) {
   extern __shared__ unsigned bitmap[];  // one bit per d-block of this node
+  __shared__ float partial[kMarginThreads / 32];
   const int i = blockIdx.y;
-  build_block_bitmap(bitmap, block_ids + static_cast<size_t>(i) * n_blocks_max, n_blocks_max,
-                     n_d_blocks);
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const long long row = static_cast<long long>(i) * B + b;
-  const int lane = threadIdx.x & 31;
-  const float dot = row_gather_dot(cols + row * k, vals + row * k,
-                                   W + static_cast<size_t>(i) * d, k, d, lane, bitmap, blk_d);
-  if (lane == 0) out[row] = __ldg(y + row) * dot;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & (tpr - 1);
+  const int b = blockIdx.x * (nt / tpr) + tid / tpr;
+  const bool live = b < B;
+  const long long row = static_cast<long long>(i) * B + (live ? b : 0);
+  const int* c_row = cols + row * k;
+  const float* v_row = vals + row * k;
+  const float* Wi = W + static_cast<size_t>(i) * d;
+  int c[kRowEntries];
+  float v[kRowEntries], w[kRowEntries];
+  load_wave(c, v, c_row, v_row, k, 0, lane, tpr, live);
+  const float yb = live && lane == 0 ? __ldg(y + row) : 0.f;
+  const int* ids = block_ids + static_cast<size_t>(i) * n_blocks_max;
+  int bid[kMapSlots];
+#pragma unroll
+  for (int q = 0; q < kMapSlots; ++q) {
+    const int j = tid + q * nt;
+    bid[q] = j < n_blocks_max ? __ldg(ids + j) : -1;
+  }
+  const int words = bitmap_words(n_d_blocks);
+  for (int q = tid; q < words; q += nt) bitmap[q] = 0u;
+  gather_wave(w, c, v, Wi, d);
+  __syncthreads();  // the bitmap is zero
+#pragma unroll
+  for (int q = 0; q < kMapSlots; ++q) {
+    if (bid[q] >= 0 && bid[q] < n_d_blocks) atomicOr(bitmap + (bid[q] >> 5), 1u << (bid[q] & 31));
+  }
+  for (int j = kMapSlots * nt + tid; j < n_blocks_max; j += nt) {  // a map wider than the slots
+    const int id = __ldg(ids + j);
+    if (id >= 0 && id < n_d_blocks) atomicOr(bitmap + (id >> 5), 1u << (id & 31));
+  }
+  __syncthreads();  // the bitmap holds the node's map (integer ORs: order-free)
+  float acc = add_wave(0.f, c, v, w, bitmap, d, blk_d, blk_shift);
+  for (int s = tpr * kRowEntries; s < k; s += tpr * kRowEntries) {
+    load_wave(c, v, c_row, v_row, k, s, lane, tpr, live);
+    gather_wave(w, c, v, Wi, d);
+    acc = add_wave(acc, c, v, w, bitmap, d, blk_d, blk_shift);
+  }
+  acc = warp_sum(acc);
+  if (tpr > 32) {  // the row's warps, summed in warp order by its first thread
+    if ((tid & 31) == 0) partial[tid >> 5] = acc;
+    __syncthreads();
+    if (lane == 0) {
+      acc = 0.f;
+      for (int q = 0; q < tpr / 32; ++q) acc += partial[(tid >> 5) + q];
+    }
+  }
+  if (live && lane == 0) {
+    const float mg = yb * acc;
+    out[row] = mg;
+    if (kCoeff) coeff[row] = mg < 1.f ? yb : 0.f;
+  }
 }
 
 // g[lane] for the lanes [base, base + lanes) of node i that this thread
@@ -381,24 +516,54 @@ extern "C" int ell_margins(const void* cols, const void* vals, const void* W,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace repro_torch {
+namespace {
+
+template <bool kCoeff>
+int launch_margins_prefetch(const void* cols, const void* vals, const void* W, const void* y,
+                            const void* block_ids, void* out, void* coeff, int m, int B, int k,
+                            int d, int n_blocks_max, int blk_d, int n_d_blocks, void* stream) {
+  const auto kernel = ell_margins_prefetch_kernel<kCoeff>;
+  const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (m > 0 && B > 0) {
+    const int tpr = margin_row_threads(k);
+    const int rows = B < kMarginThreads / tpr ? B : kMarginThreads / tpr;
+    int shift = 0;
+    while ((1 << shift) < blk_d) ++shift;
+    const dim3 grid((B + rows - 1) / rows, m);
+    kernel<<<grid, rows * tpr, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const float*>(W), static_cast<const float*>(y),
+        static_cast<const int*>(block_ids), static_cast<float*>(out),
+        static_cast<float*>(coeff), B, k, d, n_blocks_max, blk_d,
+        (1 << shift) == blk_d ? shift : -1, n_d_blocks, tpr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace repro_torch
+
 // As ell_margins, counting only entries whose d-block (col / blk_d) is in the
 // node's row of block_ids (m, n_blocks_max); ids >= n_d_blocks are sentinels.
 extern "C" int ell_margins_prefetch(const void* cols, const void* vals, const void* W,
                                     const void* y, const void* block_ids, void* out,
                                     int m, int B, int k, int d, int n_blocks_max,
                                     int blk_d, int n_d_blocks, void* stream) {
-  const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(ell_margins_prefetch_kernel), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (m > 0 && B > 0) {
-    const dim3 grid((B + kWarps - 1) / kWarps, m);
-    ell_margins_prefetch_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(W), static_cast<const float*>(y),
-        static_cast<const int*>(block_ids), static_cast<float*>(out),
-        B, k, d, n_blocks_max, blk_d, n_d_blocks);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_margins_prefetch<false>(cols, vals, W, y, block_ids, out, nullptr, m, B, k, d,
+                                        n_blocks_max, blk_d, n_d_blocks, stream);
+}
+
+// As ell_margins_prefetch, also writing coeff (m, B) = (out < 1) ? y : 0.
+extern "C" int ell_margins_prefetch_coeff(const void* cols, const void* vals, const void* W,
+                                          const void* y, const void* block_ids, void* out,
+                                          void* coeff, int m, int B, int k, int d,
+                                          int n_blocks_max, int blk_d, int n_d_blocks,
+                                          void* stream) {
+  return launch_margins_prefetch<true>(cols, vals, W, y, block_ids, out, coeff, m, B, k, d,
+                                       n_blocks_max, blk_d, n_d_blocks, stream);
 }
 
 // cols, vals (m, B, k), W (m, d), coeff (m, B) -> out (m, d) =

@@ -1,7 +1,8 @@
 """Wrappers of the sparse (padded-ELL) Pegasos kernels: the sweep pair
 ``ell_margins`` and ``ell_grad_update`` and the touched-block pair
-``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, the latter also
-folded into W as ``ell_grad_update_prefetch_fold`` (CUDA source:
+``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, the former also
+with the violator coefficients as ``ell_margins_prefetch_coeff`` and the
+latter also folded into W as ``ell_grad_update_prefetch_fold`` (CUDA source:
 ``csrc/sparse.cu``).
 
 The minibatch is two (m, B, k) planes, ``cols`` int32 and ``vals`` float32,
@@ -34,8 +35,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _f32_pair, _one_minus
 
 __all__ = ["ell_margins", "ell_grad_update", "ell_margins_prefetch",
-           "ell_grad_update_prefetch", "ell_grad_update_prefetch_fold", "ell_margins_plain",
-           "ell_grad_update_plain", "ell_margins_prefetch_plain",
+           "ell_margins_prefetch_coeff", "ell_grad_update_prefetch",
+           "ell_grad_update_prefetch_fold", "ell_margins_plain", "ell_grad_update_plain",
+           "ell_margins_prefetch_plain", "ell_margins_prefetch_coeff_plain",
            "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
            "fold_buckets", "MAX_BLK_D"]
 
@@ -44,6 +46,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ell_margins": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ell_margins_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ell_margins_prefetch_coeff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "ell_grad_update_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update_prefetch_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -132,6 +135,15 @@ def ell_margins_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.
     return ell_margins_plain(cols, kept, W, y)
 
 
+def _check_margins_prefetch(cols, vals, W, y, block_ids, blk_d: int,
+                            n_d_blocks: int) -> tuple[int, int, int, int, int]:
+    m, B, k = _check_planes(cols, vals)
+    d = W.shape[1] if W.ndim == 2 else -1
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("y", y, (m, B))
+    return m, B, k, d, _check_blocks(block_ids, m, blk_d, n_d_blocks)
+
+
 def ell_margins_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
                          y: torch.Tensor, block_ids: torch.Tensor, *, blk_d: int,
                          n_d_blocks: int) -> torch.Tensor:
@@ -141,11 +153,8 @@ def ell_margins_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor
     if _build.on_cpu(cols, vals, W, y, block_ids):
         return ell_margins_prefetch_plain(cols, vals, W, y, block_ids, blk_d=blk_d,
                                           n_d_blocks=n_d_blocks)
-    m, B, k = _check_planes(cols, vals)
-    d = W.shape[1] if W.ndim == 2 else -1
-    _build.check_tensor("W", W, (m, d))
-    _build.check_tensor("y", y, (m, B))
-    n_blocks_max = _check_blocks(block_ids, m, blk_d, n_d_blocks)
+    m, B, k, d, n_blocks_max = _check_margins_prefetch(cols, vals, W, y, block_ids, blk_d,
+                                                       n_d_blocks)
     out = torch.empty((m, B), dtype=torch.float32, device=W.device)
     with torch.cuda.device(W.device):
         code = _lib().ell_margins_prefetch(
@@ -158,6 +167,43 @@ def ell_margins_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor
 
 
 ell_margins_prefetch.launches = 0
+
+
+def ell_margins_prefetch_coeff_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                                     y: torch.Tensor, block_ids: torch.Tensor, *, blk_d: int,
+                                     n_d_blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: :func:`ell_margins_prefetch_plain`, then the violator
+    coefficients ``torch.where(margins < 1, y, 0)``."""
+    margins = ell_margins_prefetch_plain(cols, vals, W, y, block_ids, blk_d=blk_d,
+                                         n_d_blocks=n_d_blocks)
+    return margins, torch.where(margins < 1.0, y, torch.zeros_like(y))
+
+
+def ell_margins_prefetch_coeff(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                               y: torch.Tensor, block_ids: torch.Tensor, *, blk_d: int,
+                               n_d_blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ell_margins_prefetch` and the violator coefficients in one
+    launch: ``(margins, coeff)``, both (m, B), coeff bit for bit
+    ``torch.where(margins < 1, y, 0)`` of the margins written (a NaN margin
+    and a pad row, y = 0, give 0). The prefetch schedule's margins."""
+    if _build.on_cpu(cols, vals, W, y, block_ids):
+        return ell_margins_prefetch_coeff_plain(cols, vals, W, y, block_ids, blk_d=blk_d,
+                                                n_d_blocks=n_d_blocks)
+    m, B, k, d, n_blocks_max = _check_margins_prefetch(cols, vals, W, y, block_ids, blk_d,
+                                                       n_d_blocks)
+    out = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    coeff = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_margins_prefetch_coeff(
+            cols.data_ptr(), vals.data_ptr(), W.data_ptr(), y.data_ptr(),
+            block_ids.data_ptr(), out.data_ptr(), coeff.data_ptr(), m, B, k, d, n_blocks_max,
+            blk_d, n_d_blocks, _build.stream(W))
+    _build.check(code, "ell_margins_prefetch_coeff")
+    ell_margins_prefetch_coeff.launches += 1
+    return out, coeff
+
+
+ell_margins_prefetch_coeff.launches = 0
 
 
 # ------------------------------------------------------------ ell_grad_update

@@ -4,7 +4,8 @@ and its plain PyTorch version.
 For tensors on the CPU the wrapper takes the plain version; for tensors on
 a CUDA device it checks device, dtype, shape and contiguity and launches the
 kernel; anything else raises. A launch adds one to ``rglru_scan.launches``,
-and nothing else does.
+and nothing else does. The kernel stages a and b in shared memory with
+``cp.async``; :func:`copy_width` picks its copies' width.
 """
 from __future__ import annotations
 
@@ -16,11 +17,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan.ref import scan_ref
 
-__all__ = ["rglru_scan", "rglru_scan_plain"]
+__all__ = ["rglru_scan", "rglru_scan_plain", "copy_width"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"rglru_scan": [_P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"rglru_scan": [_P, _P, _P, _I, _I, _I, _I, _P]}
+
+
+def copy_width(D: int, *addresses: int) -> int:
+    """Floats one of the kernel's copies moves: 4 (16 bytes) when every row
+    of D floats and every input address is 16-byte aligned, else 1 (4 bytes;
+    D = 130, for one, has 520-byte rows)."""
+    return 4 if D % 4 == 0 and all(p % 16 == 0 for p in addresses) else 1
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -41,7 +49,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty_like(a)
     with torch.cuda.device(a.device):
         code = _build.load(_SOURCE, _SIGNATURES).rglru_scan(
-            a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, _build.stream(a))
+            a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D,
+            copy_width(D, a.data_ptr(), b.data_ptr()), _build.stream(a))
     _build.check(code, "rglru_scan")
     rglru_scan.launches += 1
     return h

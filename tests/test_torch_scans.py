@@ -16,7 +16,7 @@ from repro.kernels.rglru_scan.ref import scan_ref as ref_rglru  # noqa: E402
 from repro.kernels.rwkv6_scan.ops import wkv as ref_wkv  # noqa: E402
 from repro.kernels.rwkv6_scan.ref import scan_ref as ref_wkv_oracle  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as RO  # noqa: E402
-from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.rglru_scan import copy_width, rglru_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as WO  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as WK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import wkv_scan  # noqa: E402
@@ -104,6 +104,18 @@ def test_wrappers_take_plain_versions_on_cpu_and_reject_other_devices():
     assert wkv_scan.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         wkv_scan(*(x.to("meta") for x in (r, k, v, w, u)))
+
+
+@pytest.mark.parametrize("D,width", [(1, 1), (130, 1), (4096, 4), (4100, 4)])
+def test_rglru_copy_width(D, width):
+    """The scan stages a and b with 16-byte copies only when every row
+    (D floats) and both inputs start on 16 bytes: D = 130's 520-byte rows
+    and D = 1 take 4-byte copies, and so does any input off a 16-byte
+    boundary."""
+    assert copy_width(D) == width
+    assert copy_width(D, 0, 256) == width
+    assert copy_width(D, 1024, 4) == 1
+    assert copy_width(D, 8, 0) == 1
 
 
 def test_wkv_scan_names_its_head_size_limit():

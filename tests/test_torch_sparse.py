@@ -156,6 +156,54 @@ def test_ell_grad_update_prefetch_plain_matches_reference_kernel(m, B, k, unders
         assert (bids[1] == n_d_blocks).all() and not port[1].any()
 
 
+def _coeff_case(case, m, B, k):
+    """(cols, vals, W, y, bids, n_d_blocks) as numpy for the coefficient
+    entry: ``sound`` and ``undersized`` maps over planes with pad entries,
+    pad rows (B > 2) and an all-pad node (m > 1); ``nan`` a NaN value in
+    row 0 of node 0, whose margin is then NaN."""
+    blk_d = 128
+    n_d_blocks = -(-D // blk_d)
+    cols, vals, W, y = _planes(m, B, k, D, seed=m * 100 + B * 10 + k + 5, pad_node=True)
+    if case == "nan":
+        vals[0, 0, 0] = np.nan
+    bids = _maps(cols, np.nan_to_num(vals, nan=1.0), blk_d, n_d_blocks, case == "undersized")
+    return cols, vals, W, y, bids, n_d_blocks
+
+
+@pytest.mark.parametrize("case", ["sound", "undersized", "nan"])
+@pytest.mark.parametrize("m,B,k", [(3, 5, 13), (1, 1, 76)])
+def test_ell_margins_prefetch_coeff_plain_matches_reference(case, m, B, k):
+    """The coefficient entry's plain version against the reference's
+    prefetch margins kernel (interpret mode) followed by its
+    ``jnp.where(margins < 1, y, 0)``: margins at 1e-5 (NaN where the
+    reference has NaN), coefficients equal wherever the margin is not
+    within 1e-5 of 1; and the coefficients are bit for bit
+    ``torch.where`` of the margins the entry returns."""
+    blk_d = 128
+    cols, vals, W, y, bids, n_d_blocks = _coeff_case(case, m, B, k)
+    cP, vP, yP = _ref_planes(cols, vals, y)
+    WP = jnp.asarray(np.pad(_pad(W, 1, blk_d), ((0, 0), (0, blk_d))))  # + zero landing block
+    ref_m = RS.ell_margins_prefetch(cP, vP, WP, yP, jnp.asarray(bids), blk_d=blk_d,
+                                    n_d_blocks=n_d_blocks, interpret=True)
+    ref_c = np.asarray(jnp.where(ref_m < 1.0, yP, 0.0))[:, :B]
+    ref_m = np.asarray(ref_m)[:, :B]
+    tc, tv, tW, ty, tb = _t(cols, vals, W, y, bids)
+    margins, coeff = TS.ell_margins_prefetch_coeff(tc, tv, tW, ty, tb, blk_d=blk_d,
+                                                   n_d_blocks=n_d_blocks)
+    np.testing.assert_allclose(margins.numpy(), ref_m, rtol=0, atol=ATOL)
+    sure = ~(np.abs(ref_m - 1.0) <= ATOL)  # NaN margins included: both give 0
+    np.testing.assert_array_equal(coeff.numpy()[sure], ref_c[sure])
+    assert torch.equal(coeff, torch.where(margins < 1.0, ty, torch.zeros_like(ty)))
+    torch.testing.assert_close(margins, TS.ell_margins_prefetch(
+        tc, tv, tW, ty, tb, blk_d=blk_d, n_d_blocks=n_d_blocks), rtol=0, atol=0, equal_nan=True)
+    if B > 2:  # pad rows: y = 0, margin 0 < 1, coefficient 0
+        assert not coeff[:, 2].any()
+    if m > 1:  # the all-pad node: every margin and coefficient 0
+        assert (bids[1] == n_d_blocks).all() and not margins[1].any() and not coeff[1].any()
+    if case == "nan":
+        assert np.isnan(ref_m[0, 0]) and torch.isnan(margins[0, 0]) and coeff[0, 0] == 0
+
+
 def test_plain_versions_agree_with_oracle():
     """The sweep and the prefetch pair at a sound map, composed as the
     dispatch composes them, equal the plain fleet oracle."""
@@ -223,6 +271,43 @@ def test_ell_fleet_half_step_matches_reference(schedule, project):
     port = TO.ell_fleet_half_step(*_t(W, cols, vals, y), lam=LAM, t=T, project=project,
                                   schedule=schedule, n_blocks_max=bound)
     _close(port, ref)
+
+
+@pytest.mark.parametrize("m,B,k,d,cut", [(3, 5, 13, 1001, 0), (3, 5, 13, 1001, 1),
+                                         (4, 1, 76, 5000, 0)])
+def test_ell_fleet_half_step_prefetch_matches_reference(m, B, k, d, cut):
+    """The prefetch schedule (the coefficient entry, then the fused grad)
+    against the reference's at 1e-5, at a sound map and one ``cut`` slots
+    short of the data's bound."""
+    cols, vals, W, y = _planes(m, B, k, d, seed=31 + k, pad_node=True)
+    W *= 0.3
+    bound = R_fmt.minibatch_block_bound(cols, vals, B, d=d) - cut
+    ref = RO.ell_fleet_half_step(jnp.asarray(W), jnp.asarray(cols), jnp.asarray(vals),
+                                 jnp.asarray(y), lam=LAM, t=jnp.float32(T), interpret=True,
+                                 schedule="prefetch", n_blocks_max=bound)
+    port = TO.ell_fleet_half_step(*_t(W, cols, vals, y), lam=LAM, t=T, schedule="prefetch",
+                                  n_blocks_max=bound)
+    _close(port, ref)
+
+
+def test_prefetch_dispatch_runs_the_coefficient_entry(monkeypatch):
+    """The prefetch schedule takes its coefficients from
+    ``ell_margins_prefetch_coeff``: the margins-only entry is not called."""
+    calls = []
+    coeff_entry = TS.ell_margins_prefetch_coeff
+
+    def counted(*args, **kwargs):
+        calls.append("coeff")
+        return coeff_entry(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the prefetch path called ell_margins_prefetch")
+
+    monkeypatch.setattr(TS, "ell_margins_prefetch_coeff", counted)
+    monkeypatch.setattr(TS, "ell_margins_prefetch", refused)
+    cols, vals, W, y = _planes(3, 5, 13, D, seed=12)
+    TO.ell_fleet_half_step(*_t(W, cols, vals, y), lam=LAM, t=T, schedule="prefetch")
+    assert calls == ["coeff"]
 
 
 @pytest.mark.parametrize("schedule", ["sweep", "prefetch"])
@@ -317,6 +402,17 @@ def test_launch_cost_fused_prefetch_grad():
     assert cost["bytes"] == 3786440
 
 
+def test_launch_cost_margins_prefetch_coeff():
+    """The coefficient entry moves what the margins entry moves plus the
+    m·B coefficients it writes; its operations are the margins'."""
+    shape = dict(m=10, B=1, k=76, n_blocks_max=36)
+    margins = TO.launch_cost("ell_margins_prefetch", **shape)
+    cost = TO.launch_cost("ell_margins_prefetch_coeff", **shape)
+    assert cost == {"launches": 1, "bytes": 4 * (3 * 760 + 2 * 10 + 360 + 10),
+                    "flops": 2 * 760 + 10}
+    assert cost["bytes"] == margins["bytes"] + 4 * 10 and cost["flops"] == margins["flops"]
+
+
 def test_primal_objective_masked_ell_matches_reference():
     cols, vals, _, y = _planes(1, 40, 9, D, seed=5, pad_row=False)
     cols, vals, y = cols[0], vals[0], y[0]
@@ -349,3 +445,22 @@ def test_wrappers_refuse_bad_inputs():
         TS.ell_margins(cols, vals, W.to("meta"), y)
     assert TS.ell_margins.launches == 0 and TS.ell_grad_update_prefetch.launches == 0
     assert TS.ell_grad_update_prefetch_fold.launches == 0
+
+
+def test_coefficient_entry_refuses_bad_inputs_and_counts_no_cpu_launch():
+    """On CPU tensors the coefficient entry takes its plain version and
+    counts no launch; a meta tensor or tensors on two devices raise."""
+    cols, vals, W, y = _t(*_planes(2, 3, 4, 300, seed=1))
+    bids = TO.ell_block_map(cols, vals, blk_d=128, n_d_blocks=3, n_blocks_max=3)
+    before = TS.ell_margins_prefetch_coeff.launches
+    margins, coeff = TS.ell_margins_prefetch_coeff(cols, vals, W, y, bids, blk_d=128,
+                                                   n_d_blocks=3)
+    assert margins.shape == coeff.shape == (2, 3)
+    assert TS.ell_margins_prefetch_coeff.launches == before == 0
+    with pytest.raises(ValueError, match="devices"):
+        TS.ell_margins_prefetch_coeff(cols, vals, W.to("meta"), y, bids, blk_d=128,
+                                      n_d_blocks=3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TS.ell_margins_prefetch_coeff(*(x.to("meta") for x in (cols, vals, W, y, bids)),
+                                      blk_d=128, n_d_blocks=3)
+    assert TS.ell_margins_prefetch_coeff.launches == 0
