@@ -32,6 +32,12 @@ Phases, each of which exits non-zero on failure:
    130, as ``ell_scores_prefetch`` is at C 4; ``margins`` for the fleet
    (10, 1, 8315) beside ``torch.bmm``, for one node (1, 8315) beside
    ``torch.mv``, at 2 x 1100 rows (a block a row) and by blocks a row;
+   ``grad_update`` for the fleet (10, 1, 8315) beside ``torch.baddbmm`` and
+   its ten one-node launches and stack, bit for bit those launches stacked
+   and an X view off the 16-byte grid (also at B = 37 fleets of d 1001 and
+   1004), for one node (1, 8315) beside ``torch.addmv``; ``ell_grad_update`` bit for bit its
+   plain version at the real CCAT minibatch, at every blk_d and from a W
+   off the 16-byte grid;
    ``ell_grad_update_prefetch_fold`` bit for bit the buckets kernel
    followed by ``fold_buckets``; ``ell_margins_prefetch_coeff``'s margins
    bit for bit the margins entry's and its coefficients bit for bit
@@ -48,7 +54,7 @@ Phases, each of which exits non-zero on failure:
    fused), then the test set scored with ``dense_predict``; held to test
    accuracy >= 0.72 and final objective <= 0.50, and every launch counted;
 5. unfused path: the same data with ``fused=False`` for 400 iterations,
-   ``margins`` launched once and ``grad_update`` m times per iteration;
+   ``margins`` and ``grad_update`` each launched once per iteration;
    device time and kernel launches an iteration from torch.profiler;
 6. whole path against the CPU: 200 iterations of the phase 4 config on the
    card with its draws recorded, replayed with ``device="cpu"`` (the plain
@@ -300,27 +306,25 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
         library=None, cost=ops.launch_cost("fleet_half_step", m=N_NODES, B=1, d=d),
         shape=f"X ({N_NODES}, 1, {d})")
 
-    # margins: the fleet's (m, B, d) = (10, 1, 8315) once an unfused
-    # iteration; grad_update: one node's (B, d) = (1, 8315), once a node
+    # margins and grad_update: the fleet's (m, B, d) = (10, 1, 8315), each
+    # once an unfused iteration
     out["margins"] = dict(
         main=fleet_case(N_NODES, 1, d)[:3], ragged=fleet_case(3, 37, 1001)[:3], kernel=K.margins,
         plain=K.margins_plain, library=lambda X, W, y: torch.bmm(X, W[:, :, None]),
         cost=ops.launch_cost("margins", m=N_NODES, B=1, d=d), shape=f"X ({N_NODES}, 1, {d})")
 
-    def node_case(B, dd):
-        X, y = rows(B, dd), labels(B)
-        w = 10 * torch.randn(dd, generator=gen, device=dev)
-        return X, w, y
-    X1, w1, y1 = node_case(1, d)
-    Xr, wr, yr = node_case(37, 1001)
-    coeff1, coeffr = y1.clone(), torch.where(torch.arange(37, device=dev) % 2 == 0, yr, 0.0)
-    sr = ops.step_scalars(REUTERS["lam"], 1000, 37)
-    one_minus = float(np.float32(1) - np.float32(scal[0]))
+    def grad_case(m, B, dd):  # the violators: every other row of each node
+        X, W, y, _, s = fleet_case(m, B, dd)
+        return X, W, torch.where(torch.arange(B, device=dev) % 2 == 0, y, 0.0), s
+
+    def one_minus(s):
+        return float(np.float32(1) - np.float32(s[0]))
     out["grad_update"] = dict(
-        main=(X1, w1, coeff1, scal), ragged=(Xr, wr, coeffr, sr), kernel=K.grad_update,
+        main=grad_case(N_NODES, 1, d), ragged=grad_case(3, 37, 1001), kernel=K.grad_update,
         plain=K.grad_update_plain,
-        library=lambda X, w, c, s: torch.addmv(w, X.t(), c, beta=one_minus, alpha=s[1]),
-        cost=ops.launch_cost("grad_update", B=1, d=d), shape=f"X (1, {d})")
+        library=lambda X, W, c, s: torch.baddbmm(W[:, None, :], c[:, None, :], X,
+                                                 beta=one_minus(s), alpha=s[1]),
+        cost=ops.launch_cost("grad_update", m=N_NODES, B=1, d=d), shape=f"X ({N_NODES}, 1, {d})")
 
     # dense_scores: the reuters test set (3299, 8315) against one weight row
     Xq = rows(3299, d)
@@ -442,6 +446,46 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
         + f" (the wrapper takes {chosen})")
     results["margins"].update(cluster=chosen,
                               cluster_ms={str(k): v for k, v in margins_ms.items()})
+
+    # grad_update: the fleet launch bit for bit the one-node launches stacked
+    # and the same bits from a view of X off the 16-byte grid, at the main
+    # shape, the ragged one and a B = 37 fleet of d % 4 == 0, torch.baddbmm held to the plain version; then one node (1, 8315)
+    # beside torch.addmv, and what the fleet launch replaces on the unfused
+    # path, ten one-node launches and a torch.stack, timed
+    def stacked(X, W, c, s):
+        return torch.stack([K.grad_update(X[i], W[i], c[i], s) for i in range(X.shape[0])])
+    wide = grad_case(3, 37, 1004)
+    require(rel_err(K.grad_update(*wide), K.grad_update_plain(*wide))[1] <= KERNEL_RTOL,
+            "grad_update at (3, 37, 1004): kernel against plain")
+    for which, (X_, W_, c_, s_) in (("main", out["grad_update"]["main"]),
+                                    ("ragged", out["grad_update"]["ragged"]), ("wide", wide)):
+        got = K.grad_update(X_, W_, c_, s_)
+        X_off = torch.empty(X_.numel() + 1, device=dev)[1:].view(X_.shape)
+        X_off.copy_(X_)
+        require(torch.equal(got, stacked(X_, W_, c_, s_))
+                and torch.equal(got, K.grad_update(X_off, W_, c_, s_)),
+                f"grad_update {which}: the one-node launches stacked or an X off the 16-byte "
+                "grid give other bits")
+    Xg, Wg, cg, _ = main_g = out["grad_update"]["main"]
+    lib_g = out["grad_update"]["library"](*main_g)[:, 0]
+    require(rel_err(lib_g, K.grad_update_plain(*main_g))[1] <= KERNEL_RTOL,
+            "torch.baddbmm does not compute grad_update")
+    X1g, w1g, c1g = (a[0].clone() for a in (Xg, Wg, cg))
+    err1 = rel_err(K.grad_update(X1g, w1g, c1g, scal), K.grad_update_plain(X1g, w1g, c1g, scal))
+    require(err1[1] <= KERNEL_RTOL, f"grad_update one node: rel err {err1[1]:.3e}")
+    t = device_ms(torch, lambda: K.grad_update(X1g, w1g, c1g, scal), 200)
+    t_mv = device_ms(torch, lambda: torch.addmv(w1g, X1g.t(), c1g, beta=one_minus(scal),
+                                                alpha=scal[1]), 200)
+    t_loop = device_ms(torch, lambda: stacked(*main_g), 50)  # 11 launches a call: 50 calls fit the queue
+    b_ms, b_by = bound(ops.launch_cost("grad_update", B=1, d=d))
+    results["grad_update"]["one_node"] = dict(
+        shape=f"X (1, {d})", max_abs_err=err1[0], ms=t, library_ms=t_mv, bound_ms=b_ms,
+        bound_by=b_by)
+    results["grad_update"]["replaced_ms"] = t_loop
+    log(f"  {'grad_update':16s} the fleet launch equals the one-node launches stacked and an X "
+        f"view off the 16-byte grid, bit for bit (main, ragged, (3, 37, 1004)); {N_NODES} "
+        f"launches and the stack {t_loop * 1e3:.2f} us; X (1, {d}): err {err1[0]:.3e}, kernel "
+        f"{t * 1e3:.2f} us, torch.addmv {t_mv * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by})")
 
     # NaN rows (ROADMAP C1): a row with a NaN among its ranked scores gets
     # nan_label(C) from kernel and plain version alike; a NaN only in a
@@ -608,7 +652,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
             run=(lambda *a: S.ell_grad_update(*a, blk_d=blk_sw), S.ell_grad_update_plain), inputs={
                 "main": (cols, vals, W, coeff, scal), "ragged": (rcols, rvals, rW, rcoeff, rscal)},
             cost=ops.launch_cost("ell_grad_update", m=m, B=B, k=k, d=d),
-            shape=f"{main_shape}, blk_d {blk_sw}"),
+            shape=f"{main_shape}, blk_d {blk_sw} (checked; the kernel's tile 1024)"),
         "ell_margins_prefetch": dict(
             run=margins_pf(blk_pf, nd), inputs={
                 "main": (cols, vals, W, y, bids), "ragged": (rcols, rvals, rW, ry, rbids),
@@ -660,6 +704,21 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
         require(torch.equal(fused, folded),
                 f"ell_grad_update_prefetch_fold {which}: not the G kernel + fold_buckets bit for "
                 f"bit (max diff {float((fused - folded).abs().max()):.3e})")
+    # the sweep grad: bit for bit its plain version at the real minibatch (at
+    # B = 1 a node's columns are distinct, so each lane's sum is one
+    # product), the same bits at every blk_d the reference takes and from a W
+    # off the 16-byte grid (4-byte copies)
+    sweep = S.ell_grad_update(cols, vals, W, coeff, scal, blk_d=blk_sw)
+    plain_sweep = S.ell_grad_update_plain(cols, vals, W, coeff, scal)
+    require(torch.equal(sweep, plain_sweep), "ell_grad_update main: not its plain version bit for "
+            f"bit (max diff {float((sweep - plain_sweep).abs().max()):.3e})")
+    W_off = torch.empty(W.numel() + 1, device=dev)[1:].view(W.shape)
+    W_off.copy_(W)
+    require(all(torch.equal(S.ell_grad_update(cols, vals, w_, coeff, scal, blk_d=b_), sweep)
+                for w_, b_ in ((W, 128), (W, 1000), (W_off, blk_sw))),
+            "ell_grad_update: another blk_d or a W off the 16-byte grid gives other bits")
+    log("  ell_grad_update equals its plain version bit for bit (main), at blk_d 128, "
+        f"{blk_sw} and 1000 and from a W off the 16-byte grid")
     # the coefficient entry: its margins are the margins entry's, and its
     # coefficients torch.where of them, bit for bit
     for which, (c_, v_, w_, y_, b_), n_d in (("main", (cols, vals, W, y, bids), nd),
@@ -1482,7 +1541,7 @@ def main() -> int:
     log(f"  {res_u.iters} iterations in {unfused_s:.3f} s ({res_u.iters / unfused_s:.1f} it/s), "
         f"objective {float(res_u.objective_trace[-1]):.4f}, launches {unfused_counts}")
     require(bool(torch.isfinite(res_u.W).all()), "unfused W not finite")
-    for name, want in (("margins", res_u.iters), ("grad_update", N_NODES * res_u.iters)):
+    for name, want in (("margins", res_u.iters), ("grad_update", res_u.iters)):
         require(unfused_counts[name] == want,
                 f"{name} launched {unfused_counts[name]} times, want {want}")
     require(unfused_counts["fleet_half_step"] == 0, "the unfused path launched the fleet kernel")

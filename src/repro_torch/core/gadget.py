@@ -13,8 +13,9 @@ horizontal partition and a weight vector ŵ_i; one iteration t:
 
 With ``cfg.fused`` (the default) steps (a)-(e) for all m nodes are one
 ``fleet_half_step`` launch and the R Push-Sum rounds are one collapsed
-(m, m) product; ``fused=False`` runs ``margins`` + ``grad_update`` per node
-and the R rounds in order. On ELL partitions steps (a)-(e) are always
+(m, m) product; ``fused=False`` runs ``margins`` and ``grad_update``, each
+one launch for the fleet (the reference vmaps them over the nodes), and the
+R rounds in order. On ELL partitions steps (a)-(e) are always
 fleet-wide (``ops.ell_fleet_half_step``: two launches, the sweep or the
 touched-block pair per ``cfg.sparse_schedule``), and ``fused`` selects only
 the mixing. Push-Sum pushes n_i·w̃_i with mass n_i, so the

@@ -48,11 +48,27 @@
 // pushes its sum into rank 0's shared memory, and rank 0 adds them in rank
 // order. No atomics: reruns are bit-identical.
 //
-// grad_update replaces hinge_subgrad.py grad_update (pallas_call at :151):
-// (1 - s0) w + s1 coeff^T X, one thread per column with a fixed-order loop
-// over B and the axpy fused. It reads X once and is bandwidth-bound; the TPU
-// kernels' (8, 128) blocking and padding do not carry over: every edge is
-// masked here.
+// grad_update replaces hinge_subgrad.py grad_update (pallas_call at :151),
+// vmapped over the nodes as the reference's unfused step runs it: W_half_i =
+// (1 - s0) w_i + s1 coeff_i^T X_i for the whole fleet's (m, B, d) minibatch
+// in one launch (one node's (B, d) is the m = 1 case). It moves 4m(Bd + 2d +
+// B) bytes for m(2Bd + 3d) flops, so HBM bandwidth bounds it: 0.30 us at the
+// paper's (10, 1, 8315), 998 KB, against about 2 us for any launch, hence
+// one launch for the fleet. Past the launch the cost at this size is each
+// thread's chain of dependent instructions before its loads, so a node is a
+// grid row (blockIdx.y) and no thread divides by d or walks a loop it does
+// not need (tools/kernel_probes.py times blocks of 128 threads and B = 1
+// through the rows kernel's loop). Two kernels, blocks of kGradThreads =
+// 256 threads, one column a thread, ceil(d / 256) blocks a node:
+//  * B = 1, the paper's runs: X, W and out share the flat (m d) layout, so
+//    it is an elementwise pass (330 blocks at the paper's shape);
+//  * B != 1: a thread sums its column over b in order, with kRows rows and
+//    their coefficients in flight at once.
+// Either way each element is g = a chain of fmaf over b from +0, and out =
+// __fadd_rn(__fmul_rn(w, 1 - s0), __fmul_rn(s1, g)), the plain version's
+// two roundings: the fleet launch is the per-node launches stacked, bit for
+// bit. The TPU kernel's (8, 128) blocking and padding do not carry over:
+// every edge is masked here.
 #include <cooperative_groups.h>
 
 #include <mutex>
@@ -67,6 +83,8 @@ namespace cg = cooperative_groups;
 constexpr int kMaxCluster = 16;
 constexpr int kPieceSlots = 16;  // row pieces when B < kWarps: B ceil(8 / B) <= 14
 constexpr int kLoads = 4;        // loads a thread keeps in flight
+constexpr int kRows = 4;         // rows of X a grad_update thread keeps in flight
+constexpr int kGradThreads = kThreads;  // grad_update's block
 
 // Start of part i of n items split into parts contiguous ranges, the first
 // n % parts one item longer (python: predict.even_split).
@@ -240,15 +258,47 @@ margins_cluster_kernel(const float* __restrict__ X, const float* __restrict__ W,
   }
 }
 
+// B = 1: node blockIdx.y, column j = the thread's index in the node's
+// blocks, element q = i d + j of the flat (m d) plane that X, W and out
+// share: an elementwise pass. int indices: the C entry takes m d < 2^31 here.
 __global__ void __launch_bounds__(kThreads)
-grad_update_kernel(const float* __restrict__ X, const float* __restrict__ w,
-                   const float* __restrict__ coeff, float* __restrict__ out,
-                   int B, int d, float one_minus_s0, float s1) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+grad_update_flat_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                        const float* __restrict__ coeff, float* __restrict__ out, int d,
+                        float one_minus_s0, float s1) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
+  const int q = blockIdx.y * d + j;
+  const float g = fmaf(__ldg(coeff + blockIdx.y), __ldg(X + q), 0.f);
+  out[q] = __fadd_rn(__fmul_rn(__ldg(W + q), one_minus_s0), __fmul_rn(s1, g));
+}
+
+// B != 1, node blockIdx.y: thread t owns column j = its index in the node's
+// blocks and sums it over b in order, the loads of kRows rows and their
+// coefficients in flight at once.
+__global__ void __launch_bounds__(kThreads)
+grad_update_rows_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                        const float* __restrict__ coeff, float* __restrict__ out, int B, int d,
+                        float one_minus_s0, float s1) {
+  const int i = blockIdx.y;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  const size_t row = static_cast<size_t>(i) * d + j;
+  const float* xr = X + static_cast<size_t>(i) * B * d + j;
+  const float* ci = coeff + static_cast<size_t>(i) * B;
   float g = 0.f;
-  for (int b = 0; b < B; ++b) g = fmaf(__ldg(coeff + b), __ldg(X + static_cast<size_t>(b) * d + j), g);
-  out[j] = one_minus_s0 * w[j] + s1 * g;
+  for (int b0 = 0; b0 < B; b0 += kRows) {
+    float x[kRows], c[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool in = b0 + r < B;
+      c[r] = in ? __ldg(ci + b0 + r) : 0.f;
+      x[r] = in ? __ldg(xr + static_cast<size_t>(b0 + r) * d) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (b0 + r < B) g = fmaf(c[r], x[r], g);
+  }
+  out[row] = __fadd_rn(__fmul_rn(__ldg(W + row), one_minus_s0), __fmul_rn(s1, g));
 }
 
 }  // namespace
@@ -385,13 +435,22 @@ extern "C" int margins(const void* X, const void* W, const void* y, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// X (B, d), w (d,), coeff (B,) -> out (d,) = (1 - s0) w + s1 (coeff^T X).
-extern "C" int grad_update(const void* X, const void* w, const void* coeff, void* out,
+// X (m, B, d), W (m, d), coeff (m, B) -> out (m, d) = (1 - s0) W_i + s1
+// (coeff_i^T X_i) per node.
+extern "C" int grad_update(const void* X, const void* W, const void* coeff, void* out, int m,
                            int B, int d, float s0, float s1, void* stream) {
-  if (d > 0) {
-    grad_update_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(X), static_cast<const float*>(w),
-        static_cast<const float*>(coeff), static_cast<float*>(out), B, d, 1.f - s0, s1);
-  }
+  if (m <= 0 || d <= 0 || B < 0) return static_cast<int>(cudaGetLastError());
+  if (m > 65535 || (B == 1 && static_cast<long long>(m) * d > 0x7fffffffLL))
+    return static_cast<int>(cudaErrorInvalidValue);  // the grid's y, and int indices
+  const float* Xf = static_cast<const float*>(X);
+  const float* Wf = static_cast<const float*>(W);
+  const float* cf = static_cast<const float*>(coeff);
+  float* of = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((d + kGradThreads - 1) / kGradThreads, m);  // a thread a column
+  if (B == 1)
+    grad_update_flat_kernel<<<grid, kGradThreads, 0, st>>>(Xf, Wf, cf, of, d, 1.f - s0, s1);
+  else
+    grad_update_rows_kernel<<<grid, kGradThreads, 0, st>>>(Xf, Wf, cf, of, B, d, 1.f - s0, s1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,14 +62,21 @@
 //   -0.01). Lanes add their entries in order, a fixed
 //   shuffle tree reduces a warp and the row's first thread adds its warps'
 //   sums in warp order: no float atomics, reruns are bit-identical.
-// * Sweep grad: one block per (node, output tile of blk_d lanes), which
+// * Sweep grad: one block per (node, tile of kTileLanes = 1,024 columns), which
 //   owns its slice of the output, so there are no atomics and the result is
-//   deterministic by construction, as on the TPU. The block stages the
-//   node's B*k pairs (lane in tile, coeff_b * val) in shared memory, kChunk
-//   at a time, so B*k has no limit; each thread owns the lanes
-//   tid + q * kThreads of the tile and adds, in entry order, the
-//   contributions that land on them, then writes (1 - s0) * w + s1 * g over
-//   all of W.
+//   deterministic by construction, as on the TPU. It runs the prefetch
+//   grad's scatter (scatter_own, below) with every column of the tile live:
+//   each of the node's entries is read once per block, and the W tile is
+//   copied to shared memory by cp.async (16-byte copies when d % 4 == 0 and
+//   W is 16-byte aligned, as at CCAT's d = 47,236) while the entries are
+//   read. Then each thread writes the lanes it copied, as
+//   __fadd_rn(__fmul_rn(w, 1 - s0), __fmul_rn(s1, g)) at every lane (g = +0
+//   where no entry lands, so w = -0 comes out +0, as in the plain version).
+//   Each lane's sum runs in entry order whatever the tiling, so the tile is
+//   the kernel's own: the reference's blk_d does not shape it. At CCAT the
+//   launch moves 3.8 MB (a bound of 1.13 us), so the cost is the launch and
+//   the round trips: the entries' and W's overlap, and no thread walks
+//   entries that land elsewhere.
 // * Prefetch grad, two entries over one scatter (scatter_own). At CCAT a
 //   node has 76 entries and 36 buckets of 128 lanes, so the work is the
 //   launch and one chain of dependent loads; reading each entry once per
@@ -104,10 +111,7 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kChunk = 1024;   // entries staged in shared memory at a time
-constexpr int kMaxLanesPerThread = 4;
-constexpr int kMaxTile = kThreads * kMaxLanesPerThread;   // largest blk_d
-constexpr int kTileLanes = kMaxTile;  // lanes a prefetch grad block owns
+constexpr int kTileLanes = kThreads * 4;  // lanes a grad block owns, four a thread
 constexpr int kMaxSlots = 8;          // map slots a G-entry block owns
 constexpr int kMarginThreads = 128;   // most threads of a prefetch-margins block
 constexpr int kRowEntries = 4;        // entries a prefetch-margins thread holds at once
@@ -253,58 +257,6 @@ ell_margins_prefetch_kernel(const int* __restrict__ cols, const float* __restric
   }
 }
 
-// g[lane] for the lanes [base, base + lanes) of node i that this thread
-// owns (lane = tid + q * kThreads): the sum, in entry order, of
-// coeff_b * vals[b, e] over the node's entries with cols[b, e] == base + lane.
-__device__ __forceinline__ void tile_scatter(const int* __restrict__ cols,
-                                             const float* __restrict__ vals,
-                                             const float* __restrict__ coeff,
-                                             int B, int k, int base, int lanes,
-                                             float (&acc)[kMaxLanesPerThread]) {
-  __shared__ int s_lane[kChunk];
-  __shared__ float s_contrib[kChunk];
-  const long long n = static_cast<long long>(B) * k;
-  for (long long s = 0; s < n; s += kChunk) {
-    const int cnt = static_cast<int>(n - s < kChunk ? n - s : kChunk);
-    __syncthreads();  // the previous chunk has been read by every thread
-    for (int e = threadIdx.x; e < cnt; e += kThreads) {
-      const long long flat = s + e;
-      const int local = __ldg(cols + flat) - base;
-      s_lane[e] = (static_cast<unsigned>(local) < static_cast<unsigned>(lanes)) ? local : -1;
-      s_contrib[e] = __ldg(coeff + flat / k) * __ldg(vals + flat);
-    }
-    __syncthreads();
-    for (int e = 0; e < cnt; ++e) {
-      const int l = s_lane[e];
-#pragma unroll
-      for (int q = 0; q < kMaxLanesPerThread; ++q) {
-        if (l == static_cast<int>(threadIdx.x) + q * kThreads) acc[q] += s_contrib[e];
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ell_grad_update_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                       const float* __restrict__ W, const float* __restrict__ coeff,
-                       float* __restrict__ out, int B, int k, int d, int blk_d,
-                       float one_minus_s0, float s1) {
-  const int i = blockIdx.y;
-  const int base = blockIdx.x * blk_d;
-  const int lanes = min(blk_d, d - base);
-  const size_t plane = static_cast<size_t>(i) * B * k;
-  float acc[kMaxLanesPerThread] = {0.f, 0.f, 0.f, 0.f};
-  tile_scatter(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k,
-               base, lanes, acc);
-  const float* wi = W + static_cast<size_t>(i) * d + base;
-  float* oi = out + static_cast<size_t>(i) * d + base;
-#pragma unroll
-  for (int q = 0; q < kMaxLanesPerThread; ++q) {
-    const int lane = threadIdx.x + q * kThreads;
-    if (lane < lanes) oi[lane] = one_minus_s0 * __ldg(wi + lane) + s1 * acc[q];
-  }
-}
-
 // One round's kept entries, compacted in entry order.
 struct KeptEntries {
   int lane[kThreads];
@@ -420,6 +372,63 @@ struct TileLanes {
     return live[col / blk_d - b0] ? l : -1;
   }
 };
+
+// The sweep grad's lanes: columns [c0, c0 + lanes) of W, every one.
+struct ColumnLanes {
+  int c0, lanes;
+  __device__ __forceinline__ int operator()(int col) const {
+    const int l = col - c0;
+    return static_cast<unsigned>(l) < static_cast<unsigned>(lanes) ? l : -1;
+  }
+};
+
+// Sweep grad over columns [c0, c0 + kTileLanes) of node blockIdx.y. Thread
+// t copies W's lanes l = t V + q V kThreads, ..., + V - 1 (V floats a copy;
+// V = 4 needs W's and out's rows 16-byte aligned) and later writes those
+// same lanes, so its own cp.async.wait_all is the only wait on the copy.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+ell_grad_update_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                       const float* __restrict__ W, const float* __restrict__ coeff,
+                       float* __restrict__ out, int B, int k, int d, float one_minus_s0,
+                       float s1) {
+  __shared__ __align__(16) float acc[kTileLanes];
+  __shared__ int claim[kTileLanes];
+  __shared__ __align__(16) float w_tile[kTileLanes];
+  __shared__ KeptEntries kept;
+  const int i = blockIdx.y;
+  const int c0 = blockIdx.x * kTileLanes;
+  const int lanes = min(kTileLanes, d - c0);
+  const float* wi = W + static_cast<size_t>(i) * d + c0;
+  for (int l = threadIdx.x * V; l < lanes; l += kThreads * V) {  // in flight while the entries are read
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(w_tile + l));
+    if constexpr (V == 4) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(wi + l) : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(wi + l) : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const size_t plane = static_cast<size_t>(i) * B * k;
+  const float* ci = coeff + static_cast<size_t>(i) * B;
+  const Entry first = load_entry(cols + plane, vals + plane, ci, k,
+                                 static_cast<long long>(B) * k, threadIdx.x);
+  scatter_own(cols + plane, vals + plane, ci, B, k, first, ColumnLanes{c0, lanes}, acc, claim,
+              lanes, kept);
+  asm volatile("cp.async.wait_all;" ::: "memory");  // this thread's lanes of W have landed
+  float* oi = out + static_cast<size_t>(i) * d + c0;
+  for (int l = threadIdx.x * V; l < lanes; l += kThreads * V) {
+    float o[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o[e] = __fadd_rn(__fmul_rn(w_tile[l + e], one_minus_s0), __fmul_rn(s1, acc[l + e]));
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(oi + l) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+      oi[l] = o[0];
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 ell_grad_update_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
@@ -567,17 +576,29 @@ extern "C" int ell_margins_prefetch_coeff(const void* cols, const void* vals, co
 }
 
 // cols, vals (m, B, k), W (m, d), coeff (m, B) -> out (m, d) =
-// (1 - s0) W + s1 scatter(coeff_b vals[b, e] -> cols[b, e]), in tiles of blk_d.
+// (1 - s0) W + s1 scatter(coeff_b vals[b, e] -> cols[b, e]), a block per
+// (node, kTileLanes columns). vec is the W copies' and stores' width (the
+// wrapper's _build.copy_width): 4 only with d % 4 == 0 and W and out
+// 16-byte aligned, else 1.
 extern "C" int ell_grad_update(const void* cols, const void* vals, const void* W,
                                const void* coeff, void* out, int m, int B, int k, int d,
-                               int blk_d, float s0, float s1, void* stream) {
-  if (blk_d < 1 || blk_d > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
+                               int vec, float s0, float s1, void* stream) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if (vec != 1 && (vec != 4 || d % 4 != 0 || !aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m > 0 && d > 0) {
-    const dim3 grid((d + blk_d - 1) / blk_d, m);
-    ell_grad_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(W), static_cast<const float*>(coeff),
-        static_cast<float*>(out), B, k, d, blk_d, 1.f - s0, s1);
+    const dim3 grid((d + kTileLanes - 1) / kTileLanes, m);
+    const int* c = static_cast<const int*>(cols);
+    const float* v = static_cast<const float*>(vals);
+    const float* w = static_cast<const float*>(W);
+    const float* cf = static_cast<const float*>(coeff);
+    float* o = static_cast<float*>(out);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec == 4)
+      ell_grad_update_kernel<4><<<grid, kThreads, 0, st>>>(c, v, w, cf, o, B, k, d, 1.f - s0, s1);
+    else
+      ell_grad_update_kernel<1><<<grid, kThreads, 0, st>>>(c, v, w, cf, o, B, k, d, 1.f - s0, s1);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-"""Wrappers of the dense Pegasos kernels: ``fleet_half_step``, ``margins``
-and ``grad_update`` (CUDA source: ``csrc/hinge_subgrad.cu``).
+"""Wrappers of the dense Pegasos kernels: ``fleet_half_step``, and
+``margins`` and ``grad_update``, each of the latter two for the whole fleet
+in one launch (CUDA source: ``csrc/hinge_subgrad.cu``).
 
 Each function here takes a plain PyTorch version (``*_plain``) for tensors
 on the CPU, and launches its CUDA kernel for tensors on a CUDA device after
@@ -29,12 +30,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fleet_half_step": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "margins": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "grad_update": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "grad_update": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
 }
 # one block's shared memory holds fleet_half_step's (B,) partial margins and
 # (B,) coefficients beside 16 floats of row pieces
 _MAX_FLEET_B = (227 * 1024 // 4 - 16) // 2
 _CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size on Hopper
+_MAX_NODES = 65535  # the node axis of grad_update and the sparse kernels is the grid's y
 
 
 def _lib() -> ctypes.CDLL:
@@ -169,28 +171,45 @@ margins.launches = 0
 
 # ---------------------------------------------------------------- grad_update
 
-def grad_update_plain(X: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
+def grad_update_plain(X: torch.Tensor, W: torch.Tensor, coeff: torch.Tensor,
                       scal) -> torch.Tensor:
-    """Plain PyTorch (1 − s0)·w + s1·(coeffᵀX). X: (B, d), w: (d,), coeff: (B,)."""
+    """Plain PyTorch (1 − s0)·W_i + s1·(coeff_iᵀX_i) per node: X (m, B, d),
+    W (m, d), coeff (m, B) → (m, d); or one node's X (B, d), w (d,),
+    coeff (B,) → (d,)."""
+    if X.ndim == 2:
+        return grad_update_plain(X[None], W[None], coeff[None], scal)[0]
     s0, s1 = _f32_pair(scal)
-    return _one_minus(s0) * w + s1 * (coeff @ X)
+    return _one_minus(s0) * W + s1 * torch.bmm(coeff[:, None, :], X)[:, 0]
 
 
-def grad_update(X: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
+def grad_update(X: torch.Tensor, W: torch.Tensor, coeff: torch.Tensor,
                 scal) -> torch.Tensor:
-    """(1 − s0)·w + s1·(coeffᵀX) in one launch, ``scal`` = (λα, α/B).
-    Returns (d,)."""
-    if _build.on_cpu(X, w, coeff):
-        return grad_update_plain(X, w, coeff, scal)
-    B, d = X.shape
-    _build.check_tensor("X", X, (B, d))
-    _build.check_tensor("w", w, (d,))
-    _build.check_tensor("coeff", coeff, (B,))
+    """(1 − s0)·W_i + s1·(coeff_iᵀX_i) for the whole fleet in one launch,
+    ``scal`` = (λα, α/B): X (m, B, d), W (m, d), coeff (m, B) → (m, d). One
+    node's X (B, d), w (d,), coeff (B,) → (d,) is the m = 1 case. On CUDA a
+    thread owns one column; the fleet launch equals the per-node launches
+    stacked, bit for bit."""
+    if X.ndim == 2:
+        return grad_update(X[None], W[None], coeff[None], scal)[0]
+    if X.ndim != 3:
+        raise ValueError(f"X must be (m, B, d) or (B, d), got shape {tuple(X.shape)}")
+    m, B, d = X.shape
+    if tuple(W.shape) != (m, d) or tuple(coeff.shape) != (m, B):
+        raise ValueError(f"grad_update takes X (m, B, d), W (m, d) and coeff (m, B); got "
+                         f"{tuple(X.shape)}, {tuple(W.shape)} and {tuple(coeff.shape)}")
+    if _build.on_cpu(X, W, coeff):
+        return grad_update_plain(X, W, coeff, scal)
+    if m > _MAX_NODES or (B == 1 and m * d >= 2**31):
+        raise ValueError(f"grad_update takes m <= {_MAX_NODES} nodes and, at B = 1, "
+                         f"m·d < 2^31; got m={m}, d={d}")
+    _build.check_tensor("X", X, (m, B, d))
+    _build.check_tensor("W", W, (m, d))
+    _build.check_tensor("coeff", coeff, (m, B))
     s0, s1 = _f32_pair(scal)
-    out = torch.empty((d,), dtype=torch.float32, device=X.device)
+    out = torch.empty_like(W)
     with torch.cuda.device(X.device):
-        code = _lib().grad_update(X.data_ptr(), w.data_ptr(), coeff.data_ptr(),
-                                  out.data_ptr(), B, d, s0, s1, _build.stream(X))
+        code = _lib().grad_update(X.data_ptr(), W.data_ptr(), coeff.data_ptr(), out.data_ptr(),
+                                  m, B, d, s0, s1, _build.stream(X))
     _build.check(code, "grad_update")
     grad_update.launches += 1
     return out

@@ -92,13 +92,11 @@ def unfused_fleet_half_step(W: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *
                             lam: float, t: int, project: bool = True) -> torch.Tensor:
     """GADGET steps (e)+(f) for all m nodes as the reference's vmapped
     ``local_half_step``: one ``margins`` launch for the fleet, the violator
-    coefficients, one ``grad_update`` launch per node, then the optional
-    per-row ball projection. W: (m, d), X: (m, B, d), y: (m, B)."""
+    coefficients, one ``grad_update`` launch for the fleet, then the
+    optional per-row ball projection. W: (m, d), X: (m, B, d), y: (m, B)."""
     B = X.shape[1]
     coeff = torch.where(K.margins(X, W, y) < 1.0, y, torch.zeros_like(y))
-    scal = step_scalars(lam, t, B)
-    W_half = torch.stack([K.grad_update(X[i], W[i], coeff[i], scal)
-                          for i in range(W.shape[0])])
+    W_half = K.grad_update(X, W, coeff, step_scalars(lam, t, B))
     return project_ball(W_half, lam) if project else W_half
 
 
@@ -307,9 +305,9 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     element the function needs read from device memory once and each output
     written once (float32 and int32 both 4 bytes), whatever a kernel reads
     again from cache; flops count a multiply-add as 2. This is the byte
-    model behind the kernels' bandwidth bounds. Kinds: ``margins`` (over m nodes),
-    ``grad_update``, ``local_half_step`` (the two launches of the unfused
-    node step), ``fleet_half_step`` (always one launch: the port has no tile
+    model behind the kernels' bandwidth bounds. Kinds: ``margins`` and
+    ``grad_update`` (each over m nodes), ``local_half_step`` (the two
+    launches of the unfused node step), ``fleet_half_step`` (always one launch: the port has no tile
     limit), ``dense_predict``, ``ell_predict`` (a (B, k) query batch: the
     planes, the ``B·k·C`` gathered weights, the (n_blocks_max,) map and the
     outputs; ``blocks_visited`` is the map's width), and the sparse
@@ -344,8 +342,8 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
         return {"launches": 1, "bytes": 4 * m * (B * d + d + 2 * B),
                 "flops": m * (2 * B * d + B)}
     if kind == "grad_update":
-        return {"launches": 1, "bytes": 4 * (B * d + 2 * d + B),
-                "flops": 2 * B * d + 3 * d}
+        return {"launches": 1, "bytes": 4 * m * (B * d + 2 * d + B),
+                "flops": m * (2 * B * d + 3 * d)}
     if kind == "local_half_step":
         a, b = launch_cost("margins", B=B, d=d), launch_cost("grad_update", B=B, d=d)
         return {key: a[key] + b[key] for key in a}

@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _f32_pair, _one_minus
+from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _MAX_NODES, _f32_pair, _one_minus
 
 __all__ = ["ell_margins", "ell_grad_update", "ell_margins_prefetch",
            "ell_margins_prefetch_coeff", "ell_grad_update_prefetch",
@@ -52,8 +52,7 @@ _SIGNATURES = {
     "ell_grad_update_prefetch_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                       _F, _F, _P],
 }
-MAX_BLK_D = 1024           # a grad block's 256 threads own at most 4 lanes each
-_MAX_NODES = 65535         # the node axis is the grid's y dimension
+MAX_BLK_D = 1024           # a prefetch block's lanes: its 256 threads own 4 each
 _MAX_BITMAP_BYTES = 227 * 1024
 
 
@@ -220,22 +219,27 @@ def ell_grad_update_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tenso
 
 def ell_grad_update(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
                     coeff: torch.Tensor, scal, *, blk_d: int = 512) -> torch.Tensor:
-    """W_half = (1 − s0)·W + s1·scatter(coeff_b·vals → cols) per node, one
-    block per (node, tile of ``blk_d`` columns). coeff: (m, B) =
-    1[margin<1]·y. Returns (m, d). The sweep schedule's grad."""
+    """W_half = (1 − s0)·W + s1·scatter(coeff_b·vals → cols) per node in one
+    launch. coeff: (m, B) = 1[margin<1]·y. Returns (m, d). The sweep
+    schedule's grad. ``blk_d`` is the reference's tile width (the one
+    ``resolve_ell_schedule`` picks), checked to be at least 1, as the
+    reference needs, but not a shape of the kernel: on CUDA a block owns
+    1,024 columns, and each lane's sum runs in entry order whatever the
+    tiling."""
+    if blk_d < 1:
+        raise ValueError(f"blk_d must be at least 1, got {blk_d}")
     if _build.on_cpu(cols, vals, W, coeff):
         return ell_grad_update_plain(cols, vals, W, coeff, scal)
     m, B, k = _check_planes(cols, vals)
     d = W.shape[1] if W.ndim == 2 else -1
     _build.check_tensor("W", W, (m, d))
     _build.check_tensor("coeff", coeff, (m, B))
-    if not 1 <= blk_d <= MAX_BLK_D:
-        raise ValueError(f"blk_d must lie in [1, {MAX_BLK_D}], got {blk_d}")
     s0, s1 = _f32_pair(scal)
     out = torch.empty_like(W)
     with torch.cuda.device(W.device):
         code = _lib().ell_grad_update(cols.data_ptr(), vals.data_ptr(), W.data_ptr(),
-                                      coeff.data_ptr(), out.data_ptr(), m, B, k, d, blk_d,
+                                      coeff.data_ptr(), out.data_ptr(), m, B, k, d,
+                                      _build.copy_width(d, W.data_ptr(), out.data_ptr()),
                                       s0, s1, _build.stream(W))
     _build.check(code, "ell_grad_update")
     ell_grad_update.launches += 1

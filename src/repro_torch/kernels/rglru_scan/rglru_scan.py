@@ -15,6 +15,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import copy_width
 from repro_torch.kernels.rglru_scan.ref import scan_ref
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "copy_width"]
@@ -22,13 +23,6 @@ __all__ = ["rglru_scan", "rglru_scan_plain", "copy_width"]
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"rglru_scan": [_P, _P, _P, _I, _I, _I, _I, _P]}
-
-
-def copy_width(D: int, *addresses: int) -> int:
-    """Floats one of the kernel's copies moves: 4 (16 bytes) when every row
-    of D floats and every input address is 16-byte aligned, else 1 (4 bytes;
-    D = 130, for one, has 520-byte rows)."""
-    return 4 if D % 4 == 0 and all(p % 16 == 0 for p in addresses) else 1
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -138,8 +138,9 @@ def test_margins_cluster(rows, n_sm, want):
 
 
 def test_unfused_train_launches_margins_once_per_iteration(monkeypatch):
-    """The unfused step calls the fleet ``margins`` once an iteration and
-    ``grad_update`` once a node (the reference vmaps one node's step)."""
+    """The unfused step calls the fleet ``margins`` and the fleet
+    ``grad_update`` once an iteration each (the reference vmaps one node's
+    step over the nodes)."""
     calls = {"margins": [], "grad_update": []}
     for name in calls:
         fn = getattr(TK, name)
@@ -157,7 +158,88 @@ def test_unfused_train_launches_margins_once_per_iteration(monkeypatch):
     res = TG.gadget_train(X, y, cfg, device="cpu")
     assert res.iters == iters
     assert calls["margins"] == [(m, B, d)] * iters
-    assert calls["grad_update"] == [(B, d)] * (m * iters)
+    assert calls["grad_update"] == [(m, B, d)] * iters
+
+
+@pytest.mark.parametrize("m,B,d", [(3, 1, 130), (2, 5, 131), (4, 2, 40), (1, 37, 129),
+                                   (10, 1, 1001)])
+def test_fleet_grad_update_matches_vmapped_reference(m, B, d):
+    """The fleet form of ``grad_update`` (X (m, B, d), W (m, d), coeff
+    (m, B)) against the reference's Pallas ``grad_update`` vmapped over the
+    nodes, as its unfused step runs it."""
+    X, W, y = _inputs(B, d, m=m, seed=11)
+    coeff = np.where(np.random.default_rng(m + B + d).random((m, B)) < 0.5, y, 0.0)
+    coeff = coeff.astype(np.float32)
+    s0, s1 = TO.step_scalars(LAM, T, B)
+    scal = jnp.asarray([s0, s1], jnp.float32)
+    ref = jax.vmap(lambda Xi, wi, ci: RK.grad_update(Xi, wi, ci, scal, blk_b=B, blk_d=d,
+                                                     interpret=True))(
+        jnp.asarray(X), jnp.asarray(W), jnp.asarray(coeff))
+    port = TK.grad_update(torch.from_numpy(X), torch.from_numpy(W), torch.from_numpy(coeff),
+                          (s0, s1))
+    assert port.shape == (m, d)
+    _close(port, ref)
+
+
+@pytest.mark.parametrize("m,B,d", [(3, 1, 130), (2, 5, 131), (4, 2, 40)])
+def test_grad_update_one_node_form_is_row_of_the_fleet(m, B, d):
+    """One node's (B, d) form equals its row of the fleet form, and the
+    plain version's, bit for bit."""
+    X, W, y = (torch.from_numpy(a) for a in _inputs(B, d, m=m, seed=5))
+    scal = TO.step_scalars(LAM, T, B)
+    fleet = TK.grad_update(X, W, y, scal)
+    for i in range(m):
+        one = TK.grad_update(X[i], W[i], y[i], scal)
+        assert one.shape == (d,)
+        assert torch.equal(one, fleet[i])
+        assert torch.equal(one, TK.grad_update_plain(X[i], W[i], y[i], scal))
+
+
+@pytest.mark.parametrize("project", [True, False])
+@pytest.mark.parametrize("m,B,d", [(3, 1, 130), (2, 5, 131), (4, 2, 40)])
+def test_unfused_fleet_half_step_matches_vmapped_reference(m, B, d, project):
+    """The unfused fleet step (one fleet ``margins``, one fleet
+    ``grad_update``) against the reference's ``local_half_step`` vmapped
+    over the nodes."""
+    X, W, y = _inputs(B, d, m=m, seed=13)
+    ref = jax.vmap(lambda wi, Xi, yi: RO.local_half_step(wi, Xi, yi, lam=LAM, t=jnp.float32(T),
+                                                         project=project, interpret=True))(
+        jnp.asarray(W), jnp.asarray(X), jnp.asarray(y))
+    port = TO.unfused_fleet_half_step(torch.from_numpy(W), torch.from_numpy(X),
+                                      torch.from_numpy(y), lam=LAM, t=T, project=project)
+    _close(port, ref)
+
+
+def test_grad_update_counts_no_cpu_launch_and_refuses_bad_inputs():
+    """On CPU tensors ``grad_update`` takes its plain version and counts no
+    launch; a meta tensor, tensors on two devices and mismatched shapes
+    raise."""
+    X, W, y = (torch.from_numpy(a) for a in _inputs(2, 100))
+    scal = TO.step_scalars(LAM, T, 2)
+    before = TK.grad_update.launches
+    assert TK.grad_update(X, W, y, scal).shape == (3, 100)
+    assert TK.grad_update(X[0], W[0], y[0], scal).shape == (100,)
+    assert TK.grad_update.launches == before == 0
+    with pytest.raises(ValueError, match="devices"):
+        TK.grad_update(X, W.to("meta"), y, scal)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TK.grad_update(X.to("meta"), W.to("meta"), y.to("meta"), scal)
+    for bad in ((X, W[:2], y), (X, W, y[:, :1]), (X, W[:, :99], y), (X[0, 0], W[0], y[0])):
+        with pytest.raises(ValueError):
+            TK.grad_update(*bad, scal)
+    assert TK.grad_update.launches == 0
+
+
+def test_launch_cost_grad_update_counts_nodes():
+    """The fleet grad reads X, W and coeff and writes W_half once: 997,840
+    bytes at the unfused reuters shape (10, 1, 8315), a bound of 0.298 us at
+    3.35 TB/s; m = 1 is one node's call."""
+    cost = TO.launch_cost("grad_update", m=10, B=1, d=8315)
+    assert cost == {"launches": 1, "bytes": 4 * 10 * (8315 + 2 * 8315 + 1),
+                    "flops": 10 * (2 * 8315 + 3 * 8315)}
+    assert cost["bytes"] == 997840
+    assert TO.launch_cost("grad_update", B=5, d=130) == {
+        "launches": 1, "bytes": 4 * (5 * 130 + 2 * 130 + 5), "flops": 2 * 5 * 130 + 3 * 130}
 
 
 def test_launch_cost_margins_counts_nodes():

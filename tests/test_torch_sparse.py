@@ -116,6 +116,48 @@ def test_ell_grad_update_plain_matches_reference_kernel(m, B, k, blk_d=512):
     _close(TS.ell_grad_update(*_t(cols, vals, W, coeff), scal, blk_d=blk_d), ref)
 
 
+@pytest.mark.parametrize("blk_d", [128, 512, 1000])
+@pytest.mark.parametrize("case", ["shared_columns", "pad_node"])
+def test_ell_grad_update_plain_matches_reference_at_any_blk_d(case, blk_d):
+    """The sweep grad against the reference's at each of its tile widths:
+    rows sharing columns (several entries on one lane, summed in entry
+    order) or a node of pads only. The port's tile is its own, so one
+    result must hold for every ``blk_d`` the reference takes."""
+    m, B, k = 3, 5, 13
+    cols, vals, W, y = _planes(m, B, k, D, seed=blk_d + len(case), pad_node=case == "pad_node")
+    if case == "shared_columns":
+        cols[0, :, 0] = 17            # every row of node 0 on lane 17
+        cols[2, 0, 1] = cols[2, 1, 1] = 1000  # the last column, twice
+        vals[2, 0, 1] = vals[2, 1, 1] = 0.25
+    coeff = _coeff(cols, vals, W, y)
+    scal, scal_j = _scal(B)
+    cP, vP, _ = _ref_planes(cols, vals, y)
+    ref = RS.ell_grad_update(cP, vP, jnp.asarray(_pad(W, 1, blk_d)),
+                             jnp.asarray(_pad(coeff, 1, 8)), scal_j, blk_d=blk_d,
+                             interpret=True)[:, :D]
+    got = TS.ell_grad_update(*_t(cols, vals, W, coeff), scal, blk_d=blk_d)
+    _close(got, ref)
+    assert torch.equal(got, TS.ell_grad_update_plain(*_t(cols, vals, W, coeff), scal))
+
+
+def test_ell_grad_update_checks_blk_d_and_counts_no_cpu_launch():
+    """``blk_d`` is checked on every device to be at least 1, as the
+    reference needs, and any width above that gives one result; on CPU
+    tensors the plain version runs and no launch is counted."""
+    cols, vals, W, y = _t(*_planes(2, 3, 4, 300, seed=1))
+    coeff = torch.from_numpy(_coeff(*(a.numpy() for a in (cols, vals, W, y))))
+    scal, _ = _scal(3)
+    for blk_d in (0, -1):
+        with pytest.raises(ValueError, match="blk_d"):
+            TS.ell_grad_update(cols, vals, W, coeff, scal, blk_d=blk_d)
+    want = TS.ell_grad_update_plain(cols, vals, W, coeff, scal)
+    for blk_d in (1, 1024, 2048):
+        assert torch.equal(TS.ell_grad_update(cols, vals, W, coeff, scal, blk_d=blk_d), want)
+    assert TS.ell_grad_update.launches == 0
+    with pytest.raises(ValueError, match="devices"):
+        TS.ell_grad_update(cols, vals, W.to("meta"), coeff, scal)
+
+
 # --------------------------------------------------------- prefetch kernels
 
 @pytest.mark.parametrize("undersized", [False, True], ids=["sound", "undersized"])

@@ -13,8 +13,12 @@ kernel launches and copies per iteration
 ``chip_smoke.py``'s phases 4, 5, 7 and 8, so two checkouts' paths compare
 by one method, in turns within one call on one card.
 
+``--paths`` runs only the named paths (comma-separated, e.g. "ccat sweep"),
+and ``--repeat`` times each path's unprofiled run that many times, to show
+the spread of its iterations per second.
+
 Usage:
-    python3 tools/profile_paths.py [--root CHECKOUT] [--iters 400]
+    python3 tools/profile_paths.py [--root CHECKOUT] [--iters 400] [--paths NAMES] [--repeat 1]
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ def main() -> int:
                     help="checkout whose src/repro_torch is profiled")
     ap.add_argument("--iters", type=int, default=400)
     ap.add_argument("--profile-iters", type=int, default=200)
+    ap.add_argument("--paths", help="comma-separated path names; all four by default")
+    ap.add_argument("--repeat", type=int, default=1, help="unprofiled runs of each path")
     args = ap.parse_args()
     root = args.root.resolve()
     if not (root / "src" / "repro_torch").is_dir():
@@ -64,16 +70,27 @@ def main() -> int:
              "reuters unfused": (dense, cfg_r._replace(fused=False)),
              "ccat prefetch": (sparse, cfg_c._replace(sparse_schedule="prefetch")),
              "ccat sweep": (sparse, cfg_c._replace(sparse_schedule="sweep"))}
+    if args.paths:
+        names = [n.strip() for n in args.paths.split(",")]
+        unknown = set(names) - set(paths)
+        if unknown:
+            print(f"profile_paths: unknown paths {sorted(unknown)}; known: {list(paths)}",
+                  file=sys.stderr)
+            return 2
+        paths = {n: paths[n] for n in names}
     out = {"card": card}
     for name, ((X, y, n_counts), cfg) in paths.items():
         def run(iters, X=X, y=y, n_counts=n_counts, cfg=cfg):
             return gadget_train(X, y, cfg._replace(max_iters=iters), n_counts=n_counts, device=dev)
         run(20)  # warm-up: the libraries and cuBLAS
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run(args.iters)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        rates = []
+        for _ in range(args.repeat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(args.iters)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            rates.append(res.iters / wall_s)
         prof = profile_iterations(torch, lambda: run(args.profile_iters))
         n = args.profile_iters
         out[name] = {"iters_per_s": res.iters / wall_s,
@@ -83,6 +100,9 @@ def main() -> int:
                      "copies_per_iter": prof["copies"] / n,
                      "busy_share": prof["device_us"] / n / (wall_s / res.iters * 1e6)}
         print(f"{name}: " + ", ".join(f"{k} {v:.3f}" for k, v in out[name].items()), flush=True)
+        if args.repeat > 1:
+            out[name]["iters_per_s_runs"] = rates
+            print("    iterations/s of each run: " + ", ".join(f"{r:.1f}" for r in rates), flush=True)
         for key, count, us in prof["top_device"]:
             print(f"    device {us / n:9.2f} us/it  x{count:<6d} {key}", flush=True)
     print(json.dumps(out), flush=True)
