@@ -40,13 +40,30 @@
 // (col / blk_d) is in the batch-wide touched-block map, and the same argmax.
 // The TPU kernel walks the map slot by slot, DMAs one (Cp, blk_d) block of W
 // per live slot, gathers with a one-hot matrix product and skips sentinel
-// slots, which alias a zero block appended after W. Here the block builds a
-// bitmap of the map in shared memory (ell_gather.cuh) and each warp gathers
-// its row's entries directly: one warp per query row, lanes striding over k,
-// a loop over classes, lane 0 writing S and the label. It moves
+// slots, which alias a zero block appended after W. It moves
 // 4(2Bk + BkC + n_blocks_max + BC + B) bytes for 2BkC flops, a few
-// kilobytes at the serving buckets' shapes, so launch latency and the
-// dependent index-then-weight loads bound it, not bandwidth.
+// kilobytes at the serving buckets' shapes, so launch latency and the chain
+// of dependent round trips bound it, not bandwidth. Its design is the
+// prefetch margins' (sparse.cu; the gather-dot and the bitmap are
+// ell_gather.cuh's):
+//  * a row is the fewest warps whose lanes hold its k entries four to a
+//    thread, and a block holds kScoreThreads = 128 threads of rows (or one
+//    row of more): the bucket batch (8 rows of one warp at k <= 128) is two
+//    blocks, each building the bitmap of the whole map on its own SM. Of
+//    one block of 8 warps, 2 of 4, 4 of 2 and 8 of 1, two blocks timed
+//    fastest or tied at C = 1 and C = 4 (tools/kernel_probes.py);
+//  * every thread puts its entries and three map slots in flight in one
+//    round trip (384 slots a block: the top bucket's 259 in one), gathers W
+//    of the first tile of classes while the bitmap is built, and adds only
+//    after it is in: two round trips, where the walk of 32-entry rounds
+//    behind the bitmap took up to seven, once per class;
+//  * the classes go in tiles of kClassTile = 4 (one at C = 1), each entry
+//    read once for all of them: the next tile's W is gathered from the same
+//    registers (rows past 512 entries, in waves, read them again a tile);
+//  * a power-of-two blk_d finds an entry's block by a shift;
+//  * lanes add their entries in order, a fixed shuffle tree reduces a warp
+//    and the row's first thread adds its warps' sums in warp order, then
+//    scans the classes in order for the label.
 //
 // Both kernels take W as (C, d) unpadded: no 128-lane class padding and no
 // zero landing block. The argmax runs over the first n_classes rows with a
@@ -70,6 +87,10 @@ constexpr int kDenseWarps = kDenseThreads / 32;
 constexpr int kMaxClassTile = 16;
 constexpr size_t kSlotBytes = 2 * kDenseWarps * kMaxClassTile * sizeof(float);
 constexpr size_t kStaticBytes = 4 * kDenseWarps * sizeof(long long);  // the warps' ranges
+constexpr int kScoreThreads = 128;  // threads of a scores block, or one row's if more
+constexpr int kScoreMapSlots = 3;   // map slots a scores thread loads up front: 384 a block
+constexpr int kClassTile = 4;       // classes whose W a scores thread gathers at once
+constexpr int kScoreBlockMax = kScoreThreads > kMarginThreads ? kScoreThreads : kMarginThreads;
 
 __device__ __forceinline__ float4 ld_stream(const float4* p) {
   float4 v;
@@ -474,37 +495,115 @@ dense_scores_kernel(const float* __restrict__ X, const float* __restrict__ W,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Scores of rows_per_block = blockDim.x / tpr query rows, tpr threads a row
+// (margin_row_threads), against the classes in tiles of CT, and each row's
+// label. Every thread first puts its row's first wave of entries and
+// kScoreMapSlots slots of the batch's map in flight together, then gathers
+// the first class tile's W for every entry that can count while the
+// bitmap is zeroed; the map's bits are set between two barriers, and only
+// then does it add. The next class tile's W is gathered from the same
+// entry registers (a row of more than one wave reads its entries again for
+// each tile). Dead rows (b >= B) and entries past k take part in the
+// barriers with val 0. The launch bounds ask for one block an SM at least:
+// with the block size alone ptxas kept the C = 1 kernel in 32 registers and
+// spilled, 0.2 us a call at the serving shape (tools/kernel_probes.py).
+template <int CT>
+__global__ void __launch_bounds__(kScoreBlockMax, 1)
 ell_scores_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                            const float* __restrict__ W, const int* __restrict__ block_ids,
                            float* __restrict__ S, int* __restrict__ labels, int B, int k,
                            int d, int C, int n_classes, int nan_label, int n_blocks_max,
-                           int blk_d, int n_d_blocks) {
+                           int blk_d, int blk_shift, int n_d_blocks, int tpr) {
   extern __shared__ unsigned bitmap[];  // one bit per d-block of the batch's map
-  build_block_bitmap(bitmap, block_ids, n_blocks_max, n_d_blocks);
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // after the barriers; whole warps leave together
-  const int lane = threadIdx.x & 31;
-  const int* c = cols + static_cast<size_t>(b) * k;
-  const float* v = vals + static_cast<size_t>(b) * k;
+  __shared__ float partial[2][kScoreBlockMax / 32][CT];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & (tpr - 1);
+  const int b = blockIdx.x * (nt / tpr) + tid / tpr;
+  const bool live = b < B;
+  const size_t row = live ? b : 0;
+  const int* c_row = cols + row * k;
+  const float* v_row = vals + row * k;
+  int c[kRowEntries];
+  float v[kRowEntries], w[CT][kRowEntries];
+  load_wave(c, v, c_row, v_row, k, 0, lane, tpr, live);
+  int bid[kScoreMapSlots];
+#pragma unroll
+  for (int q = 0; q < kScoreMapSlots; ++q) {
+    const int slot = tid + q * nt;
+    bid[q] = slot < n_blocks_max ? __ldg(block_ids + slot) : -1;
+  }
+  for (int q = tid; q < bitmap_words(n_d_blocks); q += nt) bitmap[q] = 0u;
+  // W of classes [c0, c0 + ct) at the slots of `use`
+  const auto gather_tile = [&](unsigned use, int c0, int ct) {
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci) {
+      const float* Wc = W + static_cast<size_t>(ci < ct ? c0 + ci : 0) * d;
+      gather_wave(w[ci], c, ci < ct ? use : 0u, Wc);
+    }
+  };
+  const int wave = tpr * kRowEntries;
+  gather_tile(wave_counts(c, v, d), 0, C < CT ? C : CT);
+  __syncthreads();  // the bitmap is zero
+  set_map_bits(bitmap, bid, block_ids, n_blocks_max, n_d_blocks, tid, nt);
+  __syncthreads();  // the bitmap holds the batch's map
+  unsigned keep = wave_in_map(c, wave_counts(c, v, d), bitmap, blk_d, blk_shift);
   float best = -INFINITY;
   int arg = 0;
   bool nan = false;
-  for (int cls = 0; cls < C; ++cls) {
-    const float s = row_gather_dot(c, v, W + static_cast<size_t>(cls) * d, k, d, lane,
-                                   bitmap, blk_d);
-    if (lane == 0) {
-      S[static_cast<size_t>(b) * C + cls] = s;
-      if (cls < n_classes) {
-        nan |= isnan(s);
-        if (s > best) {
-          best = s;
-          arg = cls;
+  for (int c0 = 0, t = 0; c0 < C; c0 += CT, ++t) {
+    const int ct = C - c0 < CT ? C - c0 : CT;
+    if (c0 > 0) {
+      if (k > wave) {  // the registers hold the last wave: the first again
+        load_wave(c, v, c_row, v_row, k, 0, lane, tpr, live);
+        keep = wave_in_map(c, wave_counts(c, v, d), bitmap, blk_d, blk_shift);
+      }
+      gather_tile(keep, c0, ct);
+    }
+    float acc[CT];
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci) acc[ci] = ci < ct ? add_wave(0.f, keep, v, w[ci]) : 0.f;
+    for (int s = wave; s < k; s += wave) {
+      load_wave(c, v, c_row, v_row, k, s, lane, tpr, live);
+      keep = wave_in_map(c, wave_counts(c, v, d), bitmap, blk_d, blk_shift);
+      gather_tile(keep, c0, ct);
+#pragma unroll
+      for (int ci = 0; ci < CT; ++ci)
+        if (ci < ct) acc[ci] = add_wave(acc[ci], keep, v, w[ci]);
+    }
+#pragma unroll
+    for (int ci = 0; ci < CT; ++ci)
+      if (ci < ct) acc[ci] = warp_sum(acc[ci]);
+    if (tpr > 32) {  // the row's warps, summed in warp order by its first thread
+      if ((tid & 31) == 0) {
+#pragma unroll
+        for (int ci = 0; ci < CT; ++ci) partial[t & 1][tid >> 5][ci] = acc[ci];
+      }
+      __syncthreads();  // a tile's partials; the other buffer's readers are done
+      if (lane == 0) {
+#pragma unroll
+        for (int ci = 0; ci < CT; ++ci) {
+          acc[ci] = 0.f;
+          for (int q = 0; q < tpr / 32; ++q) acc[ci] += partial[t & 1][(tid >> 5) + q][ci];
+        }
+      }
+    }
+    if (live && lane == 0) {  // S, and the label's scan in class order
+#pragma unroll
+      for (int ci = 0; ci < CT; ++ci) {
+        const int cls = c0 + ci;
+        if (ci < ct) S[row * C + cls] = acc[ci];
+        if (ci < ct && cls < n_classes) {
+          nan |= isnan(acc[ci]);
+          if (acc[ci] > best) {
+            best = acc[ci];
+            arg = cls;
+          }
         }
       }
     }
   }
-  if (lane == 0) labels[b] = nan ? nan_label : arg;
+  if (live && lane == 0) labels[b] = nan ? nan_label : arg;
 }
 
 struct DenseArgs {
@@ -593,16 +692,21 @@ extern "C" int ell_scores_prefetch(const void* cols, const void* vals, const voi
                                    const void* block_ids, void* S, void* labels, int B, int k,
                                    int d, int C, int n_classes, int nan_label, int n_blocks_max,
                                    int blk_d, int n_d_blocks, void* stream) {
+  if (blk_d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = C == 1 ? ell_scores_prefetch_kernel<1>
+                             : ell_scores_prefetch_kernel<kClassTile>;
   const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(ell_scores_prefetch_kernel), smem);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (B > 0) {
-    ell_scores_prefetch_kernel<<<(B + kWarps - 1) / kWarps, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+    const int tpr = margin_row_threads(k);
+    const int fit = kScoreThreads / tpr > 1 ? kScoreThreads / tpr : 1;
+    const int rows = B < fit ? B : fit;
+    kernel<<<(B + rows - 1) / rows, rows * tpr, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
         static_cast<const float*>(W), static_cast<const int*>(block_ids),
         static_cast<float*>(S), static_cast<int*>(labels), B, k, d, C, n_classes, nan_label,
-        n_blocks_max, blk_d, n_d_blocks);
+        n_blocks_max, blk_d, block_shift(blk_d), n_d_blocks, tpr);
   }
   return static_cast<int>(cudaGetLastError());
 }

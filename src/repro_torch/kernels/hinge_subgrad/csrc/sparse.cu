@@ -1,7 +1,8 @@
 // Sparse (padded-ELL) Pegasos half-step kernels for Hopper (sm_90a):
 // ell_margins, ell_grad_update (the sweep pair) and ell_margins_prefetch,
-// ell_grad_update_prefetch (the touched-block pair), each of the latter
-// also as a second entry. Plain C entry points,
+// ell_grad_update_prefetch (the touched-block pair), each margins kernel
+// also with the violator coefficients and the touched-block grad also
+// folded into W, as second entries. Plain C entry points,
 // loaded with ctypes by repro_torch/kernels/hinge_subgrad/sparse.py; each
 // returns cudaGetLastError() after its launch.
 //
@@ -12,7 +13,8 @@
 // the TPU kernels' one-hot blocks.
 //
 // Replaces src/repro/kernels/hinge_subgrad/sparse.py:
-//   ell_margins               (pallas_call at :100, body :74)
+//   ell_margins               (pallas_call at :100, body :74), as two entries:
+//                             the margins, and the margins with the coefficients
 //   ell_grad_update           (pallas_call at :138, body :122)
 //   ell_margins_prefetch      (pallas_call at :210, body :172), as two entries:
 //                             the margins, and the margins with the coefficients
@@ -31,35 +33,34 @@
 // and prefetch kernels, and device-memory bandwidth the sweep grad.
 //
 // Design.
-// * Sweep margins: one warp per (node, row). Lanes stride over k, load
-//   (col, val), gather W[i, col], multiply-add; a fixed shuffle tree
-//   reduces the warp; lane 0 writes y * sum.
-// * Prefetch margins, two entries over one kernel: ell_margins_prefetch
-//   writes y * sum, ell_margins_prefetch_coeff also the violator
+// * Margins, four entries over one kernel (ell_margins_prefetch_kernel):
+//   with or without a map, and each with or without the violator
 //   coefficient (margin < 1) ? y : 0 of each row, which the path's grad
-//   reads, so the comparison, fill and where launches around it go. The
-//   kernel counts an entry only if its block col / blk_d is in a bitmap of
-//   the node's map (n_d_blocks bits, shared memory): exactly the set of
-//   entries the TPU kernel contracts, so with a sound cap this equals the
-//   sweep and with an undersized cap it drops what the TPU kernel drops;
-//   sentinel slots (id >= n_d_blocks) set no bit. At CCAT (B = 1, k = 76,
-//   a 36-slot map) the work is a launch and a few kilobytes, so the cost is
-//   the chain of dependent round trips and, at this size, each load
-//   instruction. A block holds a few rows, each the fewest warps whose
-//   lanes hold its k entries four to a thread (one warp at k = 76), slot j
-//   of lane l holding entry l + j * (the row's threads), so that a warp's loads
-//   are coalesced.
-//   Every thread puts its entries, its row's y and two map slots (64 ids a
-//   warp; wider maps read the rest later) in flight at once, gathers W for
-//   every entry that can count while the bitmap is built (an entry the map
-//   drops is read for nothing), and adds only after the map's bits are in:
-//   two round trips (entries with the map, then W) where the walk of three
-//   32-entry rounds behind the bitmap took seven. A power-of-two blk_d
-//   finds an entry's block by a shift, not a division. Measured at CCAT on
-//   an H100 (tools/kernel_probes.py), of about 2.7-2.9 us: a division
+//   reads, so the comparison, fill and where launches around the margins
+//   go. At CCAT (B = 1, k = 76) the work is a launch and a few kilobytes, so
+//   the cost is the chain of dependent round trips and, at this size, each
+//   load instruction. A block holds a few rows, each the fewest warps whose
+//   lanes hold its k entries four to a thread (one warp at k = 76; the
+//   layout and the gather-dot are ell_gather.cuh's). Every thread puts its
+//   entries and its row's y in flight at once, then W for every entry that
+//   can count, and adds: two round trips where a lane-strided walk of three
+//   32-entry rounds took up to six. With a map (the prefetch entries) each
+//   thread also puts two map slots in flight with its entries (64 ids a
+//   warp; wider maps read the rest later), gathers W while the bitmap of
+//   the node's map (n_d_blocks bits, shared memory) is built, and counts an
+//   entry only if its block col / blk_d is set: exactly the set of entries
+//   the TPU kernel contracts, so with an undersized cap it drops what the
+//   TPU kernel drops. A power-of-two blk_d finds an entry's block by a
+//   shift, not a division. Measured at CCAT on an H100
+//   (tools/kernel_probes.py at 1715dbd), of about 2.7-2.9 us: a division
 //   costs 0.16 us, four map slots a thread instead of two 0.06-0.07, and
 //   four consecutive entries a thread gain nothing consistent (-0.08 and
-//   -0.01). Lanes add their entries in order, a fixed
+//   -0.01). Without a map there is no bitmap, no map and no barrier, and
+//   every entry that can count is kept: with a sound map the two sums are
+//   the same sequence of fmafs, so the sweep's margins are the prefetch
+//   entries' bit for bit. At CCAT that launch takes what a bare warp a node
+//   loading its entries, then W, takes (2.35 us; the lane-strided walk it
+//   replaced 3.16). Lanes add their entries in order, a fixed
 //   shuffle tree reduces a warp and the row's first thread adds its warps'
 //   sums in warp order: no float atomics, reruns are bit-identical.
 // * Sweep grad: one block per (node, tile of kTileLanes = 1,024 columns), which
@@ -113,93 +114,26 @@ namespace {
 
 constexpr int kTileLanes = kThreads * 4;  // lanes a grad block owns, four a thread
 constexpr int kMaxSlots = 8;          // map slots a G-entry block owns
-constexpr int kMarginThreads = 128;   // most threads of a prefetch-margins block
-constexpr int kRowEntries = 4;        // entries a prefetch-margins thread holds at once
 constexpr int kMapSlots = 2;          // map slots a prefetch-margins thread loads up front
 
-__global__ void __launch_bounds__(kThreads)
-ell_margins_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                   const float* __restrict__ W, const float* __restrict__ y,
-                   float* __restrict__ out, int m, int B, int k, int d) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(m) * B) return;  // whole warps leave together
-  const int i = static_cast<int>(row / B);
-  const int lane = threadIdx.x & 31;
-  const float dot = row_gather_dot(cols + row * k, vals + row * k,
-                                   W + static_cast<size_t>(i) * d, k, d, lane, nullptr, 1);
-  if (lane == 0) out[row] = __ldg(y + row) * dot;
-}
-
-// Threads per row of the prefetch margins: the fewest whole warps (one, two
-// or four) whose kRowEntries registers each hold the row's k entries; past
-// 4 * 128 entries four warps walk the row in waves of 512.
-__host__ __device__ __forceinline__ int margin_row_threads(int k) {
-  int t = 32;
-  while (t < kMarginThreads && t * kRowEntries < k) t *= 2;
-  return t;
-}
-
-// The entries [s, s + tpr * kRowEntries) of a row, kRowEntries a thread
-// (entry s + lane + j * tpr in slot j, so each load instruction of a warp
-// reads 32 consecutive entries; past k or in a dead row, val 0).
-__device__ __forceinline__ void load_wave(int (&c)[kRowEntries], float (&v)[kRowEntries],
-                                          const int* __restrict__ cols,
-                                          const float* __restrict__ vals, int k, int s,
-                                          int lane, int tpr, bool live) {
-#pragma unroll
-  for (int j = 0; j < kRowEntries; ++j) {
-    const int e = s + lane + j * tpr;
-    const bool in = live && e < k;
-    c[j] = in ? __ldg(cols + e) : 0;
-    v[j] = in ? __ldg(vals + e) : 0.f;
-  }
-}
-
-// W[col] of every slot that can count (val != 0, col in [0, d)), all in
-// flight together; the map's verdict comes later.
-__device__ __forceinline__ void gather_wave(float (&w)[kRowEntries], const int (&c)[kRowEntries],
-                                            const float (&v)[kRowEntries],
-                                            const float* __restrict__ Wi, int d) {
-#pragma unroll
-  for (int j = 0; j < kRowEntries; ++j) {
-    const bool use = v[j] != 0.f && static_cast<unsigned>(c[j]) < static_cast<unsigned>(d);
-    w[j] = use ? __ldg(Wi + c[j]) : 0.f;
-  }
-}
-
-// acc plus, in slot order, val * W[col] of the slots that count and whose
-// d-block col / blk_d (a shift by blk_shift when blk_d is a power of two)
-// is set in the bitmap.
-__device__ __forceinline__ float add_wave(float acc, const int (&c)[kRowEntries],
-                                          const float (&v)[kRowEntries],
-                                          const float (&w)[kRowEntries],
-                                          const unsigned* bitmap, int d, int blk_d,
-                                          int blk_shift) {
-#pragma unroll
-  for (int j = 0; j < kRowEntries; ++j) {
-    if (v[j] == 0.f || static_cast<unsigned>(c[j]) >= static_cast<unsigned>(d)) continue;
-    const int blk = blk_shift >= 0 ? c[j] >> blk_shift : c[j] / blk_d;
-    if ((bitmap[blk >> 5] >> (blk & 31)) & 1u) acc = fmaf(v[j], w[j], acc);
-  }
-  return acc;
-}
-
-// Prefetch margins of rows_per_block = blockDim.x / tpr rows of node
-// blockIdx.y, tpr threads a row; with kCoeff also the violator coefficient
-// (margin < 1) ? y : 0 of each row, as torch.where computes it (a NaN
-// margin gives 0). Every thread first puts its first wave of entries, its
-// row's y and kMapSlots slots of the node's map in flight together, then
-// gathers the wave's W while it zeroes the bitmap; the map's bits are set
-// between two barriers, and only then does it add. Dead rows (b >= B) and
-// entries past k take part in the barriers with val 0.
-template <bool kCoeff>
+// Margins of rows_per_block = blockDim.x / tpr rows of node blockIdx.y, tpr
+// threads a row (margin_row_threads); with kCoeff also the violator
+// coefficient (margin < 1) ? y : 0 of each row, as torch.where computes it
+// (a NaN margin gives 0). Every thread first puts its first wave of
+// entries and its row's y in flight together, with kMap also kMapSlots
+// slots of the node's map, then gathers the wave's W (with kMap while it
+// zeroes the bitmap; the map's bits are set between two barriers) and only
+// then adds. Without kMap every entry that can count is kept, and there is
+// no bitmap, no map and no barrier but the warps' sum at tpr > 32. Dead rows
+// (b >= B) and entries past k take part in the barriers with val 0.
+template <bool kCoeff, bool kMap>
 __global__ void __launch_bounds__(kMarginThreads)
 ell_margins_prefetch_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                             const float* __restrict__ W, const float* __restrict__ y,
                             const int* __restrict__ block_ids, float* __restrict__ out,
                             float* __restrict__ coeff, int B, int k, int d, int n_blocks_max,
                             int blk_d, int blk_shift, int n_d_blocks, int tpr) {
-  extern __shared__ unsigned bitmap[];  // one bit per d-block of this node
+  extern __shared__ unsigned bitmap[];  // with kMap: one bit per d-block of this node
   __shared__ float partial[kMarginThreads / 32];
   const int i = blockIdx.y;
   const int tid = threadIdx.x;
@@ -217,29 +151,27 @@ ell_margins_prefetch_kernel(const int* __restrict__ cols, const float* __restric
   const float yb = live && lane == 0 ? __ldg(y + row) : 0.f;
   const int* ids = block_ids + static_cast<size_t>(i) * n_blocks_max;
   int bid[kMapSlots];
+  if constexpr (kMap) {
 #pragma unroll
-  for (int q = 0; q < kMapSlots; ++q) {
-    const int j = tid + q * nt;
-    bid[q] = j < n_blocks_max ? __ldg(ids + j) : -1;
+    for (int q = 0; q < kMapSlots; ++q) {
+      const int j = tid + q * nt;
+      bid[q] = j < n_blocks_max ? __ldg(ids + j) : -1;
+    }
+    for (int q = tid; q < bitmap_words(n_d_blocks); q += nt) bitmap[q] = 0u;
   }
-  const int words = bitmap_words(n_d_blocks);
-  for (int q = tid; q < words; q += nt) bitmap[q] = 0u;
-  gather_wave(w, c, v, Wi, d);
-  __syncthreads();  // the bitmap is zero
-#pragma unroll
-  for (int q = 0; q < kMapSlots; ++q) {
-    if (bid[q] >= 0 && bid[q] < n_d_blocks) atomicOr(bitmap + (bid[q] >> 5), 1u << (bid[q] & 31));
+  unsigned use = wave_counts(c, v, d);
+  gather_wave(w, c, use, Wi);
+  if constexpr (kMap) {
+    __syncthreads();  // the bitmap is zero
+    set_map_bits(bitmap, bid, ids, n_blocks_max, n_d_blocks, tid, nt);
+    __syncthreads();  // the bitmap holds the node's map
   }
-  for (int j = kMapSlots * nt + tid; j < n_blocks_max; j += nt) {  // a map wider than the slots
-    const int id = __ldg(ids + j);
-    if (id >= 0 && id < n_d_blocks) atomicOr(bitmap + (id >> 5), 1u << (id & 31));
-  }
-  __syncthreads();  // the bitmap holds the node's map (integer ORs: order-free)
-  float acc = add_wave(0.f, c, v, w, bitmap, d, blk_d, blk_shift);
+  float acc = add_wave(0.f, kMap ? wave_in_map(c, use, bitmap, blk_d, blk_shift) : use, v, w);
   for (int s = tpr * kRowEntries; s < k; s += tpr * kRowEntries) {
     load_wave(c, v, c_row, v_row, k, s, lane, tpr, live);
-    gather_wave(w, c, v, Wi, d);
-    acc = add_wave(acc, c, v, w, bitmap, d, blk_d, blk_shift);
+    use = wave_counts(c, v, d);
+    gather_wave(w, c, use, Wi);
+    acc = add_wave(acc, kMap ? wave_in_map(c, use, bitmap, blk_d, blk_shift) : use, v, w);
   }
   acc = warp_sum(acc);
   if (tpr > 32) {  // the row's warps, summed in warp order by its first thread
@@ -505,6 +437,28 @@ ell_grad_update_prefetch_fold_kernel(const int* __restrict__ cols, const float* 
   }
 }
 
+template <bool kCoeff, bool kMap>
+int launch_margins(const void* cols, const void* vals, const void* W, const void* y,
+                   const void* block_ids, void* out, void* coeff, int m, int B, int k, int d,
+                   int n_blocks_max, int blk_d, int n_d_blocks, void* stream) {
+  const auto kernel = ell_margins_prefetch_kernel<kCoeff, kMap>;
+  const size_t smem = kMap ? static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned) : 0;
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (m > 0 && B > 0) {
+    const int tpr = margin_row_threads(k);
+    const int rows = B < kMarginThreads / tpr ? B : kMarginThreads / tpr;
+    const dim3 grid((B + rows - 1) / rows, m);
+    kernel<<<grid, rows * tpr, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const float*>(W), static_cast<const float*>(y),
+        static_cast<const int*>(block_ids), static_cast<float*>(out),
+        static_cast<float*>(coeff), B, k, d, n_blocks_max, blk_d,
+        kMap ? block_shift(blk_d) : -1, n_d_blocks, tpr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -514,46 +468,17 @@ using namespace repro_torch;
 extern "C" int ell_margins(const void* cols, const void* vals, const void* W,
                            const void* y, void* out, int m, int B, int k, int d,
                            void* stream) {
-  const long long rows = static_cast<long long>(m) * B;
-  if (rows > 0) {
-    ell_margins_kernel<<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(W), static_cast<const float*>(y),
-        static_cast<float*>(out), m, B, k, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_margins<false, false>(cols, vals, W, y, nullptr, out, nullptr, m, B, k, d, 0, 1,
+                                      0, stream);
 }
 
-namespace repro_torch {
-namespace {
-
-template <bool kCoeff>
-int launch_margins_prefetch(const void* cols, const void* vals, const void* W, const void* y,
-                            const void* block_ids, void* out, void* coeff, int m, int B, int k,
-                            int d, int n_blocks_max, int blk_d, int n_d_blocks, void* stream) {
-  const auto kernel = ell_margins_prefetch_kernel<kCoeff>;
-  const size_t smem = static_cast<size_t>(bitmap_words(n_d_blocks)) * sizeof(unsigned);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (m > 0 && B > 0) {
-    const int tpr = margin_row_threads(k);
-    const int rows = B < kMarginThreads / tpr ? B : kMarginThreads / tpr;
-    int shift = 0;
-    while ((1 << shift) < blk_d) ++shift;
-    const dim3 grid((B + rows - 1) / rows, m);
-    kernel<<<grid, rows * tpr, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(W), static_cast<const float*>(y),
-        static_cast<const int*>(block_ids), static_cast<float*>(out),
-        static_cast<float*>(coeff), B, k, d, n_blocks_max, blk_d,
-        (1 << shift) == blk_d ? shift : -1, n_d_blocks, tpr);
-  }
-  return static_cast<int>(cudaGetLastError());
+// As ell_margins, also writing coeff (m, B) = (out < 1) ? y : 0.
+extern "C" int ell_margins_coeff(const void* cols, const void* vals, const void* W,
+                                 const void* y, void* out, void* coeff, int m, int B, int k,
+                                 int d, void* stream) {
+  return launch_margins<true, false>(cols, vals, W, y, nullptr, out, coeff, m, B, k, d, 0, 1, 0,
+                                     stream);
 }
-
-}  // namespace
-}  // namespace repro_torch
 
 // As ell_margins, counting only entries whose d-block (col / blk_d) is in the
 // node's row of block_ids (m, n_blocks_max); ids >= n_d_blocks are sentinels.
@@ -561,8 +486,8 @@ extern "C" int ell_margins_prefetch(const void* cols, const void* vals, const vo
                                     const void* y, const void* block_ids, void* out,
                                     int m, int B, int k, int d, int n_blocks_max,
                                     int blk_d, int n_d_blocks, void* stream) {
-  return launch_margins_prefetch<false>(cols, vals, W, y, block_ids, out, nullptr, m, B, k, d,
-                                        n_blocks_max, blk_d, n_d_blocks, stream);
+  return launch_margins<false, true>(cols, vals, W, y, block_ids, out, nullptr, m, B, k, d,
+                                     n_blocks_max, blk_d, n_d_blocks, stream);
 }
 
 // As ell_margins_prefetch, also writing coeff (m, B) = (out < 1) ? y : 0.
@@ -571,8 +496,8 @@ extern "C" int ell_margins_prefetch_coeff(const void* cols, const void* vals, co
                                           void* coeff, int m, int B, int k, int d,
                                           int n_blocks_max, int blk_d, int n_d_blocks,
                                           void* stream) {
-  return launch_margins_prefetch<true>(cols, vals, W, y, block_ids, out, coeff, m, B, k, d,
-                                       n_blocks_max, blk_d, n_d_blocks, stream);
+  return launch_margins<true, true>(cols, vals, W, y, block_ids, out, coeff, m, B, k, d,
+                                    n_blocks_max, blk_d, n_d_blocks, stream);
 }
 
 // cols, vals (m, B, k), W (m, d), coeff (m, B) -> out (m, d) =

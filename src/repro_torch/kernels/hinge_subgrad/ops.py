@@ -7,9 +7,9 @@ the launch accounting on a telemetry registry (``launch_cost``,
 The step scalars ``α = 1/(λt)``, ``λα`` and ``α/B`` are formed in float32 as
 the reference forms them; the violator coefficients, the touched-block map
 of the prefetch schedule and the ball projection are plain PyTorch around
-the kernels, as they are jnp in the reference (the prefetch schedule's
-coefficients and its buckets' fold into W, jnp there, are part of its
-kernels here). The kernels stream their
+the kernels, as they are jnp in the reference (both sparse schedules'
+coefficients and the prefetch buckets' fold into W, jnp there, are part of
+their kernels here). The kernels stream their
 inputs from device memory and have no tile limit, so unlike the reference
 there is no padding to (8, 128) blocks, no 128-lane class padding, no zero
 landing block after W, and no VMEM cut-over from the fused fleet kernel to
@@ -179,8 +179,9 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     float32; pad entries (0, 0), pad rows y=0); y: (m, B). Two kernel
     launches, whichever the schedule (see :func:`resolve_ell_schedule`):
 
-    * ``"sweep"``: ``ell_margins``, then ``ell_grad_update``, which writes
-      the decayed and updated W itself, in tiles of ``blk_d`` columns.
+    * ``"sweep"``: ``ell_margins_coeff``, which writes the violator
+      coefficients beside the margins, then ``ell_grad_update``, which
+      writes the decayed and updated W itself.
     * ``"prefetch"``: the touched-block map (:func:`ell_block_map`, with the
       static ``n_blocks_max`` from ``formats.minibatch_block_bound``), then
       ``ell_margins_prefetch_coeff``, which writes the violator coefficients
@@ -208,9 +209,8 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         W_half = S.ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, (s0, s1),
                                                  blk_d=blk_d, n_d_blocks=n_d_blocks)
     else:
-        margins = S.ell_margins(cols, vals, W, y)
         # pad rows carry y=0, so their coefficient is 0 although margin 0 < 1
-        coeff = torch.where(margins < 1.0, y, torch.zeros_like(y))
+        _, coeff = S.ell_margins_coeff(cols, vals, W, y)
         W_half = S.ell_grad_update(cols, vals, W, coeff, (s0, s1), blk_d=blk_d)
     return project_ball(W_half, lam) if project else W_half
 
@@ -313,8 +313,8 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     outputs; ``blocks_visited`` is the map's width), and the sparse
     kernels over (m, B, k) planes:
     ``ell_margins`` and ``ell_margins_prefetch`` (a gather reads the
-    ``m·B·k`` entries of W it needs, not all of W),
-    ``ell_margins_prefetch_coeff`` (as ``ell_margins_prefetch``, and the
+    ``m·B·k`` entries of W it needs, not all of W), ``ell_margins_coeff``
+    and ``ell_margins_prefetch_coeff`` (as their margins entries, and the
     ``m·B`` coefficients written), ``ell_grad_update``
     (all of W read and W_half written), ``ell_grad_update_prefetch``
     (the buckets G, ``m·n_blocks_max·blk_d``, written) and
@@ -322,9 +322,10 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     W read and W_half written).
     """
     entries = m * B * k
-    if kind in ("ell_margins", "ell_margins_prefetch", "ell_margins_prefetch_coeff"):
-        map_elems = m * n_blocks_max if kind != "ell_margins" else 0
-        outputs = m * B if kind == "ell_margins_prefetch_coeff" else 0
+    if kind in ("ell_margins", "ell_margins_coeff", "ell_margins_prefetch",
+                "ell_margins_prefetch_coeff"):
+        map_elems = m * n_blocks_max if "prefetch" in kind else 0
+        outputs = m * B if kind.endswith("_coeff") else 0
         return {"launches": 1, "bytes": 4 * (3 * entries + 2 * m * B + map_elems + outputs),
                 "flops": 2 * entries + m * B}
     if kind == "ell_grad_update":

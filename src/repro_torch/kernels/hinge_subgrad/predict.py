@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.ref import ell_predict_scores_ref
-from repro_torch.kernels.hinge_subgrad.sparse import _MAX_BITMAP_BYTES
+from repro_torch.kernels.hinge_subgrad.sparse import check_bitmap
 
 __all__ = ["dense_scores", "dense_scores_plain", "dense_grid", "even_split", "nan_label",
            "ell_scores_prefetch", "ell_scores_prefetch_plain"]
@@ -139,8 +139,7 @@ def ell_scores_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
         raise ValueError(f"n_classes must lie in [1, {C}], got {n_classes}")
     if blk_d < 1:
         raise ValueError(f"blk_d must be >= 1, got {blk_d}")
-    if n_d_blocks < 1 or (n_d_blocks + 31) // 32 * 4 > _MAX_BITMAP_BYTES:
-        raise ValueError(f"n_d_blocks={n_d_blocks} out of range")
+    check_bitmap(n_d_blocks, d, blk_d)
     S = torch.empty((B, C), dtype=torch.float32, device=W.device)
     labels = torch.empty((B,), dtype=torch.int32, device=W.device)
     with torch.cuda.device(W.device):

@@ -1,9 +1,9 @@
 """Wrappers of the sparse (padded-ELL) Pegasos kernels: the sweep pair
 ``ell_margins`` and ``ell_grad_update`` and the touched-block pair
-``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, the former also
-with the violator coefficients as ``ell_margins_prefetch_coeff`` and the
-latter also folded into W as ``ell_grad_update_prefetch_fold`` (CUDA source:
-``csrc/sparse.cu``).
+``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, each margins
+kernel also with the violator coefficients (``ell_margins_coeff``,
+``ell_margins_prefetch_coeff``) and the touched-block grad also folded into
+W as ``ell_grad_update_prefetch_fold`` (CUDA source: ``csrc/sparse.cu``).
 
 The minibatch is two (m, B, k) planes, ``cols`` int32 and ``vals`` float32,
 with pad entries (col=0, val=0) and pad rows y=0, both inert. ``W`` is the
@@ -34,10 +34,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.hinge_subgrad.hinge_subgrad import _MAX_NODES, _f32_pair, _one_minus
 
-__all__ = ["ell_margins", "ell_grad_update", "ell_margins_prefetch",
+__all__ = ["ell_margins", "ell_margins_coeff", "ell_grad_update", "ell_margins_prefetch",
            "ell_margins_prefetch_coeff", "ell_grad_update_prefetch",
-           "ell_grad_update_prefetch_fold", "ell_margins_plain", "ell_grad_update_plain",
-           "ell_margins_prefetch_plain", "ell_margins_prefetch_coeff_plain",
+           "ell_grad_update_prefetch_fold", "ell_margins_plain", "ell_margins_coeff_plain",
+           "ell_grad_update_plain", "ell_margins_prefetch_plain",
+           "ell_margins_prefetch_coeff_plain",
            "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
            "fold_buckets", "MAX_BLK_D"]
 
@@ -45,6 +46,7 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ell_margins": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ell_margins_coeff": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ell_margins_prefetch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ell_margins_prefetch_coeff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -69,14 +71,24 @@ def _check_planes(cols, vals) -> tuple[int, int, int]:
     return m, B, k
 
 
-def _check_blocks(block_ids, m: int, blk_d: int, n_d_blocks: int) -> int:
+def _check_blocks(block_ids, m: int, blk_d: int, n_d_blocks: int, d: int | None = None) -> int:
     n_blocks_max = block_ids.shape[1] if block_ids.ndim == 2 else -1
     _build.check_tensor("block_ids", block_ids, (m, n_blocks_max), torch.int32)
     if not 1 <= blk_d <= MAX_BLK_D:
         raise ValueError(f"blk_d must lie in [1, {MAX_BLK_D}], got {blk_d}")
+    check_bitmap(n_d_blocks, d, blk_d)
+    return n_blocks_max
+
+
+def check_bitmap(n_d_blocks: int, d: int | None = None, blk_d: int = 1) -> None:
+    """Raise unless a bitmap of ``n_d_blocks`` bits fits a block's shared
+    memory and, given d, covers every d-block of blk_d columns below d (the
+    kernels look up the block of any column below d)."""
     if n_d_blocks < 1 or (n_d_blocks + 31) // 32 * 4 > _MAX_BITMAP_BYTES:
         raise ValueError(f"n_d_blocks={n_d_blocks} out of range")
-    return n_blocks_max
+    if d is not None and n_d_blocks < -(-d // blk_d):
+        raise ValueError(f"n_d_blocks={n_d_blocks} covers fewer than the {-(-d // blk_d)} "
+                         f"blocks of {blk_d} columns in d={d}")
 
 
 def _in_map(cols: torch.Tensor, block_ids: torch.Tensor, blk_d: int,
@@ -100,16 +112,22 @@ def ell_margins_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
     return y * (vals * w_at).sum(dim=-1)
 
 
-def ell_margins(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
-                y: torch.Tensor) -> torch.Tensor:
-    """y·(X w) per node over (m, B, k) ELL planes, every entry: W (m, d),
-    y (m, B) → (m, B). The sweep schedule's margins."""
-    if _build.on_cpu(cols, vals, W, y):
-        return ell_margins_plain(cols, vals, W, y)
+def _check_margins(cols, vals, W, y) -> tuple[int, int, int, int]:
     m, B, k = _check_planes(cols, vals)
     d = W.shape[1] if W.ndim == 2 else -1
     _build.check_tensor("W", W, (m, d))
     _build.check_tensor("y", y, (m, B))
+    return m, B, k, d
+
+
+def ell_margins(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """y·(X w) per node over (m, B, k) ELL planes, every entry: W (m, d),
+    y (m, B) → (m, B). With a sound map, bit for bit
+    :func:`ell_margins_prefetch`'s margins (one kernel body)."""
+    if _build.on_cpu(cols, vals, W, y):
+        return ell_margins_plain(cols, vals, W, y)
+    m, B, k, d = _check_margins(cols, vals, W, y)
     out = torch.empty((m, B), dtype=torch.float32, device=W.device)
     with torch.cuda.device(W.device):
         code = _lib().ell_margins(cols.data_ptr(), vals.data_ptr(), W.data_ptr(),
@@ -121,6 +139,37 @@ def ell_margins(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
 
 
 ell_margins.launches = 0
+
+
+def ell_margins_coeff_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                            y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch: :func:`ell_margins_plain`, then the violator
+    coefficients ``torch.where(margins < 1, y, 0)``."""
+    margins = ell_margins_plain(cols, vals, W, y)
+    return margins, torch.where(margins < 1.0, y, torch.zeros_like(y))
+
+
+def ell_margins_coeff(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                      y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ell_margins` and the violator coefficients in one launch:
+    ``(margins, coeff)``, both (m, B), coeff bit for bit
+    ``torch.where(margins < 1, y, 0)`` of the margins written (a NaN margin
+    and a pad row, y = 0, give 0). The sweep schedule's margins."""
+    if _build.on_cpu(cols, vals, W, y):
+        return ell_margins_coeff_plain(cols, vals, W, y)
+    m, B, k, d = _check_margins(cols, vals, W, y)
+    out = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    coeff = torch.empty((m, B), dtype=torch.float32, device=W.device)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_margins_coeff(cols.data_ptr(), vals.data_ptr(), W.data_ptr(),
+                                        y.data_ptr(), out.data_ptr(), coeff.data_ptr(), m, B, k,
+                                        d, _build.stream(W))
+    _build.check(code, "ell_margins_coeff")
+    ell_margins_coeff.launches += 1
+    return out, coeff
+
+
+ell_margins_coeff.launches = 0
 
 
 # ------------------------------------------------------- ell_margins_prefetch
@@ -136,11 +185,8 @@ def ell_margins_prefetch_plain(cols: torch.Tensor, vals: torch.Tensor, W: torch.
 
 def _check_margins_prefetch(cols, vals, W, y, block_ids, blk_d: int,
                             n_d_blocks: int) -> tuple[int, int, int, int, int]:
-    m, B, k = _check_planes(cols, vals)
-    d = W.shape[1] if W.ndim == 2 else -1
-    _build.check_tensor("W", W, (m, d))
-    _build.check_tensor("y", y, (m, B))
-    return m, B, k, d, _check_blocks(block_ids, m, blk_d, n_d_blocks)
+    m, B, k, d = _check_margins(cols, vals, W, y)
+    return m, B, k, d, _check_blocks(block_ids, m, blk_d, n_d_blocks, d)
 
 
 def ell_margins_prefetch(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,

@@ -1,7 +1,8 @@
 """The port's dense_predict against the reference's fused dense_scores
-kernel (interpret mode), binary and multiclass, ties included; rows with
-NaN and infinite scores against the reference's dense_predict and
-ell_predict, labels bit for bit."""
+kernel (interpret mode), binary and multiclass, ties included; ell_predict
+against the reference's over a map wider than 256 slots; rows with NaN and
+infinite scores against the reference's dense_predict and ell_predict,
+labels bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,3 +168,34 @@ def test_nan_past_n_classes_is_ignored_as_by_the_reference_kernel():
     others = np.delete(np.arange(B), 1)
     np.testing.assert_array_equal(l_port.numpy()[others],
                                   np.argmax(s_port.numpy()[others, :n_classes], axis=1))
+
+
+@pytest.mark.parametrize("C,B,k", [(1, 8, 76), (4, 8, 76), (20, 8, 76), (4, 2, 600)],
+                         ids=["C1", "C4", "C20", "C4-k600"])
+def test_ell_predict_wide_map_matches_reference(C, B, k):
+    """ell_predict against the reference's (interpret mode) with a map of
+    300 slots, past 256, and at k = 600, past one wave of 512 entries;
+    blocks of 8 columns (d = 2400) keep the reference's walk short. Classes
+    0 and C - 1 tie, row 1 is a pad row, and C = 20 runs past a tile of 4
+    classes; scores at 1e-5, labels bit for bit."""
+    blk_d, d = 8, 2400
+    rng = np.random.default_rng(C + B + k)
+    cols = rng.integers(0, d, size=(B, k)).astype(np.int32)
+    vals = (rng.normal(size=(B, k)) / np.sqrt(k)).astype(np.float32)
+    cols[1], vals[1] = 0, 0.0
+    vals[0, -k // 4:] = 0.0  # pad entries at the end of row 0
+    W = rng.normal(size=(C, d)).astype(np.float32)
+    if C > 1:
+        W[C - 1] = W[0]
+    n_d_blocks = d // blk_d
+    assert TO.resolve_block_cap(B, k, n_d_blocks=n_d_blocks) == n_d_blocks == 300
+    Wq = W[0] if C == 1 else W
+    s_ref, l_ref = RO.ell_predict(jnp.asarray(Wq), jnp.asarray(cols), jnp.asarray(vals),
+                                  blk_d=blk_d, interpret=True)
+    s_port, l_port = TO.ell_predict(torch.from_numpy(Wq), torch.from_numpy(cols),
+                                    torch.from_numpy(vals), blk_d=blk_d)
+    assert s_port.shape == s_ref.shape and l_port.shape == l_ref.shape
+    np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(l_port.numpy(), np.asarray(l_ref))
+    if C > 1:
+        assert l_port[1] == 0 and not torch.any(l_port == C - 1)

@@ -261,6 +261,39 @@ def test_plain_versions_agree_with_oracle():
             TS.ell_margins(*_t(cols, vals, W, y))[i], rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("case", ["sound", "nan"])
+@pytest.mark.parametrize("m,B,k", [(3, 5, 13), (1, 1, 76)])
+def test_ell_margins_coeff_plain_matches_reference(case, m, B, k):
+    """The sweep's coefficient entry against the reference's sweep margins
+    kernel (interpret mode) followed by its ``jnp.where(margins < 1, y, 0)``:
+    margins at 1e-5 (NaN where the reference has NaN), coefficients equal
+    wherever the margin is not within 1e-5 of 1; the coefficients are bit
+    for bit ``torch.where`` of the margins the entry returns, and the
+    margins bit for bit ``ell_margins``'. Pad rows (B > 2) and an all-pad
+    node (m > 1) included; ``nan`` puts a NaN value in row 0 of node 0."""
+    cols, vals, W, y = _planes(m, B, k, D, seed=m * 100 + B * 10 + k + 7, pad_node=True)
+    if case == "nan":
+        vals[0, 0, 0] = np.nan
+    cP, vP, yP = _ref_planes(cols, vals, y)
+    ref_m = RS.ell_margins(cP, vP, jnp.asarray(_pad(W, 1, 512)), yP, blk_d=512, interpret=True)
+    ref_c = np.asarray(jnp.where(ref_m < 1.0, yP, 0.0))[:, :B]
+    ref_m = np.asarray(ref_m)[:, :B]
+    tc, tv, tW, ty = _t(cols, vals, W, y)
+    margins, coeff = TS.ell_margins_coeff(tc, tv, tW, ty)
+    np.testing.assert_allclose(margins.numpy(), ref_m, rtol=0, atol=ATOL)
+    sure = ~(np.abs(ref_m - 1.0) <= ATOL)  # NaN margins included: both give 0
+    np.testing.assert_array_equal(coeff.numpy()[sure], ref_c[sure])
+    assert torch.equal(coeff, torch.where(margins < 1.0, ty, torch.zeros_like(ty)))
+    torch.testing.assert_close(margins, TS.ell_margins(tc, tv, tW, ty), rtol=0, atol=0,
+                               equal_nan=True)
+    if B > 2:  # pad rows: y = 0, margin 0 < 1, coefficient 0
+        assert not coeff[:, 2].any()
+    if m > 1:  # the all-pad node: every margin and coefficient 0
+        assert not margins[1].any() and not coeff[1].any()
+    if case == "nan":
+        assert np.isnan(ref_m[0, 0]) and torch.isnan(margins[0, 0]) and coeff[0, 0] == 0
+
+
 # ------------------------------------------------------------ dispatch layer
 
 @pytest.mark.parametrize("blk_d", [128, 512])
@@ -349,6 +382,26 @@ def test_prefetch_dispatch_runs_the_coefficient_entry(monkeypatch):
     monkeypatch.setattr(TS, "ell_margins_prefetch", refused)
     cols, vals, W, y = _planes(3, 5, 13, D, seed=12)
     TO.ell_fleet_half_step(*_t(W, cols, vals, y), lam=LAM, t=T, schedule="prefetch")
+    assert calls == ["coeff"]
+
+
+def test_sweep_dispatch_runs_the_coefficient_entry(monkeypatch):
+    """The sweep schedule takes its coefficients from ``ell_margins_coeff``,
+    once: the margins-only entry is not called."""
+    calls = []
+    coeff_entry = TS.ell_margins_coeff
+
+    def counted(*args, **kwargs):
+        calls.append("coeff")
+        return coeff_entry(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the sweep path called ell_margins")
+
+    monkeypatch.setattr(TS, "ell_margins_coeff", counted)
+    monkeypatch.setattr(TS, "ell_margins", refused)
+    cols, vals, W, y = _planes(3, 5, 13, D, seed=13)
+    TO.ell_fleet_half_step(*_t(W, cols, vals, y), lam=LAM, t=T, schedule="sweep")
     assert calls == ["coeff"]
 
 
@@ -455,6 +508,17 @@ def test_launch_cost_margins_prefetch_coeff():
     assert cost["bytes"] == margins["bytes"] + 4 * 10 and cost["flops"] == margins["flops"]
 
 
+def test_launch_cost_margins_coeff():
+    """The sweep's coefficient entry moves what ``ell_margins`` moves plus
+    the m·B coefficients it writes; its operations are the margins'."""
+    shape = dict(m=10, B=1, k=76)
+    margins = TO.launch_cost("ell_margins", **shape)
+    cost = TO.launch_cost("ell_margins_coeff", **shape)
+    assert cost == {"launches": 1, "bytes": margins["bytes"] + 4 * 10,
+                    "flops": margins["flops"]}
+    assert cost["bytes"] == 4 * (3 * 760 + 2 * 10 + 10)
+
+
 def test_primal_objective_masked_ell_matches_reference():
     cols, vals, _, y = _planes(1, 40, 9, D, seed=5, pad_row=False)
     cols, vals, y = cols[0], vals[0], y[0]
@@ -506,3 +570,17 @@ def test_coefficient_entry_refuses_bad_inputs_and_counts_no_cpu_launch():
         TS.ell_margins_prefetch_coeff(*(x.to("meta") for x in (cols, vals, W, y, bids)),
                                       blk_d=128, n_d_blocks=3)
     assert TS.ell_margins_prefetch_coeff.launches == 0
+
+
+def test_check_bitmap_refuses_a_map_short_of_d():
+    """The map kernels look up the d-block of any column below d in their
+    bitmap, so ``n_d_blocks`` must cover d: one block short raises, as does
+    a bitmap past a block's shared memory; CCAT's 370 blocks of 128 pass."""
+    TS.check_bitmap(370, 47236, 128)
+    TS.check_bitmap(1, 128, 128)
+    with pytest.raises(ValueError, match="covers fewer"):
+        TS.check_bitmap(369, 47236, 128)
+    with pytest.raises(ValueError, match="out of range"):
+        TS.check_bitmap(0)
+    with pytest.raises(ValueError, match="out of range"):
+        TS.check_bitmap(8 * 227 * 1024 + 1)
