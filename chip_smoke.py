@@ -62,8 +62,9 @@ Phases, each of which exits non-zero on failure:
    ``margins`` and ``grad_update`` each launched once per iteration;
    device time and kernel launches an iteration from torch.profiler;
 6. whole path against the CPU: 200 iterations of the phase 4 config on the
-   card with its draws recorded, replayed with ``device="cpu"`` (the plain
-   versions), W within 1e-4 and the objective trace within 1e-5 relative;
+   card and with ``device="cpu"`` (the plain versions) on the same draws
+   (the port's draws are the reference's Threefry streams keyed on the
+   iteration, the same numbers on both devices), W within 1e-4 and the objective trace within 1e-5 relative;
 7. sparse main path: GADGET on CCAT as ELL planes at full width
    (d = 47,236, k = 76; rows cut to scale 0.1) with the paper's CCAT config
    and ``sparse_schedule="auto"``, which must resolve to the prefetch pair
@@ -109,8 +110,42 @@ Phases, each of which exits non-zero on failure:
     cycle (one layer, 256 tokens) and only reported at full depth (64
     tokens), where random weights amplify f32 rounding beyond the tolerance
     (in the reference too: ``tools/decode_drift.py``);
-15. a ``kernels`` JSON line (with ``serving`` and ``transformer`` objects)
-    and the final ``{"ok": true, ...}`` line.
+15. the fused step above its minibatch cap: at B = ``hinge_subgrad.MAX_FLEET_B`` + 1
+    (10 nodes, d = 64, X 74 MB) ``ops.fleet_half_step`` launches
+    ``margins`` and ``grad_update`` once each, held against the plain fleet
+    step at 1e-4 relative (one row of the minibatch moves W by about
+    1e-3); then 5 fused iterations on that route, two launches an
+    iteration, W against the CPU at 1e-4; the route timed beside the fused
+    kernel and the plain step at B = 1 … 29,049;
+16. faults at reuters' full size with the paper's config: link mode at drop
+    probability 0.1 for 4000 iterations (quality limits from the reference
+    under the same ``FaultPlan``, every ``mass_trace`` entry within 1e-6 of
+    1, ``fleet_half_step`` once an iteration), message mode for 400 (every
+    entry below 1), dead node 3 with ``TrainTelemetry(every=100,
+    per_node=True)`` (its row bit for bit zero, its drop column 0, node drops
+    summing to the ring's drops, the trajectory bit for bit the
+    telemetry-off run's), the faulted unfused path (``margins`` and
+    ``grad_update`` once an iteration), 200 faulted iterations on the card
+    against the CPU (the draws equal, Threefry-2x32's published known
+    answers computed on the card, W 1e-4), and device time and kernel
+    launches an iteration from torch.profiler with faults and without;
+17. the anytime export: a faulted reuters stream (1000 iterations in
+    segments of 500) bit for bit ``gadget_train``; the CCAT stream of phase
+    7's config in segments of 500 bit for bit ``gadget_train`` with
+    ``check_every=500``, ``ell_margins_prefetch_coeff`` and
+    ``ell_grad_update_prefetch_fold`` once an iteration; the run killed after
+    two segments, its train state written with ``to_checkpoint`` and read
+    back with ``train_state_from_checkpoint``, resumed bit for bit the
+    uninterrupted run; ``snapshot_every=500, snapshot_slots=4``: the last four
+    snapshots, each bit for bit the stream's consensus at its iteration;
+18. the live publisher: ``TrainPublisher`` trains the CCAT run in a
+    background thread into a temporary root while ``SvmServer.watch``
+    serves CCAT's test queries through ``maybe_reload``; versions monotone,
+    the last served accuracy the final consensus's, ``ell_scores_prefetch``
+    once a batch;
+19. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+    phases' objects; each kernel's ``paths`` lists the later phases that
+    run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
 It needs one CUDA card and the ``src/`` tree beside it, imports nothing of
 JAX or of the JAX package, and exits non-zero without printing a result
@@ -118,6 +153,7 @@ when either is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -126,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -201,6 +238,26 @@ REUTERS = dict(lam=1.29e-4, batch_size=1, gossip_rounds=4, topology="random",
                epsilon=1e-3, check_every=200, max_iters=4000, seed=0)
 CCAT = dict(REUTERS, lam=1e-4, sparse_schedule="auto")
 N_NODES = 10
+C1_ROWS, C1_D, C1_ITERS = 2048, 64, 5   # phase 15: one row above the fused cap, a small d
+# phase 15: the routed step against the plain float32 step, relative to
+# max(1, max |W_half|). Both round 29,049-term sums in their own order (about
+# 1.4e-5 apart on the card); one row of the minibatch moves an element of W by
+# about α/B·|x| ≈ 1e-3, which this tolerance sees
+C1_RTOL = 1e-4
+C1_SWEEP_B = (1, 64, 1024, 8192)   # phase 15: the route against the fused step and plain
+FAULT_DROP_PROB, DEAD_NODE = 0.1, 3
+# Threefry-2x32 (20 rounds) known answers from Random123's tests, as JAX's own
+# tests hold them: key words, counter words, output words
+THREEFRY_KAT = ((0, 0, 0, 0, 0x6B200159, 0x99BA4EFE),
+                (2 ** 32 - 1,) * 4 + (0x1CB996FC, 0xBB002BE7),
+                (0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3, 0xC4923A9C, 0x483DF7A0))
+# phase 16 limits, from tools/reference_quality.py reuters --drop-prob 0.1 (the JAX
+# reference on the CPU under the same FaultPlan, draw seeds 0 and 1): see PERF.md
+FAULT_MIN_ACCURACY, FAULT_MAX_OBJECTIVE = 0.72, 0.50
+LINK_MASS_ATOL = 1e-6                   # link mode conserves Push-Sum mass
+SEGMENT_ITERS, SNAPSHOT_SLOTS = 500, 4  # phases 17 and 18
+STREAM_REUTERS_ITERS = 1000
+SERVE_PAUSE_S = 0.01                    # phase 18: pause between bursts of 128 queries
 
 
 def log(msg: str) -> None:
@@ -275,6 +332,11 @@ def ptxas_resources(log_text: str) -> dict:
         if m and name:
             out[name].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
     return out
+
+
+def launched(c: dict) -> dict:
+    """The kernels of a count that launched."""
+    return {name: n for name, n in c.items() if n}
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -1412,6 +1474,367 @@ def phase_models(torch, get_config, Model, make_prefill_step, make_serve_step, s
             "decode_tolerance": {"atol": DECODE_ATOL, "rtol": DECODE_RTOL}}
 
 
+def phase_c1_route(torch, ops, K, gadget_train, GadgetConfig, dev, reset, counts_of) -> dict:
+    """Phase 15: the fused dense step one row above the fleet kernel's
+    minibatch cap runs ``margins`` and ``grad_update``, one launch each for
+    the fleet, held against the plain fleet step at ``C1_RTOL``; a short
+    training run on that route held against the CPU at ``PATH_W_ATOL``; and
+    the route timed beside the fused kernel and the plain step at smaller
+    minibatches (where it crosses the plain step)."""
+    B = K.MAX_FLEET_B + 1
+    gen = torch.Generator(device=dev).manual_seed(15)
+    Xc = torch.randn((N_NODES, C1_ROWS, C1_D), generator=gen, device=dev) / C1_D ** 0.5
+    yc = torch.where(Xc @ torch.randn(C1_D, generator=gen, device=dev) >= 0, 1.0, -1.0)
+    ids = torch.randint(0, C1_ROWS, (N_NODES, B), generator=gen, device=dev)
+    rows = torch.arange(N_NODES, device=dev)[:, None]
+    Xb, yb = Xc[rows, ids].contiguous(), yc[rows, ids].contiguous()
+    W0 = 0.1 * torch.randn((N_NODES, C1_D), generator=gen, device=dev)
+    lam, t = 1e-3, 3
+    reset()
+    got = ops.fleet_half_step(W0, Xb, yb, lam=lam, t=t, project=False)
+    torch.cuda.synchronize()
+    direct = counts_of()
+    scal = ops.step_scalars(lam, t, B)
+    want = K.fleet_half_step_plain(Xb, W0, yb, torch.ones(B, device=dev), scal)
+    err, rel = rel_err(got, want)
+    # reported: both float32 orders against the float64 step
+    X64, W64, y64 = Xb.double(), W0.double(), yb.double()
+    coeff64 = torch.where(y64 * torch.einsum("mbd,md->mb", X64, W64) < 1.0, y64, 0.0)
+    want64 = (1.0 - scal[0]) * W64 + scal[1] * torch.einsum("mb,mbd->md", coeff64, X64)
+    err64 = float((got.double() - want64).abs().max())
+    plain_err64 = float((want.double() - want64).abs().max())
+    one_row = float(scal[1] * Xb.abs().max())
+    ms = device_ms(torch, lambda: ops.fleet_half_step(W0, Xb, yb, lam=lam, t=t, project=False),
+                   20)
+    plain_ms = device_ms(torch, lambda: K.fleet_half_step_plain(
+        Xb, W0, yb, torch.ones(B, device=dev), ops.step_scalars(lam, t, B)), 20)
+    cost = ops.launch_cost("fleet_half_step", m=N_NODES, B=B, d=C1_D)
+    bound_ms, bound_by = bound(cost)
+    log(f"  B = {B} (cap {K.MAX_FLEET_B}), X {tuple(Xb.shape)} ({Xb.numel() * 4 / 1e6:.1f} MB): "
+        f"launches {launched(direct)}, against the plain version max abs err {err:.3e} (rel "
+        f"{rel:.3e} <= {C1_RTOL}; one row moves W by up to {one_row:.3e}); against float64 "
+        f"{err64:.3e} (the plain version {plain_err64:.3e}); {ms * 1e3:.2f} us "
+        f"(plain {plain_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} by {bound_by})")
+    require(direct["margins"] == direct["grad_update"] == 1 and direct["fleet_half_step"] == 0,
+            f"the step above the cap launched {launched(direct)}")
+    require(rel <= C1_RTOL, f"the routed step is {rel:.3e} from the plain version (rel)")
+    cfg = GadgetConfig(lam=lam, batch_size=B, gossip_rounds=4, topology="random", epsilon=0.0,
+                       check_every=C1_ITERS, max_iters=C1_ITERS, seed=0)
+    reset()
+    res = gadget_train(Xc, yc, cfg, device=dev)
+    torch.cuda.synchronize()
+    run = counts_of()
+    res_cpu = gadget_train(Xc.cpu(), yc.cpu(), cfg, device="cpu")
+    w_err = float((res.W.cpu() - res_cpu.W).abs().max())
+    log(f"  {res.iters} fused iterations at B = {B}: launches {launched(run)}, W against the CPU "
+        f"{w_err:.3e} (<= {PATH_W_ATOL})")
+    require(run["margins"] == run["grad_update"] == res.iters == C1_ITERS
+            and run["fleet_half_step"] == 0, f"the routed training launched {launched(run)}")
+    require(w_err <= PATH_W_ATOL, f"the routed training's W is {w_err:.3e} from the CPU's")
+    # where the route crosses the plain step: the same fleet at smaller B
+    sweep = []
+    for b in C1_SWEEP_B + (K.MAX_FLEET_B, B):
+        Xs, ys, mask = Xb[:, :b].contiguous(), yb[:, :b].contiguous(), torch.ones(b, device=dev)
+        sc = ops.step_scalars(lam, t, b)
+        row = {"B": b, "route_ms": device_ms(
+                   torch, lambda: ops.unfused_fleet_half_step(W0, Xs, ys, lam=lam, t=t,
+                                                              project=False), 20),
+               "plain_ms": device_ms(torch, lambda: K.fleet_half_step_plain(
+                   Xs, W0, ys, mask, sc), 20),
+               "fused_ms": (device_ms(torch, lambda: K.fleet_half_step(Xs, W0, ys, mask, sc), 20)
+                            if b <= K.MAX_FLEET_B else None)}
+        sweep.append(row)
+        log(f"    B = {b}: route {row['route_ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f}, fused "
+            + ("-" if row["fused_ms"] is None else f"{row['fused_ms'] * 1e3:.2f}"))
+    slower = [r["B"] for r in sweep if r["route_ms"] > r["plain_ms"]]
+    log(f"  the route is slower than the plain step from B = "
+        f"{min(slower) if slower else 'none of these'} on")
+    return {"B": B, "cap": K.MAX_FLEET_B, "X_shape": list(Xb.shape), "max_abs_err": err,
+            "rel_err": rel, "f64_err": err64, "plain_f64_err": plain_err64,
+            "tolerance": {"rel": C1_RTOL, "train_w_atol": PATH_W_ATOL}, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "step_launches": {"margins": direct["margins"],
+                                                    "grad_update": direct["grad_update"]},
+            "train_iters": res.iters, "train_launches": {"margins": run["margins"],
+                                                         "grad_update": run["grad_update"]},
+            "cpu_w_err": w_err, "sweep": sweep,
+            "route_slower_from_B": min(slower) if slower else None}
+
+
+def phase_faults(torch, ops, core, gadget_train, cfg, data, dev, reset, counts_of) -> dict:
+    """Phase 16: fault injection at reuters' full size with the paper's
+    config: link mode through the whole run (quality, mass), message mode
+    (mass leaks), a dead node with the per-node telemetry ring (frozen row,
+    drop counts, telemetry on = off bit for bit), the faulted unfused path,
+    the card against the CPU, and the profile with faults and without."""
+    Xp, yp, n_counts, ds = data
+    X_dev, y_dev = torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev)
+    Xte, yte = torch.from_numpy(ds.X_test).to(dev), torch.from_numpy(ds.y_test).to(dev)
+    FaultPlan, TrainTelemetry = core.FaultPlan, core.TrainTelemetry
+    kw = dict(n_counts=n_counts, device=dev)
+    cfg_l = cfg._replace(faults=FaultPlan(drop_prob=FAULT_DROP_PROB, drop="link"))
+    gadget_train(X_dev, y_dev, cfg_l._replace(max_iters=20, check_every=10), **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    res_l = gadget_train(X_dev, y_dev, cfg_l, **kw)
+    torch.cuda.synchronize()
+    link_s = time.perf_counter() - t0
+    c_l = counts_of()
+    _, pred = ops.dense_predict(res_l.w_consensus, Xte)
+    acc = int((pred == yte).sum()) / len(yte)
+    obj_l = float(res_l.objective_trace[-1])
+    mass_dev = float(np.max(np.abs(res_l.mass_trace.astype(np.float64) - 1.0)))
+    log(f"  link, drop_prob {FAULT_DROP_PROB}: {res_l.iters} iterations in {link_s:.3f} s "
+        f"({res_l.iters / link_s:.1f} it/s), objective {obj_l:.4f}, test accuracy {acc:.4f}, "
+        f"mass within {mass_dev:.3e} of 1, launches {launched(c_l)}")
+    require(acc >= FAULT_MIN_ACCURACY, f"faulted accuracy {acc:.4f} < {FAULT_MIN_ACCURACY}")
+    require(obj_l <= FAULT_MAX_OBJECTIVE, f"faulted objective {obj_l:.4f} > {FAULT_MAX_OBJECTIVE}")
+    require(mass_dev <= LINK_MASS_ATOL, f"link-mode mass off 1 by {mass_dev:.3e}")
+    require(c_l["fleet_half_step"] == res_l.iters and c_l["margins"] == c_l["grad_update"] == 0,
+            f"faulted fused training launched {launched(c_l)}")
+
+    res_m = gadget_train(X_dev, y_dev, cfg._replace(
+        max_iters=400, faults=FaultPlan(drop_prob=FAULT_DROP_PROB, drop="message")), **kw)
+    log(f"  message: {res_m.iters} iterations, mass trace {np.round(res_m.mass_trace, 6).tolist()}")
+    require(bool(np.all(res_m.mass_trace < 1.0)), "message mode leaked no mass")
+
+    plan_d = FaultPlan(drop_prob=FAULT_DROP_PROB, drop="link", dead_nodes=(DEAD_NODE,))
+    cfg_d = cfg._replace(max_iters=400, faults=plan_d)
+    off = gadget_train(X_dev, y_dev, cfg_d, **kw)
+    reset()
+    on = gadget_train(X_dev, y_dev, cfg_d, telemetry=TrainTelemetry(every=100, per_node=True),
+                      **kw)
+    torch.cuda.synchronize()
+    c_d = counts_of()
+    tr = on.telemetry
+    log(f"  dead node {DEAD_NODE} with TrainTelemetry(every=100, per_node=True): records "
+        f"{tr.iterations.tolist()}, drops {tr.drops.tolist()}, node drops "
+        f"{tr.node_drops.sum(axis=0).tolist()}, node mass {np.round(tr.node_mass[-1], 6).tolist()}, "
+        f"launches {launched(c_d)}")
+    require(torch.equal(on.W, off.W) and torch.equal(on.W_avg, off.W_avg),
+            "telemetry changed the faulted trajectory")
+    require(not bool(on.W[DEAD_NODE].any()), f"dead node {DEAD_NODE}'s row moved")
+    require(tr.count == 4 and np.array_equal(tr.node_drops.sum(axis=1), tr.drops)
+            and int(tr.drops.sum()) > 0, "per-node drops do not sum to the ring's drops")
+    require(not tr.node_drops[:, DEAD_NODE].any(), "the dead node dropped messages")
+    require(c_d["fleet_half_step"] == on.iters, f"faulted telemetry run launched {launched(c_d)}")
+
+    reset()
+    res_u = gadget_train(X_dev, y_dev, cfg_d._replace(fused=False), **kw)
+    torch.cuda.synchronize()
+    c_u = counts_of()
+    log(f"  unfused under faults: {res_u.iters} iterations, launches {launched(c_u)}")
+    require(c_u["margins"] == c_u["grad_update"] == res_u.iters and c_u["fleet_half_step"] == 0,
+            f"faulted unfused training launched {launched(c_u)}")
+    require(not bool(res_u.W[DEAD_NODE].any()), "the dead row moved on the unfused path")
+
+    cfg_6 = cfg_d._replace(max_iters=200)
+    plan_of = {d: core.DrawPlan(N_NODES, cfg.batch_size, cfg.gossip_rounds, cfg.topology, True,
+                                torch.from_numpy(n_counts).to(d), plan_d) for d in (dev, "cpu")}
+    draws = {d: core.GeneratorDraws(cfg.seed) for d in plan_of}
+    got = {d: (*draws[d].take(1, 200, plan_of[d]), draws[d].fails(1, 200, plan_of[d]))
+           for d in plan_of}
+    same_draws = all(torch.equal(a.cpu(), b) for a, b in zip(got[dev], got["cpu"]))
+    res_g = gadget_train(X_dev, y_dev, cfg_6, **kw)
+    res_c = gadget_train(Xp, yp, cfg_6, n_counts=n_counts, device="cpu")
+    w_err = float((res_g.W.cpu() - res_c.W).abs().max())
+    log(f"  200 faulted iterations, card against CPU: draws equal {same_draws}, W max abs err "
+        f"{w_err:.3e} (<= {PATH_W_ATOL})")
+    require(same_draws, "GeneratorDraws differ between the card and the CPU")
+    # Threefry-2x32's published known answers (Random123), computed on the card
+    words = torch.tensor(THREEFRY_KAT, dtype=torch.int64, device=dev)
+    kat = torch.stack(core.threefry2x32(*words[:, :4].T), dim=1)
+    kat_ok = torch.equal(kat.cpu(), words[:, 4:].cpu())
+    log(f"  Threefry-2x32 known answers on the card: {kat_ok}")
+    require(kat_ok, "Threefry-2x32 on the card misses its known answers")
+    require(w_err <= PATH_W_ATOL, f"faulted W differs from its CPU run by {w_err:.3e}")
+
+    n_prof = 200
+    profiles = {}
+    for name, c in (("clean", cfg), ("link", cfg_l)):
+        c = c._replace(max_iters=n_prof)
+        t0 = time.perf_counter()
+        gadget_train(X_dev, y_dev, c, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / n_prof * 1e6
+        prof = profile_iterations(torch, lambda: gadget_train(X_dev, y_dev, c, **kw))
+        profiles[name] = {"device_us_per_iter": prof["device_us"] / n_prof,
+                          "kernel_us_per_iter": prof["kernel_us"] / n_prof,
+                          "kernel_launches_per_iter": prof["kernel_launches"] / n_prof,
+                          "wall_us_per_iter": wall_us,
+                          "device_busy_share": prof["device_us"] / n_prof / wall_us}
+        log(f"  profile {name}: device {profiles[name]['device_us_per_iter']:.1f} us/iteration "
+            f"(kernels {profiles[name]['kernel_us_per_iter']:.1f}), "
+            f"{profiles[name]['kernel_launches_per_iter']:.2f} kernel launches an iteration, "
+            f"{wall_us:.1f} us/iteration of wall time unprofiled")
+        for key, count, us in prof["top_device"]:
+            log(f"    device {us / n_prof:9.2f} us/it  x{count:<6d} {key}")
+        require(prof["device_us"] > 0, "the profiled window ran nothing on the device")
+    return {"link": {"iters": res_l.iters, "train_s": link_s, "iters_per_s": res_l.iters / link_s,
+                     "test_accuracy": acc, "objective": obj_l, "mass_max_dev": mass_dev,
+                     "launches": c_l["fleet_half_step"]},
+            "message": {"iters": res_m.iters, "mass_trace": res_m.mass_trace.tolist()},
+            "dead": {"node": DEAD_NODE, "drops": tr.drops.tolist(),
+                     "node_drops": tr.node_drops.sum(axis=0).tolist(),
+                     "launches": c_d["fleet_half_step"]},
+            "unfused": {"iters": res_u.iters, "margins": c_u["margins"],
+                        "grad_update": c_u["grad_update"]},
+            "cpu_w_err": w_err, "profile": profiles}
+
+
+def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev, tmp, reset,
+                  counts_of) -> dict:
+    """Phase 17: the anytime export. A faulted reuters stream (the fused
+    kernel) and the CCAT stream at full width (the prefetch pair) bit for bit
+    ``gadget_train`` at the segment length; the CCAT run killed after two
+    segments, its train state checkpointed, read back and resumed, bit for
+    bit the uninterrupted run; the snapshot ring's last four snapshots bit
+    for bit the stream's consensus at their iterations."""
+    Xp, yp, n_counts, _ = data
+    parts_c, y_c, n_c = ccat
+    stream = core.gadget_train_stream
+    X_dev, y_dev = torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev)
+    cfg_r = cfg._replace(max_iters=STREAM_REUTERS_ITERS,
+                         faults=core.FaultPlan(drop_prob=FAULT_DROP_PROB, drop="link"))
+    reset()
+    segs_r = list(stream(X_dev, y_dev, cfg_r, segment_iters=SEGMENT_ITERS, n_counts=n_counts,
+                         device=dev))
+    c_r = counts_of()
+    mono_r = gadget_train(X_dev, y_dev, cfg_r._replace(check_every=SEGMENT_ITERS),
+                          n_counts=n_counts, device=dev)
+    log(f"  reuters, faulted, fused: stream of {len(segs_r)} segments to iteration "
+        f"{segs_r[-1].iteration}, W bit for bit gadget_train: "
+        f"{torch.equal(segs_r[-1].W, mono_r.W)}, launches {launched(c_r)}")
+    require(torch.equal(segs_r[-1].W, mono_r.W), "the reuters stream differs from gadget_train")
+    require(c_r["fleet_half_step"] == segs_r[-1].iteration,
+            f"the reuters stream launched {launched(c_r)}")
+
+    kw = dict(segment_iters=SEGMENT_ITERS, n_counts=n_c, device=dev)
+    list(stream(parts_c, y_c, cfg_c._replace(max_iters=20), **dict(kw, segment_iters=10)))
+    torch.cuda.synchronize()  # warm-up
+    reset()
+    t0 = time.perf_counter()
+    segs = list(stream(parts_c, y_c, cfg_c, **kw))
+    stream_s = time.perf_counter() - t0
+    c = counts_of()
+    iters = segs[-1].iteration
+    log(f"  CCAT stream: {len(segs)} segments to iteration {iters} in {stream_s:.3f} s "
+        f"({iters / stream_s:.1f} it/s), objective {segs[-1].objective:.4f}, launches {launched(c)}")
+    for name in KERNELS:
+        on_path = name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold")
+        require(c[name] == (iters if on_path else 0),
+                f"{name} launched {c[name]} times in {iters} stream iterations")
+    mono = gadget_train(parts_c, y_c, cfg_c._replace(check_every=SEGMENT_ITERS), n_counts=n_c,
+                        device=dev, snapshot_every=SEGMENT_ITERS, snapshot_slots=SNAPSHOT_SLOTS)
+    require(mono.iters == iters and torch.equal(mono.W, segs[-1].W)
+            and np.array_equal(mono.w_consensus.cpu().numpy(), segs[-1].w_consensus),
+            "the CCAT stream differs from gadget_train")
+    snaps = serve.snapshots_from(mono)
+    want_its = [SEGMENT_ITERS * k for k in range(1, iters // SEGMENT_ITERS + 1)][-SNAPSHOT_SLOTS:]
+    if not want_its or want_its[-1] != iters:
+        want_its.append(iters)
+    by_it = {s.iteration: s for s in segs}
+    snap_same = [np.array_equal(s.w, by_it[s.iteration].w_consensus) for s in snaps]
+    log(f"  snapshot ring (every {SEGMENT_ITERS}, {SNAPSHOT_SLOTS} slots): iterations "
+        f"{[s.iteration for s in snaps]}, each bit for bit the stream's consensus: {snap_same}")
+    require([s.iteration for s in snaps] == want_its, f"snapshots at {[s.iteration for s in snaps]}")
+    require(all(snap_same), "a snapshot differs from the stream's consensus")
+
+    killed = stream(parts_c, y_c, cfg_c, **kw)
+    seg2 = [next(killed), next(killed)][-1]
+    killed.close()
+    root = str(tmp / "resume")
+    serve.to_checkpoint(serve.Snapshot(seg2.iteration, seg2.w_consensus, seg2.objective), root,
+                        lam=cfg_c.lam,
+                        train_state=core.TrainState(seg2.iteration, seg2.W, seg2.W_sum))
+    state = serve.train_state_from_checkpoint(root)
+    resumed = list(stream(parts_c, y_c, cfg_c, resume=state, **kw))
+    same = torch.equal(resumed[-1].W, segs[-1].W)
+    log(f"  killed at iteration {seg2.iteration}, resumed from its checkpoint to "
+        f"{resumed[-1].iteration}: W bit for bit the uninterrupted run: {same}")
+    require([s.iteration for s in resumed] == [s.iteration for s in segs[2:]],
+            "the resumed stream's segments differ")
+    require(same, "the resumed run differs from the uninterrupted one")
+    return {"reuters_stream": {"iters": segs_r[-1].iteration, "segments": len(segs_r),
+                               "fleet_half_step": c_r["fleet_half_step"]},
+            "ccat_stream": {"iters": iters, "segments": len(segs), "stream_s": stream_s,
+                            "iters_per_s": iters / stream_s, "objective": segs[-1].objective,
+                            "ell_margins_prefetch_coeff": c["ell_margins_prefetch_coeff"],
+                            "ell_grad_update_prefetch_fold": c["ell_grad_update_prefetch_fold"]},
+            "snapshot_iterations": [s.iteration for s in snaps],
+            "resumed_from": seg2.iteration}
+
+
+def phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets, queries, dev, tmp,
+                    reset, counts_of) -> dict:
+    """Phase 18: ``TrainPublisher`` trains CCAT in a background thread and
+    publishes a checkpoint a segment while an ``SvmServer`` watches the root
+    and serves CCAT's test queries through ``ell_scores_prefetch``."""
+    parts_c, y_c, n_c = ccat
+    root = str(tmp / "live")
+    pub = serve.TrainPublisher(parts_c, y_c, cfg_c, root=root, segment_iters=SEGMENT_ITERS,
+                               n_counts=n_c, device=dev, save_train_state=True)
+    reset()
+    t0 = time.perf_counter()
+    pub.start()
+    try:
+        deadline = time.monotonic() + 300
+        while not pub.published and pub.running and time.monotonic() < deadline:
+            time.sleep(0.005)
+        require(bool(pub.published), f"no version published ({pub.error!r})")
+        srv = serve.SvmServer.watch(root, device=dev)
+        seen, batches, passes = [srv.meta["iteration"]], 0, 0
+        while pub.running:
+            step = srv.maybe_reload()
+            if step is not None:
+                seen.append(step)
+            batches += serve_queries(srv, buckets, queries[:16 * SERVE_ROWS],
+                                     formats.pad_query_planes)["batches"]
+            passes += 1
+            time.sleep(SERVE_PAUSE_S)  # traffic in bursts: the trainer's host loop shares the GIL
+        final = pub.join()
+    except BaseException:
+        with contextlib.suppress(Exception):  # let the training thread end first
+            pub.wait(timeout=600)
+        raise
+    train_s = time.perf_counter() - t0
+    step = srv.maybe_reload()
+    if step is not None:
+        seen.append(step)
+    last = serve_queries(srv, buckets, queries, formats.pad_query_planes)
+    batches += last["batches"]
+    c = counts_of()
+    w_final = torch.from_numpy(final.w_consensus).to(dev)
+    cols_te = torch.from_numpy(ds_c.X_test.cols).to(dev)
+    vals_te = torch.from_numpy(ds_c.X_test.vals).to(dev)
+    want_lbl = torch.where(R.ell_matvec_flat(w_final, cols_te, vals_te) >= 0.0, 1.0, -1.0)
+    n_final = int((want_lbl.cpu().numpy() == ds_c.y_test).sum())
+    n_served = int(np.sum(last["labels"] == ds_c.y_test))
+    state = serve.latest_train_state(root)
+    log(f"  published {pub.published} in {train_s:.3f} s; the server installed {seen} while "
+        f"serving {passes} partial passes; last pass accuracy {n_served / len(queries):.4f} "
+        f"(final consensus {n_final / len(queries):.4f}); {batches} batches, launches {launched(c)}")
+    require(all(a < b for a, b in zip(pub.published, pub.published[1:])),
+            f"published versions {pub.published} not monotone")
+    require(all(a < b for a, b in zip(seen, seen[1:])) and seen[-1] == final.iteration
+            == pub.published[-1], f"the server installed {seen}")
+    require(n_served == n_final, "the last served accuracy differs from the final consensus's")
+    require(c["ell_scores_prefetch"] == batches,
+            f"ell_scores_prefetch launched {c['ell_scores_prefetch']} times for {batches} batches")
+    require(c["ell_margins_prefetch_coeff"] == c["ell_grad_update_prefetch_fold"]
+            == final.iteration, f"the publisher's training launched {launched(c)}")
+    require(state is not None and state.iteration == final.iteration,
+            "the last checkpoint carries no train state")
+    return {"published": pub.published, "installed": seen, "train_s": train_s,
+            "serving_passes": passes, "batches": batches,
+            "test_accuracy": n_served / len(queries),
+            "ell_scores_prefetch": c["ell_scores_prefetch"],
+            "ell_margins_prefetch_coeff": c["ell_margins_prefetch_coeff"],
+            "ell_grad_update_prefetch_fold": c["ell_grad_update_prefetch_fold"]}
+
+
 def profile_iterations(torch, run) -> dict:
     """Device time by kernel, in all and in kernels alone (copies, such as
     pageable uploads whose time follows the host's, left out), kernel
@@ -1475,8 +1898,11 @@ def main() -> int:
               "one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.gadget import (GadgetConfig, GeneratorDraws, RecordedDraws,
-                                         gadget_train)
+    from repro_torch.core import counter_rng
+    from repro_torch.core import gadget as gadget_mod
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.gadget import GadgetConfig, gadget_train
+    from repro_torch.telemetry.train import TrainTelemetry
     from repro_torch.data.svm_datasets import make_dataset, partition
     from repro_torch.kernels import _build
     from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
@@ -1622,27 +2048,11 @@ def main() -> int:
 
     log("phase 6: whole path on the card against the CPU, 200 iterations")
 
-    class Recording:
-        """The port's own draws, kept for a replay through ``RecordedDraws``."""
-
-        def __init__(self, seed):
-            self.live, self.taken = GeneratorDraws(seed), []
-
-        def take(self, t0, n, plan):
-            ids, mix = self.live.take(t0, n, plan)
-            self.taken.append((ids.cpu(), mix.cpu()))
-            return ids, mix
-
-        def replay(self):
-            return RecordedDraws(torch.cat([i for i, _ in self.taken]),
-                                 torch.cat([m for _, m in self.taken]))
-
     cfg_6 = cfg._replace(max_iters=200)
-    recorded = Recording(cfg_6.seed)
-    res_gpu = gadget_train(X_dev, y_dev, cfg_6, n_counts=n_counts, device=dev, draws=recorded)
-    replay = recorded.replay()
+    # the port's draws are keyed on the iteration: the CPU draws the card's numbers
+    res_gpu = gadget_train(X_dev, y_dev, cfg_6, n_counts=n_counts, device=dev)
     t0 = time.perf_counter()
-    res_cpu = gadget_train(Xp, yp, cfg_6, n_counts=n_counts, device="cpu", draws=replay)
+    res_cpu = gadget_train(Xp, yp, cfg_6, n_counts=n_counts, device="cpu")
     cpu_s = time.perf_counter() - t0
     w_err = float((res_gpu.W.cpu() - res_cpu.W).abs().max())
     obj_err = float(np.max(np.abs(res_gpu.objective_trace - res_cpu.objective_trace)
@@ -1733,17 +2143,15 @@ def main() -> int:
 
     log("phase 9: sparse parity, 200 iterations each")
     cfg_9 = cfg_c._replace(max_iters=200)
-    recorded_c = Recording(cfg_9.seed)
-    res_pf = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device=dev, draws=recorded_c)
-    replay_c = recorded_c.replay()
+    res_pf = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device=dev)
     t0 = time.perf_counter()
-    res_pf_cpu = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device="cpu", draws=replay_c)
+    res_pf_cpu = gadget_train(parts_c, y_c, cfg_9, n_counts=n_c, device="cpu")
     cpu_c_s = time.perf_counter() - t0
     w_err_c = float((res_pf.W.cpu() - res_pf_cpu.W).abs().max())
     obj_err_c = float(np.max(np.abs(res_pf.objective_trace - res_pf_cpu.objective_trace)
                               / np.abs(res_pf_cpu.objective_trace)))
     res_sw9 = gadget_train(parts_c, y_c, cfg_9._replace(sparse_schedule="sweep"), n_counts=n_c,
-                           device=dev, draws=replay_c)
+                           device=dev)
     sched_err = float((res_pf.W - res_sw9.W).abs().max())
     log(f"  CCAT card against CPU: W max abs err {w_err_c:.3e} (<= {PATH_W_ATOL}), objective "
         f"rel err {obj_err_c:.3e} (<= {PATH_OBJ_RTOL}), CPU run {cpu_c_s:.1f} s; prefetch "
@@ -1758,10 +2166,8 @@ def main() -> int:
     X_r = torch.from_numpy(np.stack([ELL(c, v, (c.shape[0], parts_r.d)).to_dense()
                                      for c, v in zip(parts_r.cols, parts_r.vals)])).to(dev)
     cfg_r = cfg._replace(max_iters=200)
-    recorded_r = Recording(cfg_r.seed)
-    res_ell = gadget_train(parts_r, y_r, cfg_r, n_counts=n_r, device=dev, draws=recorded_r)
-    res_dense = gadget_train(X_r, y_r, cfg_r, n_counts=n_r, device=dev,
-                             draws=recorded_r.replay())
+    res_ell = gadget_train(parts_r, y_r, cfg_r, n_counts=n_r, device=dev)
+    res_dense = gadget_train(X_r, y_r, cfg_r, n_counts=n_r, device=dev)
     ell_err = float((res_ell.w_consensus - res_dense.w_consensus).abs().max())
     log(f"  reuters ELL {tuple(parts_r.cols.shape)} against its dense form: consensus max abs "
         f"err {ell_err:.3e} (<= {SPARSE_PARITY_ATOL})")
@@ -1882,7 +2288,42 @@ def main() -> int:
     transformer = phase_models(torch, get_config, Model, make_prefill_step, make_serve_step,
                                serve_lm, X, K, P, S, dev)
 
-    log("phase 15: summary")
+    def reset():
+        reset_counts(K, P, S, X)
+
+    def counts_of():
+        return counts(K, P, S, X)
+
+    core = types.SimpleNamespace(FaultPlan=FaultPlan, TrainTelemetry=TrainTelemetry,
+                                 DrawPlan=gadget_mod.DrawPlan,
+                                 GeneratorDraws=gadget_mod.GeneratorDraws,
+                                 threefry2x32=counter_rng.threefry2x32,
+                                 TrainState=gadget_mod.TrainState,
+                                 gadget_train_stream=gadget_mod.gadget_train_stream)
+    reuters = (Xp, yp, n_counts, ds)
+    phase_s = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_anytime_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        log("phase 15: the fused step above its minibatch cap")
+        c1 = phase_c1_route(torch, ops, K, gadget_train, GadgetConfig, dev, reset, counts_of)
+        free_cuda(torch)
+        phase_s["15"] = time.perf_counter() - t0
+        log("phase 16: faults, reuters at full size")
+        faults = phase_faults(torch, ops, core, gadget_train, cfg, reuters, dev, reset, counts_of)
+        free_cuda(torch)
+        phase_s["16"] = time.perf_counter() - t0 - sum(phase_s.values())
+        log("phase 17: anytime export, the stream, resume and the snapshot ring")
+        anytime = phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, reuters, ccat, dev,
+                                tmp, reset, counts_of)
+        phase_s["17"] = time.perf_counter() - t0 - sum(phase_s.values())
+        log("phase 18: the live publisher behind a watching server")
+        publisher = phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets,
+                                    queries, dev, tmp, reset, counts_of)
+        phase_s["18"] = time.perf_counter() - t0 - sum(phase_s.values())
+    log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
+
+    log("phase 19: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -1914,6 +2355,26 @@ def main() -> int:
              "flash_attention": "recurrentgemma-9b prefill (phase 11)",
              "rglru_scan": "recurrentgemma-9b prefill (phase 11)",
              "wkv_scan": "rwkv6-3b prefill (phase 14)"}
+    # every later path each kernel runs, with its launches there
+    more_paths = {name: [] for name in KERNELS}
+    more_paths["fleet_half_step"] += [
+        {"path": "faulted fused training, link mode (phase 16)", "launches": faults["link"]["launches"]},
+        {"path": "faulted fused training, dead node, telemetry ring (phase 16)",
+         "launches": faults["dead"]["launches"]},
+        {"path": "faulted reuters stream (phase 17)",
+         "launches": anytime["reuters_stream"]["fleet_half_step"]}]
+    for name in ("margins", "grad_update"):
+        more_paths[name] += [
+            {"path": "fused step above its minibatch cap (phase 15)",
+             "launches": c1["train_launches"][name]},
+            {"path": "faulted unfused training (phase 16)", "launches": faults["unfused"][name]}]
+    for name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"):
+        more_paths[name] += [
+            {"path": "CCAT stream (phase 17)", "launches": anytime["ccat_stream"][name]},
+            {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]}]
+    more_paths["ell_scores_prefetch"].append(
+        {"path": "serving behind the publisher (phase 18)",
+         "launches": publisher["ell_scores_prefetch"]})
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
                "ell_scores_prefetch": "predict.cu",
@@ -1931,6 +2392,7 @@ def main() -> int:
     tolerance["flash_attention"] += f"; bf16 abs {BF16_ATOL} and one bf16 ulp + {KERNEL_RTOL}"
     line = {"kernels": [dict(name=name, route="cuda", source=sources[name],
                              replaces=REPLACES[name], launches=launches[name], path=paths[name],
+                             paths=more_paths[name],
                              tolerance=tolerance[name], **kernels[name])
                         for name in KERNELS],
             "main_path": {"iters": res.iters, "train_s": train_s, "iters_per_s": res.iters / train_s,
@@ -1974,6 +2436,8 @@ def main() -> int:
                         "reuters_dense_queries_per_s": ds.X_test.shape[0] / dense_s,
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
+            "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
+            "later_phase_s": phase_s,
             "ptxas": resources,
             "total_s": time.perf_counter() - t_all}
     print(json.dumps(line), flush=True)

@@ -4,9 +4,10 @@ The numpy builders are a copy of ``repro.core.topology``'s (the port imports
 nothing of ``repro``): protocol metadata, tiny (n ≤ 512), built on the host
 and uploaded once as a stacked cycle. Semantics: B[i, j] is the share of
 node i's mass pushed to node j, and one Push-Sum round applies x' = Bᵀx.
-:func:`random_neighbor_matrix_device` draws the paper's random one-neighbour
-protocol on the device from a ``torch.Generator``; it has the reference's
-distribution but not its ``jax.random`` stream.
+:func:`random_neighbor_matrix_device` builds the paper's random
+one-neighbour protocol on the device from given raw draws (the trainer's
+keyed ones); it has the reference's distribution but not its
+``jax.random`` stream.
 """
 from __future__ import annotations
 
@@ -270,20 +271,20 @@ def build_product_stack(topology: str, n: int, rounds_per_iter: int) -> np.ndarr
     return out.astype(np.float32)
 
 
-def random_neighbor_matrix_device(n: int, *, generator: torch.Generator,
-                                  batch: tuple[int, ...] = (),
+def random_neighbor_matrix_device(n: int, *, targets: torch.Tensor,
                                   self_share: float = 0.5) -> torch.Tensor:
-    """Draws of the paper's random one-neighbour mixing matrix on the
-    generator's device, shape ``batch + (n, n)``, float32.
+    """The paper's random one-neighbour mixing matrices from raw draws
+    ``targets`` in [0, n − 1) of shape ``batch + (n,)`` on any device:
+    ``batch + (n, n)`` float32 on that device.
 
     Each node keeps ``self_share`` of its mass and pushes the rest to one
-    uniformly random *other* node: row-stochastic, mass conserving under
-    x' = Bᵀx. Same distribution as :func:`random_neighbor_matrix`.
+    uniformly random *other* node (the draw, shifted past the node itself):
+    row-stochastic, mass conserving under x' = Bᵀx. Same distribution as
+    :func:`random_neighbor_matrix` for uniform draws.
     """
-    device = generator.device
+    device, batch = targets.device, tuple(targets.shape[:-1])
     if n == 1:
         return torch.ones(batch + (1, 1), dtype=torch.float32, device=device)
-    targets = torch.randint(0, n - 1, batch + (n,), generator=generator, device=device)
     nodes = torch.arange(n, device=device)
     targets = targets + (targets >= nodes).to(targets.dtype)  # uniform over others
     eye = torch.eye(n, dtype=torch.float32, device=device)

@@ -34,7 +34,7 @@ _SIGNATURES = {
 }
 # one block's shared memory holds fleet_half_step's (B,) partial margins and
 # (B,) coefficients beside 16 floats of row pieces
-_MAX_FLEET_B = (227 * 1024 // 4 - 16) // 2
+MAX_FLEET_B = (227 * 1024 // 4 - 16) // 2
 _CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size on Hopper
 _MAX_NODES = 65535  # the node axis of grad_update and the sparse kernels is the grid's y
 
@@ -98,8 +98,8 @@ def _launch_fleet(X, W, y, row_mask, scal, cluster: int) -> torch.Tensor:
     _build.check_tensor("W", W, (m, d))
     _build.check_tensor("y", y, (m, B))
     _build.check_tensor("row_mask", row_mask, (B,))
-    if not 1 <= B <= _MAX_FLEET_B:
-        raise ValueError(f"fleet_half_step takes 1 <= B <= {_MAX_FLEET_B}, got B={B}")
+    if not 1 <= B <= MAX_FLEET_B:
+        raise ValueError(f"fleet_half_step takes 1 <= B <= {MAX_FLEET_B}, got B={B}")
     if cluster not in _CLUSTERS:
         raise ValueError(f"cluster must be one of {_CLUSTERS}, got {cluster}")
     s0, s1 = _f32_pair(scal)

@@ -80,8 +80,16 @@ def fleet_half_step(W: torch.Tensor, X: torch.Tensor, y: torch.Tensor, *,
                     row_mask: torch.Tensor | None = None) -> torch.Tensor:
     """GADGET steps (a)-(e) for all m nodes in one ``fleet_half_step`` launch,
     then the optional per-row ball projection. W: (m, d), X: (m, B, d),
-    y: (m, B); ``row_mask`` (B,) float, all rows valid when omitted."""
+    y: (m, B); ``row_mask`` (B,) float, all rows valid when omitted.
+
+    Above ``hinge_subgrad.MAX_FLEET_B`` rows (the fused kernel's cap, read
+    at each call), on every device, it is
+    :func:`unfused_fleet_half_step` (a masked row gets y = 0, so its
+    coefficient is 0 as the fused kernel's mask makes it)."""
     B = X.shape[1]
+    if B > K.MAX_FLEET_B:
+        y_masked = y if row_mask is None else y * row_mask
+        return unfused_fleet_half_step(W, X, y_masked, lam=lam, t=t, project=project)
     if row_mask is None:
         row_mask = torch.ones((B,), dtype=torch.float32, device=X.device)
     W_half = K.fleet_half_step(X, W, y, row_mask, step_scalars(lam, t, B))
@@ -307,8 +315,8 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     again from cache; flops count a multiply-add as 2. This is the byte
     model behind the kernels' bandwidth bounds. Kinds: ``margins`` and
     ``grad_update`` (each over m nodes), ``local_half_step`` (the two
-    launches of the unfused node step), ``fleet_half_step`` (always one launch: the port has no tile
-    limit), ``dense_predict``, ``ell_predict`` (a (B, k) query batch: the
+    launches of the unfused node step), ``fleet_half_step`` (one launch up to
+    ``hinge_subgrad.MAX_FLEET_B`` rows), ``dense_predict``, ``ell_predict`` (a (B, k) query batch: the
     planes, the ``B·k·C`` gathered weights, the (n_blocks_max,) map and the
     outputs; ``blocks_visited`` is the map's width), and the sparse
     kernels over (m, B, k) planes:
@@ -319,7 +327,9 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     (all of W read and W_half written), ``ell_grad_update_prefetch``
     (the buckets G, ``m·n_blocks_max·blk_d``, written) and
     ``ell_grad_update_prefetch_fold`` (the entries and the map read, all of
-    W read and W_half written).
+    W read and W_half written). ``fleet_half_step`` above
+    ``hinge_subgrad.MAX_FLEET_B`` rows is its two-launch route: ``margins``
+    plus ``grad_update``.
     """
     entries = m * B * k
     if kind in ("ell_margins", "ell_margins_coeff", "ell_margins_prefetch",
@@ -347,6 +357,9 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
                 "flops": m * (2 * B * d + 3 * d)}
     if kind == "local_half_step":
         a, b = launch_cost("margins", B=B, d=d), launch_cost("grad_update", B=B, d=d)
+        return {key: a[key] + b[key] for key in a}
+    if kind == "fleet_half_step" and B > K.MAX_FLEET_B:
+        a, b = launch_cost("margins", m=m, B=B, d=d), launch_cost("grad_update", m=m, B=B, d=d)
         return {key: a[key] + b[key] for key in a}
     if kind == "fleet_half_step":
         return {"launches": 1, "bytes": 4 * (m * B * d + 2 * m * d + m * B + B),

@@ -1,7 +1,10 @@
-"""Serving for the port: snapshot → versioned checkpoint → score.
+"""Serving for the port: snapshot → versioned checkpoint → score, live.
 
-``snapshot`` exports a model state as a checkpoint (f32 or int8 + scale) in
-the reference's format; ``batcher`` holds the bucket shapes sparse queries
+``snapshot`` decodes the training loop's anytime ring and exports a model
+state as a checkpoint (f32 or int8 + scale) in the reference's format;
+``publisher`` trains in a background thread and publishes a checkpoint per
+stream segment (monotone versions, the ``LATEST`` pointer, crash-resume);
+``batcher`` holds the bucket shapes sparse queries
 are padded to; ``engine`` is ``SvmServer``, scoring dense batches on the
 ``dense_scores`` kernel and padded-ELL batches on ``ell_scores_prefetch``,
 with ``watch`` / ``maybe_reload`` hot-swapping the weight plane between
@@ -9,6 +12,8 @@ drains.
 """
 from repro_torch.serve.batcher import Bucket, bucket_ladder, calibrate_buckets  # noqa: F401
 from repro_torch.serve.engine import SvmServer  # noqa: F401
+from repro_torch.serve.publisher import TrainPublisher  # noqa: F401
 from repro_torch.serve.snapshot import (SERVE_FORMAT_VERSION, SERVE_KIND,  # noqa: F401
-                                        Snapshot, dequantize_int8, from_checkpoint,
-                                        quantize_int8, to_checkpoint)
+                                        Snapshot, dequantize_int8, from_checkpoint, latest,
+                                        latest_train_state, quantize_int8, snapshots_from,
+                                        to_checkpoint, train_state_from_checkpoint)

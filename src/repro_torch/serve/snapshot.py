@@ -1,22 +1,24 @@
-"""Snapshot export: versioned serving checkpoints and int8 quantization.
+"""Anytime snapshot export: ring decoding, versioned serving checkpoints,
+int8 quantization.
 
-A port of the checkpoint half of ``repro.serve.snapshot`` (the port imports
-nothing of ``repro``), writing the same manifests and arrays, so an export
-of either package serves in the other:
+A port of ``repro.serve.snapshot`` (the port imports nothing of ``repro``),
+writing the same manifests and arrays, so an export of either package
+serves in the other:
 
   * :class:`Snapshot`: one servable model state, ``(iteration, w,
-    objective)``. A trained run's is the reference's final ring entry,
-    ``Snapshot(res.iters, w_consensus, objective_trace[-1])``.
+    objective)``; :func:`snapshots_from` / :func:`latest` decode a
+    training run's anytime ring (``gadget_train(..., snapshot_every=K)``)
+    into ordered snapshots, the final iterate last.
   * :func:`to_checkpoint` / :func:`from_checkpoint`: a snapshot as a
     ``repro_torch.checkpoint`` step whose manifest ``extra`` carries the
     versioned serving schema (kind, format, dtype, shape, iteration,
     objective), optionally with an embedded train state (``train_W`` /
     ``train_W_sum`` leaves).
+  * :func:`train_state_from_checkpoint` / :func:`latest_train_state`: the
+    embedded :class:`~repro_torch.core.gadget.TrainState`, for a trainer
+    to resume from its last published model.
   * :func:`quantize_int8` / :func:`dequantize_int8`: symmetric per-class-row
     int8 weights with one float32 scale per row, 4× smaller at rest.
-
-Decoding a training run's snapshot ring and reading an embedded train state
-back come with the port's anytime export.
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.core.gadget import SnapshotRing, TrainState
 
-__all__ = ["Snapshot", "to_checkpoint", "from_checkpoint", "quantize_int8",
+__all__ = ["Snapshot", "snapshots_from", "latest", "to_checkpoint", "from_checkpoint",
+           "train_state_from_checkpoint", "latest_train_state", "quantize_int8",
            "dequantize_int8", "SERVE_KIND", "SERVE_FORMAT_VERSION"]
 
 SERVE_KIND = "gadget_svm_model"
@@ -59,6 +63,42 @@ class Snapshot:
     def n_classes(self) -> int:
         """1 for a binary (d,) snapshot, C for a multiclass (C, d) one."""
         return 1 if self.w.ndim == 1 else self.w.shape[0]
+
+
+def _ring_of(source) -> SnapshotRing:
+    ring = getattr(source, "snapshots", source)
+    if not isinstance(ring, SnapshotRing):
+        raise ValueError(
+            "no snapshots attached — train with gadget_train(..., "
+            "snapshot_every=K) to record the anytime ring")
+    return ring
+
+
+def snapshots_from(source) -> list[Snapshot]:
+    """Decode a training result's ring into ordered snapshots.
+
+    ``source``: a ``GadgetResult`` (its ``.snapshots``) or a
+    :class:`~repro_torch.core.gadget.SnapshotRing`. Oldest first; when the
+    ring wrapped only the latest ``slots`` periodic snapshots survive. The
+    final iterate is always last, appended when the run did not end on a
+    snapshot iteration (when K exceeds the iterations, it is the only one)."""
+    ring = _ring_of(source)
+    n_valid = min(ring.count, ring.slots)
+    out = [
+        Snapshot(int(ring.iterations[j % ring.slots]),
+                 np.asarray(ring.W[j % ring.slots]),
+                 float(ring.objectives[j % ring.slots]))
+        for j in range(ring.count - n_valid, ring.count)
+    ]
+    if not out or out[-1].iteration != ring.final_iteration:
+        out.append(Snapshot(int(ring.final_iteration), np.asarray(ring.final_w),
+                            float(ring.final_objective)))
+    return out
+
+
+def latest(source) -> Snapshot:
+    """The newest servable state (the final iterate)."""
+    return snapshots_from(source)[-1]
 
 
 # ------------------------------------------------------------- quantization
@@ -105,10 +145,11 @@ def to_checkpoint(snap: Snapshot, root: str, *, quantize: str | None = None,
     :func:`from_checkpoint` rebuilds the restore tree without out-of-band
     knowledge. ``step`` defaults to the snapshot's iteration.
 
-    ``train_state``: any object with ``iteration``, ``W`` and ``W_sum``
-    (arrays or tensors of one shape); it rides along as ``train_W`` /
-    ``train_W_sum`` leaves and a ``train_state`` manifest record, as the
-    reference's ``TrainState`` does. ``trace`` (a ``TraceContext.to_extra()``
+    ``train_state``: a :class:`~repro_torch.core.gadget.TrainState` (or any
+    object with ``iteration``, ``W`` and ``W_sum``, arrays or tensors of one
+    shape); it rides along as ``train_W`` / ``train_W_sum`` leaves and a
+    ``train_state`` manifest record, enough for
+    :func:`train_state_from_checkpoint` to rebuild the per-node state. ``trace`` (a ``TraceContext.to_extra()``
     dict) is stored under ``extra["trace"]``. ``point=False`` leaves the
     ``LATEST`` pointer to the caller (see ``repro_torch.checkpoint.save``).
     """
@@ -190,3 +231,49 @@ def _train_like(extra: dict) -> dict:
     shape, dtype = tuple(ts["shape"]), np.dtype(ts["dtype"])
     return {"train_W": np.zeros(shape, dtype),
             "train_W_sum": np.zeros(shape, dtype)}
+
+
+def train_state_from_checkpoint(root: str, step: int | None = None) -> TrainState:
+    """The :class:`~repro_torch.core.gadget.TrainState` embedded in a
+    checkpoint (``W`` and ``W_sum`` as numpy arrays).
+
+    Raises ``ValueError`` when the checkpoint is not a serving export or
+    carries no train state: resuming needs the per-node state, not only the
+    consensus weights."""
+    manifest = ckpt.read_manifest(root, step)
+    extra = manifest.get("extra") or {}
+    if extra.get("kind") != SERVE_KIND:
+        raise ValueError(
+            f"checkpoint under {root} is not a serving export "
+            f"(manifest extra: {extra!r})")
+    ts = extra.get("train_state")
+    if not ts:
+        raise ValueError(
+            f"checkpoint step {manifest.get('step')} under {root} carries no "
+            "train state — publish with TrainPublisher(save_train_state=True) "
+            "or to_checkpoint(..., train_state=...) to enable crash-resume")
+    d, C, binary = extra["d"], extra["n_classes"], extra["binary"]
+    w_shape = (d,) if binary else (C, d)
+    if extra["dtype"] == "int8":
+        like = {"w": np.zeros(w_shape, np.int8),
+                "scale": np.zeros(() if binary else (C,), np.float32)}
+    else:
+        like = {"w": np.zeros(w_shape, np.float32)}
+    like.update(_train_like(extra))
+    tree = ckpt.restore(root, like, step)
+    return TrainState(iteration=int(ts["iteration"]),
+                      W=tree["train_W"], W_sum=tree["train_W_sum"])
+
+
+def latest_train_state(root: str) -> TrainState | None:
+    """The latest embedded train state, or None on a cold start (no
+    checkpoint yet, no published step, or a latest step without train
+    state), so a restarting publisher can fall back to a fresh run."""
+    step = ckpt.read_latest(root)
+    if step is None:
+        return None
+    try:
+        return train_state_from_checkpoint(root, step)
+    except (ValueError, FileNotFoundError):
+        # not a serving export, no embedded state, or the step rotated away
+        return None

@@ -6,7 +6,8 @@ uses, copied (the port imports nothing of ``repro``): a
 triple passed explicitly across thread and process boundaries (a checkpoint
 manifest carries it as ``extra["trace"]``), and :func:`emit_span` /
 :func:`emit_event` write ``span`` / ``event`` records, trace ids at the top
-level, to the registry's sink. ``SvmServer`` emits ``serve.swap`` when it
+level, to the registry's sink, and :class:`TracedSpan` times a block into
+such a span, on the exception path too. ``SvmServer`` emits ``serve.swap`` when it
 installs a traced checkpoint and ``serve.first_score`` at the first scoring
 call after it, the serve-side end of a version's lineage chain.
 """
@@ -17,7 +18,7 @@ from typing import NamedTuple, Optional
 
 from repro_torch.telemetry.registry import Registry
 
-__all__ = ["TraceContext", "emit_span", "emit_event"]
+__all__ = ["TraceContext", "TracedSpan", "emit_span", "emit_event"]
 
 
 def _gen_id() -> str:
@@ -92,3 +93,29 @@ def emit_event(registry: Registry, name: str, ctx: TraceContext,
     registry.emit({"kind": "event", "name": name, "labels": {},
                    **_trace_fields(ctx),
                    "fields": {k: v for k, v in attrs.items() if v is not None}})
+
+
+class TracedSpan:
+    """Context manager timing one phase into a traced span. Like the
+    registry's ``Span`` but it carries a :class:`TraceContext` and closes on
+    the exception path too: a raise inside the block still observes the
+    histogram and emits the span record, with an ``error`` attribute naming
+    the exception."""
+
+    def __init__(self, registry: Registry, name: str, ctx: TraceContext, **attrs):
+        self.registry = registry
+        self.name = name
+        self.ctx = ctx
+        self.attrs = dict(attrs)
+        self.seconds: Optional[float] = None
+        self._t0: Optional[float] = None
+
+    def __enter__(self) -> "TracedSpan":
+        self._t0 = self.registry.clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.seconds = self.registry.clock() - self._t0
+        if exc_type is not None:
+            self.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
+        emit_span(self.registry, self.name, self.ctx, self.seconds, **self.attrs)

@@ -56,7 +56,8 @@ def test_collapse_rounds_batches_leading_axes():
 @pytest.mark.parametrize("n", [1, 2, 3, 10])
 def test_device_random_matrix_is_one_neighbour_protocol(n):
     gen = torch.Generator().manual_seed(n)
-    Bs = TT.random_neighbor_matrix_device(n, generator=gen, batch=(50, 4))
+    targets = torch.randint(0, max(n - 1, 1), (50, 4, n), generator=gen)
+    Bs = TT.random_neighbor_matrix_device(n, targets=targets)
     assert Bs.shape == (50, 4, n, n) and Bs.dtype == torch.float32
     torch.testing.assert_close(Bs.sum(-1), torch.ones(50, 4, n))  # row-stochastic
     if n == 1:
