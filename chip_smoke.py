@@ -142,8 +142,28 @@ Phases, each of which exits non-zero on failure:
     background thread into a temporary root while ``SvmServer.watch``
     serves CCAT's test queries through ``maybe_reload``; versions monotone,
     the last served accuracy the final consensus's, ``ell_scores_prefetch``
-    once a batch;
-19. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+    once a batch; the publisher traces its segments, and its registry and
+    the server's stream their span records into one JSONL file;
+19. the serving control plane, on phase 7's model and phase 10's buckets:
+    the CCAT test set written with ``dump_libsvm`` and read back with
+    ``load_libsvm_csr`` and ``iter_libsvm_chunks``, bit for bit its planes;
+    every test query through ``MicroBatcher.submit_csr`` and drained with
+    ``srv.scorer_for()``, whole and ragged (one ``ell_scores_prefetch``
+    launch a batch, scores within 1e-5 of the plain gather-dot, accuracy
+    phase 7's, the ragged pass in more than one bucket, the counts
+    reconciled), and the whole pass again with every request traced; an
+    open loop of seeded Poisson arrivals from a submitter thread at twice
+    the traced closed loop's capacity (20,000 requests) and then at half
+    the rate it served in that burst, behind ``max_pending``,
+    ``shed-oldest``, a ``default_timeout``, ``DegradeLadder(max_rung=2)``
+    and ``RequestTracer(sample=1.0)`` (every request accounted for, the queue
+    within its bound, the ladder down during the burst and back at rung 0
+    by the end, no new shape but cap overflows, the traced fates the
+    batcher's counts, delivered p99 within the deadline plus
+    ``benchmarks/overload_bench.py``'s slack); and the lineage chains of
+    phase 18's records, every installed version's complete and monotone,
+    with ``format_chain`` of the last and one frame of the top console;
+20. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
     phases' objects; each kernel's ``paths`` lists the later phases that
     run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
@@ -161,6 +181,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -232,11 +253,8 @@ REDUCED_RWKV_ATOL = 1e-4      # at tests/test_torch_transformer.py's rwkv6 forwa
 # decode exceeds the tolerance at 8 layers), so at full depth the spread is
 # measured and reported, not held
 RWKV_CHECK_LAYERS = 1
-# the paper's reuters and CCAT runs: PAPER_RUNS["reuters"] and ["ccat"] of
-# the JAX package's configs/gadget_svm.py (Table 2 λ, k = 10 nodes, ε = 1e-3)
-REUTERS = dict(lam=1.29e-4, batch_size=1, gossip_rounds=4, topology="random",
-               epsilon=1e-3, check_every=200, max_iters=4000, seed=0)
-CCAT = dict(REUTERS, lam=1e-4, sparse_schedule="auto")
+# the paper's reuters and CCAT runs are repro_torch.configs.gadget_svm's
+# PAPER_RUNS["reuters"] and ["ccat"] (Table 2 λ, k = 10 nodes, ε = 1e-3)
 N_NODES = 10
 C1_ROWS, C1_D, C1_ITERS = 2048, 64, 5   # phase 15: one row above the fused cap, a small d
 # phase 15: the routed step against the plain float32 step, relative to
@@ -258,6 +276,20 @@ LINK_MASS_ATOL = 1e-6                   # link mode conserves Push-Sum mass
 SEGMENT_ITERS, SNAPSHOT_SLOTS = 500, 4  # phases 17 and 18
 STREAM_REUTERS_ITERS = 1000
 SERVE_PAUSE_S = 0.01                    # phase 18: pause between bursts of 128 queries
+LINEAGE_FILE = "lineage.jsonl"          # phase 18's span records, read in phase 19
+# phase 19: the control plane. The open loop offers BURST_LOAD x the closed
+# loop's capacity, then TAIL_LOAD x the rate it served in that burst for
+# TAIL_S seconds; max_pending, the timeout and P99_SLACK_MS as
+# benchmarks/overload_bench.py sets them
+INGEST_CHUNK_ROWS = 500
+OPEN_LOOP_REQUESTS, OPEN_LOOP_SEED = 20_000, 19
+BURST_LOAD, TAIL_LOAD, TAIL_S = 2.0, 0.5, 1.5
+# the submitter sleeps at least this long between wakes, then submits every
+# arrival due, so it takes the interpreter lock from the drain at most 200
+# times a second (on an NVIDIA H100 host 1 ms and 5 ms measured alike:
+# tools/control_plane_probe.py)
+SUBMIT_TICK_S = 5e-3
+P99_SLACK_MS = 500.0
 
 
 def log(msg: str) -> None:
@@ -345,9 +377,10 @@ def rel_err(a, b) -> tuple[float, float]:
     return err, err / max(1.0, float(b.abs().max()))
 
 
-def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
+def phase_kernels(torch, K, P, ops, lam, gen, dev) -> dict:
     """Every kernel against its plain version at the main path's shape and a
-    ragged one; times at the main path's shape."""
+    ragged one; times at the main path's shape (step scalars of the reuters
+    run's ``lam``)."""
     d = 8315  # reuters
     out = {}
 
@@ -358,14 +391,14 @@ def phase_kernels(torch, K, P, ops, gen, dev) -> dict:
     def labels(*shape):
         return torch.where(torch.rand(*shape, generator=gen, device=dev) < 0.5, -1.0, 1.0)
 
-    scal = ops.step_scalars(REUTERS["lam"], 1000, 1)
+    scal = ops.step_scalars(lam, 1000, 1)
 
     # fleet_half_step: (m, B, d) = (10, 1, 8315) on the main path
     def fleet_case(m, B, dd):
         X, y = rows(m, B, dd), labels(m, B)
         W = 10 * torch.randn(m, dd, generator=gen, device=dev)
         mask = torch.ones(B, device=dev)
-        s = ops.step_scalars(REUTERS["lam"], 1000, B)
+        s = ops.step_scalars(lam, 1000, B)
         return (X, W, y, mask, s)
     ragged = fleet_case(3, 37, 1001)
     ragged[3][::3] = 0.0  # some rows masked out
@@ -634,12 +667,13 @@ def ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=0):
             torch.from_numpy(y_parts[node, rows][:, None]).to(dev))
 
 
-def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
+def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
     """The sparse kernels' seven entries against their plain versions at the
     CCAT main path's shape (a real minibatch, its touched-block map at the
     data's bound) and at a ragged shape with pad entries, a pad row, an
     all-pad node, and the map at the sound cap and one slot short (the sweep
-    margins also at k = 600, in waves); times at the main path's shape."""
+    margins also at k = 600, in waves); times at the main path's shape
+    (step scalars of the CCAT run's ``lam``)."""
     parts, y_parts, n_counts = ccat
     cols, vals, y = ccat_minibatch(torch, parts, y_parts, n_counts, dev)
     m, B, k = cols.shape
@@ -651,7 +685,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
     require((sched, blk_pf) == ("prefetch", 128), f"CCAT resolves to {sched}, blk_d {blk_pf}")
     nd = -(-d // blk_pf)
     bids = ops.ell_block_map(cols, vals, blk_d=blk_pf, n_d_blocks=nd, n_blocks_max=n_blocks_max)
-    scal = ops.step_scalars(CCAT["lam"], 1000, B)
+    scal = ops.step_scalars(lam, 1000, B)
 
     # ragged: (m, B, k, d) = (3, 5, 13, 1001), 25% pad entries, row 2 a pad
     # row, node 1 all pads (its map all sentinel), rows 0 and 1 of node 0
@@ -671,7 +705,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, gen, dev) -> dict:
     live = max(len(torch.unique(c[v != 0] // blk_pf)) for c, v in zip(rcols, rvals))
     rbids = ops.ell_block_map(rcols, rvals, blk_d=blk_pf, n_d_blocks=rnd, n_blocks_max=live)
     rcut = ops.ell_block_map(rcols, rvals, blk_d=blk_pf, n_d_blocks=rnd, n_blocks_max=live - 1)
-    rscal = ops.step_scalars(CCAT["lam"], 1000, rB)
+    rscal = ops.step_scalars(lam, 1000, rB)
     # waves: (m, B, k) = (2, 3, 600) at CCAT's width, 20% pad entries, the
     # map every block of d (370 slots)
     wcols = torch.randint(0, d, (2, 3, 600), generator=gen, device=dev, dtype=torch.int32)
@@ -1767,15 +1801,34 @@ def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev,
             "resumed_from": seg2.iteration}
 
 
-def phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets, queries, dev, tmp,
-                    reset, counts_of) -> dict:
+def phase_publisher(torch, serve, formats, telemetry, R, cfg_c, ccat, ds_c, buckets, queries,
+                    dev, tmp, reset, counts_of) -> dict:
     """Phase 18: ``TrainPublisher`` trains CCAT in a background thread and
     publishes a checkpoint a segment while an ``SvmServer`` watches the root
-    and serves CCAT's test queries through ``ell_scores_prefetch``."""
+    and serves CCAT's test queries through ``ell_scores_prefetch``. The
+    publisher traces its segments, and its registry and the server's stream
+    their span records into ``tmp / LINEAGE_FILE``, which phase 19 reads."""
     parts_c, y_c, n_c = ccat
     root = str(tmp / "live")
+    reg_pub, reg_srv = telemetry.Registry(), telemetry.Registry()
+    with telemetry.JsonlSink(str(tmp / LINEAGE_FILE)) as sink_pub, \
+            telemetry.JsonlSink(str(tmp / LINEAGE_FILE)) as sink_srv:
+        reg_pub.attach_sink(sink_pub)
+        reg_srv.attach_sink(sink_srv)
+        try:
+            return publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c,
+                                 buckets, queries, dev, root, reg_pub, reg_srv, reset, counts_of)
+        finally:
+            reg_pub.detach_sink()
+            reg_srv.detach_sink()
+
+
+def publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c, buckets, queries,
+                  dev, root, reg_pub, reg_srv, reset, counts_of) -> dict:
+    """The body of phase 18, on the given registries."""
     pub = serve.TrainPublisher(parts_c, y_c, cfg_c, root=root, segment_iters=SEGMENT_ITERS,
-                               n_counts=n_c, device=dev, save_train_state=True)
+                               n_counts=n_c, device=dev, save_train_state=True,
+                               registry=reg_pub, trace=True)
     reset()
     t0 = time.perf_counter()
     pub.start()
@@ -1784,7 +1837,7 @@ def phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets, querie
         while not pub.published and pub.running and time.monotonic() < deadline:
             time.sleep(0.005)
         require(bool(pub.published), f"no version published ({pub.error!r})")
-        srv = serve.SvmServer.watch(root, device=dev)
+        srv = serve.SvmServer.watch(root, device=dev, registry=reg_srv)
         seen, batches, passes = [srv.meta["iteration"]], 0, 0
         while pub.running:
             step = srv.maybe_reload()
@@ -1833,6 +1886,290 @@ def phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets, querie
             "ell_scores_prefetch": c["ell_scores_prefetch"],
             "ell_margins_prefetch_coeff": c["ell_margins_prefetch_coeff"],
             "ell_grad_update_prefetch_fold": c["ell_grad_update_prefetch_fold"]}
+
+
+def queries_csr(queries, d: int, CSR):
+    """A list of (cols, vals) queries as one CSR of ``len(queries)`` rows."""
+    indptr = np.zeros(len(queries) + 1, np.int64)
+    np.cumsum([len(c) for c, _ in queries], out=indptr[1:])
+    return CSR(np.concatenate([v for _, v in queries]), np.concatenate([c for c, _ in queries]),
+               indptr, (len(queries), d))
+
+
+def closed_loop(serve, srv, buckets, chunks, tracer=None) -> dict:
+    """Each CSR chunk submitted whole (``submit_csr``) to an unbounded
+    ``MicroBatcher`` (traced by ``tracer`` when one is given) and drained
+    through ``srv.scorer_for()``: the results in row order, the batcher's
+    stats and the host seconds of the pass."""
+    mb = serve.MicroBatcher(buckets, tracer=tracer)
+    score_fn = srv.scorer_for()
+    rids, out = [], {}
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        rids += mb.submit_csr(chunk)
+        out.update(mb.drain(score_fn))
+    seconds = time.perf_counter() - t0
+    results = [out[r] for r in rids]
+    require(all(isinstance(r, tuple) for r in results), "an unbounded queue lost a request")
+    st = mb.stats()
+    require(st["submitted"] == st["delivered"] + st["shed"] + st["deadline_missed"]
+            + st["pending"] == len(rids), f"the closed loop does not reconcile: {st}")
+    return {"scores": np.array([float(s) for s, _ in results], np.float32),
+            "labels": np.array([float(lb) for _, lb in results], np.float32),
+            "stats": st, "seconds": seconds}
+
+
+def open_loop(serve, tmtr, srv, buckets, queries, capacity, registry, reset, counts_of) -> dict:
+    """Seeded Poisson arrivals from a submitter thread at ``BURST_LOAD`` ×
+    ``capacity`` (the traced closed loop's queries/s; the test queries
+    repeated to ``OPEN_LOOP_REQUESTS``), then for ``TAIL_S`` seconds at
+    ``TAIL_LOAD`` × the rate the open loop served during that burst, while
+    this thread steps the ``DegradeLadder`` and drains, behind
+    ``max_pending``, ``shed-oldest``, a ``default_timeout`` and a
+    ``RequestTracer`` of every request. The knobs are derived from capacity
+    as ``benchmarks/overload_bench.py`` derives them."""
+    max_pending = max(64, int(capacity * 0.05))
+    timeout_s = max(0.1, 4 * max_pending / capacity)
+    tracer = tmtr.RequestTracer(registry, sample=1.0, seed=OPEN_LOOP_SEED)
+    mb = serve.MicroBatcher(buckets, registry=registry, max_pending=max_pending,
+                            admission="shed-oldest", default_timeout=timeout_s, tracer=tracer)
+    ladder = serve.DegradeLadder(srv, mb, high=0.75, low=0.25, patience=2, max_rung=2)
+    ladder.prepare()
+    st_srv = srv.stats()
+    shapes0, overflows0 = st_srv["distinct_shapes"], st_srv["cap_overflows"]
+    rng = np.random.default_rng(OPEN_LOOP_SEED)
+    burst = np.cumsum(rng.exponential(1.0 / (BURST_LOAD * capacity), OPEN_LOOP_REQUESTS))
+    burst_done, done = threading.Event(), threading.Event()
+    errors, rejected, seg_s, tail = [], [0], [], {}
+    served = [0]  # requests submitted so far, for the query each arrival sends
+
+    def submit_segment(arrivals):
+        """Submit each arrival at its time, on a clock of the segment's own."""
+        t0, j = time.monotonic(), 0
+        while j < len(arrivals):
+            # every arrival due by now, then sleep to the next one, at least
+            # SUBMIT_TICK_S: each wake takes the interpreter lock from the drain
+            due = int(np.searchsorted(arrivals, time.monotonic() - t0, side="right"))
+            for _ in range(j, due):
+                try:
+                    mb.submit(*queries[served[0] % len(queries)])
+                except serve.QueryRejected:
+                    rejected[0] += 1
+                served[0] += 1
+            j = max(j, due)
+            if j < len(arrivals):
+                time.sleep(max(arrivals[j] - (time.monotonic() - t0), SUBMIT_TICK_S))
+        seg_s.append(time.monotonic() - t0)
+
+    def submitter():
+        try:
+            submit_segment(burst)
+            burst_done.set()
+            # the tail's load is a share of what the open loop served in the
+            # saturated burst: the two threads share the interpreter lock, and
+            # a tail at a share of the closed loop's capacity did not always
+            # drain (tools/control_plane_probe.py)
+            tail["goodput_qps"] = max(1.0, registry.value("serve.delivered") / seg_s[0])
+            rate = TAIL_LOAD * tail["goodput_qps"]
+            tail["qps"], tail["n"] = rate, max(len(buckets) * 64, int(rate * TAIL_S))
+            submit_segment(np.cumsum(rng.exponential(1.0 / rate, tail["n"])))
+        except BaseException as e:  # re-raised by the draining thread
+            errors.append(e)
+        finally:
+            burst_done.set()
+            done.set()
+
+    score_fn = srv.scorer_for()
+    th = threading.Thread(target=submitter, daemon=True, name="chip-smoke-submitter")
+    max_rung_burst = 0
+    reset()
+    t_start = time.perf_counter()
+    th.start()
+    try:
+        while not done.is_set() or mb.pending:
+            rung = ladder.observe()
+            if not burst_done.is_set():
+                max_rung_burst = max(max_rung_burst, rung)
+            if mb.pending:
+                mb.drain(score_fn)
+            else:
+                time.sleep(0.0005)
+    finally:
+        th.join(timeout=600)
+    require(not th.is_alive(), "the submitter thread did not end")
+    if errors:
+        raise errors[0]
+    mb.drain(score_fn)  # flush the typed Shed / DeadlineExceeded results
+    wall = time.perf_counter() - t_start
+    n_tail = tail["n"]
+    n = OPEN_LOOP_REQUESTS + n_tail
+    rung_end = ladder.rung
+    c = counts_of()
+    srv.set_plane("f32")
+    mb.degrade_to(None)
+    st = mb.stats()
+    st_srv = srv.stats()
+    fates = tracer.fate_counts()
+    want_fates = {k: v for k, v in (("delivered", st["delivered"]), ("shed", st["shed"]),
+                                    ("deadline", st["deadline_missed"]),
+                                    ("rejected", st["rejected"])) if v}
+    steps = {d: int(srv.registry.value("serve.degrade_steps", direction=d)) for d in ("down", "up")}
+    p99_bound_ms = timeout_s * 1e3 + P99_SLACK_MS
+    out = {"offered": n, "burst_requests": OPEN_LOOP_REQUESTS, "tail_requests": n_tail,
+           "burst_qps": BURST_LOAD * capacity, "burst_goodput_qps": tail["goodput_qps"],
+           "tail_qps": tail["qps"],
+           "burst_s": seg_s[0], "tail_s": seg_s[1],
+           "burst_submitted_qps": OPEN_LOOP_REQUESTS / seg_s[0],
+           "max_pending": max_pending, "timeout_ms": timeout_s * 1e3, "wall_s": wall,
+           "goodput_qps": st["delivered"] / wall, "shed_rate": st["shed"] / n,
+           "deadline_miss_rate": st["deadline_missed"] / n, "rejected": st["rejected"],
+           "truncated": st["truncated"], "queue_peak": st["queue_peak"],
+           "p50_ms": st["latency_p50_ms"], "p99_ms": st["latency_p99_ms"],
+           "p99_bound_ms": p99_bound_ms, "batches": st["batches"],
+           "ell_scores_prefetch": c["ell_scores_prefetch"], "max_rung_burst": max_rung_burst,
+           "rung_end": rung_end, "degrade_steps": steps, "trace_fates": fates,
+           "distinct_shapes": [shapes0, st_srv["distinct_shapes"]],
+           "cap_overflows": [overflows0, st_srv["cap_overflows"]]}
+    log(f"  open loop: {n} offered ({OPEN_LOOP_REQUESTS} at {BURST_LOAD:g}x capacity, "
+        f"{BURST_LOAD * capacity:.0f} q/s, submitted in {seg_s[0]:.3f} s, "
+        f"{OPEN_LOOP_REQUESTS / seg_s[0]:.0f} q/s, served {tail['goodput_qps']:.0f} q/s; then "
+        f"{n_tail} at {TAIL_LOAD:g}x that, {tail['qps']:.0f} q/s, in {seg_s[1]:.3f} s) in "
+        f"{wall:.3f} s; "
+        f"max_pending {max_pending}, timeout {timeout_s * 1e3:.1f} ms; goodput "
+        f"{out['goodput_qps']:.1f} q/s, shed rate {out['shed_rate']:.4f}, deadline rate "
+        f"{out['deadline_miss_rate']:.4f}, rejected {st['rejected']}, truncated {st['truncated']}; "
+        f"p50 {st['latency_p50_ms']:.3f} ms, p99 {st['latency_p99_ms']:.3f} ms (<= "
+        f"{p99_bound_ms:.1f}); queue peak {st['queue_peak']}; rung steps {steps}, max rung in "
+        f"the burst {max_rung_burst}, rung at the end {rung_end}; {st['batches']} batches, "
+        f"ell_scores_prefetch {c['ell_scores_prefetch']}; shapes {shapes0} -> "
+        f"{st_srv['distinct_shapes']}, cap overflows {overflows0} -> {st_srv['cap_overflows']}; "
+        f"traced fates {fates}")
+    require(st["submitted"] + st["rejected"] == n and rejected[0] == st["rejected"],
+            f"offered {n} != submitted {st['submitted']} + rejected {st['rejected']}")
+    require(st["pending"] == 0 and st["submitted"] == st["delivered"] + st["shed"]
+            + st["deadline_missed"], f"the open loop does not reconcile: {st}")
+    require(st["queue_peak"] <= max_pending, f"queue peak {st['queue_peak']} > {max_pending}")
+    require(max_rung_burst >= 1, "the ladder did not step down during the burst")
+    require(rung_end == 0, f"the ladder ended the tail on rung {rung_end}")
+    require(st_srv["distinct_shapes"] - shapes0 <= st_srv["cap_overflows"] - overflows0,
+            f"the ladder moved the served shapes {shapes0} -> {st_srv['distinct_shapes']}")
+    require(c["ell_scores_prefetch"] == st["batches"],
+            f"ell_scores_prefetch launched {c['ell_scores_prefetch']} times for "
+            f"{st['batches']} batches")
+    require(fates == want_fates, f"traced fates {fates} != the batcher's {want_fates}")
+    require(registry.value("trace.requests") == n, "not every offered request was traced")
+    require(st["latency_p99_ms"] <= p99_bound_ms,
+            f"delivered p99 {st['latency_p99_ms']:.1f} ms > {p99_bound_ms:.1f} ms")
+    return out
+
+
+def phase_control_plane(torch, serve, formats, libsvm, telemetry, tmtr, top, R, ds_c, w_c,
+                        n_correct_c, buckets, installed, dev, tmp, reset, counts_of) -> dict:
+    """Phase 19: the serving control plane in front of ``SvmServer`` on phase
+    7's CCAT model and phase 10's calibrated buckets: LibSVM ingest, the
+    closed loop through ``MicroBatcher.submit_csr`` (whole, ragged, traced), the
+    open loop under overload (``open_loop``), and the lineage chains of
+    phase 18's span records with one frame of the top console."""
+    X_te, y_te = ds_c.X_test, ds_c.y_test
+    d, k_max = X_te.shape[1], X_te.k_max
+    path = str(tmp / "ccat_test.svm")
+    t0 = time.perf_counter()
+    libsvm.dump_libsvm(path, X_te.to_csr(), y_te)
+    csr, y_read = libsvm.load_libsvm_csr(path, d)
+    chunks = list(libsvm.iter_libsvm_chunks(path, d, chunk_rows=INGEST_CHUNK_ROWS))
+    ingest_s = time.perf_counter() - t0
+    ell = csr.to_ell(k_max)
+    chunk_ells = [c.to_ell(k_max) for c, _ in chunks]
+    same = (np.array_equal(ell.cols, X_te.cols) and np.array_equal(ell.vals, X_te.vals)
+            and np.array_equal(np.concatenate([e.cols for e in chunk_ells]), X_te.cols)
+            and np.array_equal(np.concatenate([e.vals for e in chunk_ells]), X_te.vals))
+    labels_same = (np.array_equal(y_read, y_te)
+                   and np.array_equal(np.concatenate([lab for _, lab in chunks]), y_te))
+    log(f"  ingest: {X_te.shape[0]} rows, {csr.nnz} entries written with dump_libsvm "
+        f"({Path(path).stat().st_size} bytes) and read back whole and in {len(chunks)} chunks "
+        f"in {ingest_s:.3f} s; planes bit for bit: {same}, labels equal: {labels_same}")
+    require(same, "the LibSVM round trip changed the CCAT test planes")
+    require(labels_same, "the LibSVM round trip changed the CCAT test labels")
+    require(len(chunks) > 1, "the chunked read gave one chunk")
+
+    registry = telemetry.Registry()
+    srv = serve.SvmServer(w_c, device=dev, registry=registry)
+    for b in buckets:  # every bucket's shape served once before anything is counted
+        srv.score_sparse(np.zeros((b.rows, b.k), np.int32), np.zeros((b.rows, b.k), np.float32),
+                         n_blocks_max=b.n_blocks_max)
+    torch.cuda.synchronize()
+    w_dev = torch.from_numpy(w_c).to(dev)
+    ragged = ccat_queries(X_te, ragged=True)
+    passes = {}
+    # the traced whole pass runs the open loop's per-request work (a
+    # RequestTracer of every request): its rate is the capacity the open
+    # loop's loads are multiples of
+    for name, chunks_of, traced in (("whole", [c for c, _ in chunks], False),
+                                    ("ragged", [queries_csr(ragged, d, formats.CSR)], False),
+                                    ("whole, traced", [c for c, _ in chunks], True)):
+        reset()
+        res = closed_loop(serve, srv, buckets, chunks_of,
+                          tmtr.RequestTracer(telemetry.Registry(), sample=1.0) if traced else None)
+        launches = counts_of()["ell_scores_prefetch"]
+        st = res["stats"]
+        q = ragged if name == "ragged" else ccat_queries(X_te, ragged=False)
+        cols_all, vals_all = formats.pad_query_planes(q, len(q), k_max)
+        cols_all, vals_all = torch.from_numpy(cols_all).to(dev), torch.from_numpy(vals_all).to(dev)
+        want = R.ell_predict_scores_ref(w_dev[None], cols_all, vals_all)[:, 0]
+        err = rel_err(torch.from_numpy(res["scores"]).to(dev), want)[1]
+        plain_lbl = torch.where(R.ell_matvec_flat(w_dev, cols_all, vals_all) >= 0, 1.0, -1.0)
+        sure = want.abs() > 1e-5
+        labels_ok = torch.equal(torch.from_numpy(res["labels"]).to(dev)[sure], plain_lbl[sure])
+        n_q = len(q)
+        passes[name] = {"queries": n_q, "batches": st["batches"], "ell_scores_prefetch": launches,
+                        "seconds": res["seconds"], "queries_per_s": n_q / res["seconds"],
+                        "host_ms_per_batch": 1e3 * res["seconds"] / st["batches"],
+                        "drain_ms_per_batch": 1e3 * st["drain_seconds"] / st["batches"],
+                        "p50_ms": st["latency_p50_ms"], "p99_ms": st["latency_p99_ms"],
+                        "buckets": sorted(st["per_bucket_latency_ms"]), "scores_rel_err": err,
+                        "pad_fraction": st["pad_fraction"]}
+        if name == "whole":
+            passes[name]["test_accuracy"] = float(np.mean(res["labels"] == y_te))
+            n_correct = int(np.sum(res["labels"] == y_te))
+        log(f"  closed loop, {name}: {n_q} queries in {st['batches']} batches (buckets "
+            f"{passes[name]['buckets']}) in {res['seconds']:.3f} s: {n_q / res['seconds']:.1f} "
+            f"queries/s, {passes[name]['host_ms_per_batch']:.3f} ms host time per batch "
+            f"({passes[name]['drain_ms_per_batch']:.3f} ms of it draining), p50 "
+            f"{st['latency_p50_ms']:.3f} ms, p99 {st['latency_p99_ms']:.3f} ms, scores rel err "
+            f"{err:.3e}, ell_scores_prefetch {launches}")
+        require(launches == st["batches"],
+                f"{name}: ell_scores_prefetch launched {launches} times for {st['batches']} batches")
+        require(err <= KERNEL_RTOL, f"{name}: served scores differ from the plain gather-dot by {err:.3e}")
+        require(labels_ok, f"{name}: labels differ from the plain gather-dot's")
+    require(n_correct == n_correct_c,
+            f"closed-loop accuracy {passes['whole']['test_accuracy']:.4f} != phase 7's")
+    require(len(passes["ragged"]["buckets"]) > 1,
+            f"the ragged pass used buckets {passes['ragged']['buckets']} only")
+    capacity = passes["whole, traced"]["queries_per_s"]
+
+    queries = ccat_queries(X_te, ragged=False)
+    loop = open_loop(serve, tmtr, srv, buckets, queries, capacity, registry, reset, counts_of)
+    st_srv = srv.stats()
+    require(st_srv["distinct_shapes"] <= len(buckets) + st_srv["cap_overflows"],
+            f"{st_srv['distinct_shapes']} shapes served for {len(buckets)} buckets and "
+            f"{st_srv['cap_overflows']} cap overflows")
+
+    records = telemetry.read_jsonl(str(tmp / LINEAGE_FILE))
+    chains = tmtr.lineage_chains(records)
+    broken = [v for v in installed
+              if not (v in chains and chains[v]["complete"] and chains[v]["monotone"])]
+    log(f"  lineage: {len(records)} records from phase 18, {len(chains)} chains, "
+        f"{sum(c['complete'] for c in chains.values())} complete; the server installed "
+        f"{installed}, each complete and monotone: {not broken}")
+    require(not broken, f"installed versions {broken} have no complete, monotone chain")
+    for line in tmtr.format_chain(installed[-1], chains[installed[-1]]).splitlines():
+        log(f"    {line}")
+    for line in top.render_registry(registry, records).splitlines():
+        log(f"    {line}")
+    return {"ingest_s": ingest_s, "ingest_chunks": len(chunks), "closed_loop": passes,
+            "capacity_qps": capacity, "open_loop": loop, "distinct_shapes": st_srv["distinct_shapes"],
+            "cap_overflows": st_srv["cap_overflows"], "lineage_chains": len(chains),
+            "installed": list(installed)}
 
 
 def profile_iterations(torch, run) -> dict:
@@ -1911,7 +2248,10 @@ def main() -> int:
     from repro_torch.kernels.hinge_subgrad import ref as R
     from repro_torch.kernels.hinge_subgrad import sparse as S
     from repro_torch import serve
+    from repro_torch import telemetry
     from repro_torch.configs import get_config
+    from repro_torch.configs.gadget_svm import PAPER_RUNS
+    from repro_torch.data import libsvm
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.rglru_scan import ops as RO
@@ -1923,11 +2263,16 @@ def main() -> int:
     from repro_torch.models.transformer import Model
     from repro_torch.sparse import formats
     from repro_torch.sparse.formats import ELL
+    from repro_torch.telemetry import top
+    from repro_torch.telemetry import trace as tmtr
 
     X = (FA.flash_attention, RG.rglru_scan, WK.wkv_scan)
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    cfg, cfg_c = PAPER_RUNS["reuters"].gadget, PAPER_RUNS["ccat"].gadget
+    require(PAPER_RUNS["reuters"].n_nodes == PAPER_RUNS["ccat"].n_nodes == N_NODES
+            and cfg_c.sparse_schedule == "auto", "the paper runs are not 10 nodes, auto schedule")
 
     log("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1952,7 +2297,7 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = phase_kernels(torch, K, P, ops, gen, dev)
+    kernels = phase_kernels(torch, K, P, ops, cfg.lam, gen, dev)
     t0 = time.perf_counter()
     ds_c = make_dataset("ccat", scale=CCAT_SCALE, seed=0, sparse=True)
     gen_s = time.perf_counter() - t0
@@ -1960,7 +2305,7 @@ def main() -> int:
     log(f"  CCAT at scale {CCAT_SCALE}: train {ds_c.X_train.shape} (k = {ds_c.X_train.k_max}), "
         f"test {ds_c.X_test.shape}, generated in {gen_s:.1f} s, partitions "
         f"{tuple(ccat[0].cols.shape)}, block bound at B=1: {ccat[0].block_bound(1)}")
-    kernels.update(phase_sparse_kernels(torch, S, ops, ccat, gen, dev))
+    kernels.update(phase_sparse_kernels(torch, S, ops, ccat, cfg_c.lam, gen, dev))
     serving_row, buckets = phase_serving_kernel(torch, P, ops, serve, formats, ds_c, ccat[0],
                                                 gen, dev)
     kernels.update(serving_row)
@@ -1975,7 +2320,6 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  data: train {ds.X_train.shape}, test {ds.X_test.shape}, partitions "
         f"{tuple(Xp.shape)}, {time.perf_counter() - t0:.1f} s")
-    cfg = GadgetConfig(**REUTERS)
     gadget_train(X_dev, y_dev, cfg._replace(max_iters=20, check_every=10),
                  n_counts=n_counts, device=dev)  # warm-up: cuBLAS and the libraries
     torch.cuda.synchronize()
@@ -2065,7 +2409,6 @@ def main() -> int:
 
     log("phase 7: sparse main path, CCAT as ELL planes at full width")
     parts_c, y_c, n_c = ccat
-    cfg_c = GadgetConfig(**CCAT)
     k_c = parts_c.cols.shape[-1]
     schedule = ops.resolve_ell_schedule("auto", B=cfg_c.batch_size, k=k_c, d=parts_c.d,
                                         n_blocks_max=parts_c.block_bound(cfg_c.batch_size))
@@ -2181,8 +2524,8 @@ def main() -> int:
     ragged = ccat_queries(ds_c.X_test, ragged=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         root = Path(tmp)
-        serve.to_checkpoint(snap, str(root / "f32"), lam=CCAT["lam"])
-        serve.to_checkpoint(snap, str(root / "int8"), quantize="int8", lam=CCAT["lam"])
+        serve.to_checkpoint(snap, str(root / "f32"), lam=cfg_c.lam)
+        serve.to_checkpoint(snap, str(root / "int8"), quantize="int8", lam=cfg_c.lam)
         srv = serve.SvmServer.load(str(root / "f32"))
         srv_q = serve.SvmServer.load(str(root / "int8"))
         require(srv.device.type == "cuda" and srv.meta["iteration"] == res_c.iters,
@@ -2318,12 +2661,17 @@ def main() -> int:
                                 tmp, reset, counts_of)
         phase_s["17"] = time.perf_counter() - t0 - sum(phase_s.values())
         log("phase 18: the live publisher behind a watching server")
-        publisher = phase_publisher(torch, serve, formats, R, cfg_c, ccat, ds_c, buckets,
-                                    queries, dev, tmp, reset, counts_of)
+        publisher = phase_publisher(torch, serve, formats, telemetry, R, cfg_c, ccat, ds_c,
+                                    buckets, queries, dev, tmp, reset, counts_of)
         phase_s["18"] = time.perf_counter() - t0 - sum(phase_s.values())
+        log("phase 19: the serving control plane")
+        control = phase_control_plane(torch, serve, formats, libsvm, telemetry, tmtr, top, R,
+                                      ds_c, w_c, n_correct_c, buckets, publisher["installed"],
+                                      dev, tmp, reset, counts_of)
+        phase_s["19"] = time.perf_counter() - t0 - sum(phase_s.values())
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
-    log("phase 19: summary")
+    log("phase 20: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -2372,9 +2720,17 @@ def main() -> int:
         more_paths[name] += [
             {"path": "CCAT stream (phase 17)", "launches": anytime["ccat_stream"][name]},
             {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]}]
-    more_paths["ell_scores_prefetch"].append(
+    more_paths["ell_scores_prefetch"] += [
         {"path": "serving behind the publisher (phase 18)",
-         "launches": publisher["ell_scores_prefetch"]})
+         "launches": publisher["ell_scores_prefetch"]},
+        {"path": "control plane, closed loop, whole (phase 19)",
+         "launches": control["closed_loop"]["whole"]["ell_scores_prefetch"]},
+        {"path": "control plane, closed loop, ragged (phase 19)",
+         "launches": control["closed_loop"]["ragged"]["ell_scores_prefetch"]},
+        {"path": "control plane, closed loop, whole, traced (phase 19)",
+         "launches": control["closed_loop"]["whole, traced"]["ell_scores_prefetch"]},
+        {"path": "control plane, open loop under overload (phase 19)",
+         "launches": control["open_loop"]["ell_scores_prefetch"]}]
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
                "ell_scores_prefetch": "predict.cu",
@@ -2437,6 +2793,7 @@ def main() -> int:
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
             "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
+            "control_plane": control,
             "later_phase_s": phase_s,
             "ptxas": resources,
             "total_s": time.perf_counter() - t_all}

@@ -1,5 +1,6 @@
 """Architecture registry: the 10 assigned configs and the four input shapes
-(``shapes.py``), copied from the JAX package's ``configs`` as they are."""
+(``shapes.py``), copied from the JAX package's ``configs`` as they are, and
+the paper's own SVM runs (``gadget_svm.PAPER_RUNS``)."""
 from __future__ import annotations
 
 import importlib

@@ -208,7 +208,7 @@ def partition(X, y: np.ndarray, m: int, seed: int = 0):
 
     Returns ``(X_parts, y_parts (m, n_i), n_counts (m,))``, where X_parts is
     an (m, n_i, d) array for dense X and an :class:`EllPartitions` for
-    :class:`ELL` input; ``n_counts`` goes straight into
+    :class:`ELL` or CSR input; ``n_counts`` goes straight into
     ``gadget_train(n_counts=...)``. The row permutation depends only on
     ``(len(y), m, seed)``, so a dense matrix and its ELL planes partition
     identically.
@@ -222,6 +222,8 @@ def partition(X, y: np.ndarray, m: int, seed: int = 0):
         return parts
 
     y_parts = zero_pads(y[idx].reshape(m, n_i).copy())
+    if hasattr(X, "to_ell"):  # CSR input: convert once, partition as ELL
+        X = X.to_ell()
     if isinstance(X, ELL):
         return (EllPartitions(zero_pads(X.cols[idx].reshape(m, n_i, -1)),
                               zero_pads(X.vals[idx].reshape(m, n_i, -1)),

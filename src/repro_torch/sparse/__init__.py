@@ -1,7 +1,9 @@
-"""Sparse features for the port: padded-ELL planes, per-node partitions,
-the touched-block schedule helpers and the padding of serving queries into
-bucket shapes (``formats``)."""
+"""Sparse features for the port: CSR and padded-ELL containers, per-node
+partitions, the touched-block schedule helpers and the padding of serving
+queries into bucket shapes (``formats``). Streaming LibSVM ingest is
+``repro_torch.data.libsvm``."""
 from repro_torch.sparse.formats import (  # noqa: F401
-    DEFAULT_BUCKET_BLK_D, ELL, EllPartitions, block_map, minibatch_block_bound,
+    CSR, ELL, BlockBuckets, DEFAULT_BUCKET_BLK_D, EllPartitions,
+    block_map, bucket_by_block, frequency_remap, minibatch_block_bound,
     pad_query_planes, partition_rows, row_block_counts,
 )

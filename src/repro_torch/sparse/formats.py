@@ -1,11 +1,14 @@
-"""Padded-ELL feature planes and the touched-block schedule helpers.
+"""Sparse feature containers (CSR and padded ELL) and the touched-block
+schedule helpers.
 
-A copy of the ELL part of ``repro.sparse.formats`` (the port imports nothing
-of ``repro``), numpy only. :class:`ELL` stores every row as exactly ``k_max``
-(column, value) pairs in two (rows, k_max) planes; ragged rows are padded
-with the inert entry ``(col=0, val=0.0)``, which adds nothing to a
-gather-dot or a scatter-add, so no mask plane is kept. :class:`EllPartitions`
-stacks the planes per node for ``gadget_train``.
+A copy of ``repro.sparse.formats`` (the port imports nothing of ``repro``),
+numpy only. :class:`CSR` is the compressed-sparse-row triplet that streaming
+ingest appends rows to (``repro_torch.data.libsvm``). :class:`ELL` stores
+every row as exactly ``k_max`` (column, value) pairs in two (rows, k_max)
+planes; ragged rows are padded with the inert entry ``(col=0, val=0.0)``,
+which adds nothing to a gather-dot or a scatter-add, so no mask plane is
+kept. :class:`EllPartitions` stacks the planes per node for
+``gadget_train``.
 
 The touched-block helpers state the schedule of the prefetch kernels on the
 host: :func:`row_block_counts` and :func:`minibatch_block_bound` give the
@@ -13,7 +16,11 @@ static ``n_blocks_max`` cap (sound for every minibatch the trainer can
 draw), and :func:`block_map` builds the compact (m, n_blocks_max) map of
 each node's distinct live d-blocks followed by the sentinel ``n_d_blocks``;
 ``repro_torch.kernels.hinge_subgrad.ops.ell_block_map`` is its device twin.
-:func:`pad_query_planes` states the serving buckets' fixed batch shapes.
+:func:`bucket_by_block` sorts a minibatch's entries by d-block
+(:class:`BlockBuckets`, the layout that counts blocks per schedule), and
+:func:`frequency_remap` ranks columns by document frequency so hot columns
+share blocks. :func:`pad_query_planes` states the serving buckets' fixed
+batch shapes.
 """
 from __future__ import annotations
 
@@ -21,12 +28,102 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["ELL", "EllPartitions", "partition_rows", "DEFAULT_BUCKET_BLK_D",
-           "block_map", "row_block_counts", "minibatch_block_bound",
-           "pad_query_planes"]
+__all__ = [
+    "CSR", "ELL", "EllPartitions", "partition_rows",
+    "BlockBuckets", "DEFAULT_BUCKET_BLK_D", "block_map", "bucket_by_block",
+    "row_block_counts", "minibatch_block_bound", "frequency_remap",
+    "pad_query_planes",
+]
 
 # d-block width of the touched-block schedule and of its static bound
 DEFAULT_BUCKET_BLK_D = 128
+
+
+@dataclass
+class CSR:
+    """Compressed sparse row matrix: ``data[indptr[r]:indptr[r+1]]`` are the
+    nonzero values of row r at columns ``indices[indptr[r]:indptr[r+1]]``."""
+
+    data: np.ndarray     # (nnz,) float
+    indices: np.ndarray  # (nnz,) int32, 0-based column ids, < shape[1]
+    indptr: np.ndarray   # (rows+1,) int64, monotone, indptr[0] == 0
+    shape: tuple[int, int]
+
+    def __post_init__(self):
+        self.data = np.asarray(self.data)
+        self.indices = np.asarray(self.indices, np.int32)
+        self.indptr = np.asarray(self.indptr, np.int64)
+        n, d = self.shape
+        if self.indptr.shape != (n + 1,) or self.indptr[0] != 0:
+            raise ValueError(f"bad indptr for {n} rows")
+        if self.indptr[-1] != len(self.data) or len(self.data) != len(self.indices):
+            raise ValueError("indptr/data/indices lengths disagree")
+        if len(self.indices) and (self.indices.min() < 0 or self.indices.max() >= d):
+            raise ValueError(f"column index out of range for d={d}")
+
+    @property
+    def nnz(self) -> int:
+        """Stored entries over all rows."""
+        return int(self.indptr[-1])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the three arrays."""
+        return self.data.nbytes + self.indices.nbytes + self.indptr.nbytes
+
+    def row_nnz(self) -> np.ndarray:
+        """(n,) stored entries per row."""
+        return np.diff(self.indptr).astype(np.int64)
+
+    @classmethod
+    def from_dense(cls, X: np.ndarray) -> "CSR":
+        """The nonzeros of a dense (n, d) matrix, row by row."""
+        X = np.asarray(X)
+        n, d = X.shape
+        mask = X != 0
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(mask.sum(axis=1), out=indptr[1:])
+        cols = np.nonzero(mask)[1].astype(np.int32)
+        return cls(X[mask].astype(X.dtype), cols, indptr, (n, d))
+
+    def to_dense(self, dtype=None) -> np.ndarray:
+        """The dense (n, d) matrix."""
+        n, d = self.shape
+        X = np.zeros((n, d), dtype or self.data.dtype)
+        rows = np.repeat(np.arange(n), self.row_nnz())
+        X[rows, self.indices] = self.data
+        return X
+
+    def take_rows(self, idx: np.ndarray) -> "CSR":
+        """New CSR holding rows ``idx``, in that order."""
+        idx = np.asarray(idx, np.int64)
+        counts = self.row_nnz()[idx]
+        indptr = np.zeros(len(idx) + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        starts = self.indptr[idx]
+        # gather each selected row's span: offset within the row + row start
+        flat = (np.repeat(starts - indptr[:-1], counts)
+                + np.arange(int(indptr[-1]), dtype=np.int64))
+        return CSR(self.data[flat], self.indices[flat], indptr,
+                   (len(idx), self.shape[1]))
+
+    def to_ell(self, k_max: int | None = None) -> "ELL":
+        """Padded ELL planes, ``k_max`` wide (the widest row by default);
+        raises if a row is wider than ``k_max``."""
+        counts = self.row_nnz()
+        widest = int(counts.max()) if len(counts) else 0
+        if k_max is None:
+            k_max = max(widest, 1)
+        elif widest > k_max:
+            raise ValueError(f"k_max={k_max} < widest row nnz {widest}")
+        n, d = self.shape
+        cols = np.zeros((n, k_max), np.int32)
+        vals = np.zeros((n, k_max), np.float32)
+        within = np.arange(self.nnz, dtype=np.int64) - np.repeat(self.indptr[:-1], counts)
+        rows = np.repeat(np.arange(n), counts)
+        cols[rows, within] = self.indices
+        vals[rows, within] = self.data
+        return ELL(cols, vals, (n, d))
 
 
 @dataclass
@@ -67,6 +164,11 @@ class ELL:
         """(n,) live entries per row."""
         return (self.vals != 0).sum(axis=1).astype(np.int64)
 
+    @classmethod
+    def from_dense(cls, X: np.ndarray, k_max: int | None = None) -> "ELL":
+        """The nonzeros of a dense (n, d) matrix as planes ``k_max`` wide."""
+        return CSR.from_dense(X).to_ell(k_max)
+
     def to_dense(self, dtype=np.float32) -> np.ndarray:
         """The dense (n, d) matrix."""
         n, d = self.shape
@@ -75,6 +177,14 @@ class ELL:
         # += so the shared pad slot (0, 0) accumulates only zeros
         np.add.at(X, (rows, self.cols), self.vals)
         return X
+
+    def to_csr(self) -> CSR:
+        """The live (non-zero) entries as a CSR, pad entries dropped."""
+        live = self.vals != 0
+        counts = live.sum(axis=1)
+        indptr = np.zeros(self.shape[0] + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return CSR(self.vals[live], self.cols[live], indptr, self.shape)
 
     def take_rows(self, idx: np.ndarray) -> "ELL":
         """The rows ``idx``, as a new ELL."""
@@ -216,6 +326,79 @@ def block_map(cols: np.ndarray, vals: np.ndarray, blk_d: int, n_d_blocks: int,
     return out
 
 
+@dataclass
+class BlockBuckets:
+    """Entries of stacked ``(m, B, k)`` minibatch planes sorted by d-block,
+    with per-block entry slices: bucket j of node i holds entries
+    ``cols[i, starts[i, j]:starts[i, j+1]]``, all in d-block
+    ``block_ids[i, j]``. Empty slots carry the sentinel ``n_d_blocks`` and an
+    empty slice; pad entries sort to the tail after the last live bucket.
+    The layout that counts blocks per schedule; the kernels keep the planes
+    unsorted."""
+
+    block_ids: np.ndarray  # (m, n_blocks_max) int32, sentinel = n_d_blocks
+    starts: np.ndarray     # (m, n_blocks_max + 1) int64 slice offsets
+    cols: np.ndarray       # (m, B*k) int32 sorted by block id
+    vals: np.ndarray       # (m, B*k) float32 sorted with cols
+    blk_d: int
+    n_d_blocks: int
+
+    @property
+    def n_blocks_max(self) -> int:
+        """Slots of the map."""
+        return self.block_ids.shape[1]
+
+    def blocks_visited(self) -> np.ndarray:
+        """(m,) live buckets per node: the blocks a touched-block schedule
+        reads (sentinel slots alias one shared zero block)."""
+        return (self.block_ids < self.n_d_blocks).sum(axis=1).astype(np.int64)
+
+
+def bucket_by_block(cols: np.ndarray, vals: np.ndarray, blk_d: int, *,
+                    d: int | None = None,
+                    n_blocks_max: int | None = None) -> BlockBuckets:
+    """Sort and bucket stacked ``(m, B, k)`` minibatch planes by d-block."""
+    cols = np.asarray(cols, np.int32)
+    vals = np.asarray(vals, np.float32)
+    m = cols.shape[0]
+    if d is None:
+        d = int(cols.max()) + 1 if cols.size else 1
+    n_d_blocks = -(-d // blk_d)
+    flat_c, flat_v = cols.reshape(m, -1), vals.reshape(m, -1)
+    blocks = _entry_blocks(flat_c, flat_v, blk_d, n_d_blocks)
+    order = np.argsort(blocks, axis=1, kind="stable")
+    sorted_b = np.take_along_axis(blocks, order, axis=1)
+    if n_blocks_max is None:
+        n_blocks_max = max(1, row_like_max(sorted_b, n_d_blocks))
+    ids = np.full((m, n_blocks_max), n_d_blocks, np.int32)
+    starts = np.zeros((m, n_blocks_max + 1), np.int64)
+    for i in range(m):
+        live, first = np.unique(sorted_b[i], return_index=True)
+        keep = live < n_d_blocks
+        live, first = live[keep], first[keep]
+        if len(live) > n_blocks_max:
+            raise ValueError(
+                f"node {i} touches {len(live)} blocks > n_blocks_max={n_blocks_max}")
+        ids[i, :len(live)] = live
+        ends = np.append(first[1:], (sorted_b[i] < n_d_blocks).sum())
+        starts[i, :len(live)] = first
+        starts[i, len(live):] = ends[-1] if len(live) else 0
+        starts[i, 1:len(live) + 1] = ends
+    return BlockBuckets(ids, starts,
+                        np.take_along_axis(flat_c, order, axis=1),
+                        np.take_along_axis(flat_v, order, axis=1),
+                        blk_d, n_d_blocks)
+
+
+def row_like_max(sorted_blocks: np.ndarray, sentinel: int) -> int:
+    """Max distinct live blocks over the leading axis of block-sorted ids."""
+    live = sorted_blocks < sentinel
+    first = live[:, :1]
+    changed = (sorted_blocks[:, 1:] != sorted_blocks[:, :-1]) & live[:, 1:]
+    per = first.sum(axis=1) + changed.sum(axis=1)
+    return int(per.max()) if per.size else 0
+
+
 def pad_query_planes(queries, rows: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     """Pad a list of ragged sparse queries into one fixed-shape ELL batch.
 
@@ -240,3 +423,22 @@ def pad_query_planes(queries, rows: int, k: int) -> tuple[np.ndarray, np.ndarray
         cols[i, :len(c)] = c
         vals[i, :len(v)] = v
     return cols, vals
+
+
+def frequency_remap(cols: np.ndarray, vals: np.ndarray, d: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Relabel columns by descending document frequency (ties by old id).
+
+    Returns ``(new_cols, perm)`` where ``perm[new] = old``: a weight vector
+    learned in remapped space maps back as ``w_old = w_new[inv]`` with
+    ``inv = argsort(perm)``. A pure relabelling, so margins, objectives and
+    consensus are unchanged up to the permutation; hot columns get low ranks
+    and share the leading d-blocks."""
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    freq = np.bincount(cols.reshape(-1)[vals.reshape(-1) != 0], minlength=d)
+    perm = np.argsort(-freq, kind="stable").astype(np.int64)   # perm[new] = old
+    rank = np.empty(d, np.int64)
+    rank[perm] = np.arange(d)
+    # pad entries stay canonical (col=0, val=0) rather than inheriting rank[0]
+    return np.where(vals != 0, rank[cols], 0).astype(np.int32), perm

@@ -58,8 +58,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     sys.path.insert(0, str(root / "src"))
-    from chip_smoke import CCAT, CCAT_SCALE, N_NODES, REUTERS, profile_iterations
-    from repro_torch.core.gadget import GadgetConfig, gadget_train
+    from chip_smoke import CCAT_SCALE, N_NODES, profile_iterations
+    from repro_torch.configs.gadget_svm import PAPER_RUNS
+    from repro_torch.core.gadget import gadget_train
     from repro_torch.data.svm_datasets import make_dataset, partition
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -71,7 +72,7 @@ def main() -> int:
     dense = (torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev), n_r)
     ds_c = make_dataset("ccat", scale=CCAT_SCALE, seed=0, sparse=True)
     sparse = partition(ds_c.X_train, ds_c.y_train, N_NODES, seed=0)
-    cfg_r, cfg_c = GadgetConfig(**REUTERS), GadgetConfig(**CCAT)
+    cfg_r, cfg_c = PAPER_RUNS["reuters"].gadget, PAPER_RUNS["ccat"].gadget
     paths = {"reuters fused": (dense, cfg_r),
              "reuters unfused": (dense, cfg_r._replace(fused=False)),
              "ccat prefetch": (sparse, cfg_c._replace(sparse_schedule="prefetch")),
