@@ -163,7 +163,32 @@ Phases, each of which exits non-zero on failure:
     ``benchmarks/overload_bench.py``'s slack); and the lineage chains of
     phase 18's records, every installed version's complete and monotone,
     with ``format_chain`` of the last and one frame of the top console;
-20. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+20. the remaining solvers on one card: ``gadget_train_reference`` (the
+    host-loop oracle) on reuters at full size for 400 iterations, random
+    and exponential topologies, each against ``gadget_train(fused=False)``
+    (equal iterations, W and the consensus within 1e-5, the objective trace
+    at 1e-5 relative, ``transfer_stats`` 400 uploads for exponential and 0
+    for random with 2 syncs an ε-check, one ``margins`` and one
+    ``grad_update`` launch an iteration); centralised Pegasos as Table 3
+    runs it (reuters, B = 8, 1,200 iterations) against its CPU run (w within
+    1e-4) and the reference's accuracy (within 0.005); one-vs-rest GADGET
+    at LibSVM mnist's shape (60,000 × 780, C = 10, seeded numpy data) against
+    its CPU run (W within 1e-4) and the reference's accuracy, then
+    ``predict_multiclass`` through ``dense_scores`` at X (10,000, 780), W
+    (10, 780), held to the plain version and timed beside ``torch.mm``;
+21. the mesh: four ranks spawned on the one card (gloo, CUDA tensors staged
+    through host buffers, ``file://`` rendezvous), each holding a quarter of
+    reuters: 200 ``make_gadget_mesh_step`` steps with kernels (``margins``
+    and ``grad_update`` a step a rank) against the plain step (W 1e-4); the
+    four fault checks (inert plan bit-identical, a dead rank frozen at zero,
+    message drops finite and different, an out-of-range id raising); the
+    ELL planes through the prefetch pair against the dense step (1e-5 after
+    3 steps, 1e-4 after 200); ``make_mesh_scorer`` over reuters' test set
+    (padded to 3,300) through ``dense_scores`` against one-process
+    ``dense_predict``; ``gossip_mix`` keeping the mean and a full schedule
+    reaching it; then the dense mesh at world = the card count over NCCL (a
+    one-node mesh on a one-card machine). A rank's failure fails the run;
+22. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
     phases' objects; each kernel's ``paths`` lists the later phases that
     run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
@@ -290,6 +315,28 @@ BURST_LOAD, TAIL_LOAD, TAIL_S = 2.0, 0.5, 1.5
 # tools/control_plane_probe.py)
 SUBMIT_TICK_S = 5e-3
 P99_SLACK_MS = 500.0
+# phase 20: the remaining solvers. The host loop and gadget_train(fused=False)
+# run the same step on the same draws, so bit-equal is expected: that checks
+# the loop's bookkeeping. Its kernels are held against the host loop's CPU
+# run (the plain versions) at PATH_W_ATOL
+HOST_LOOP_ITERS, HOST_LOOP_ATOL = 400, 1e-5
+# centralised Pegasos as benchmarks/table3_gadget_vs_pegasos.py runs it; the
+# reference's test accuracy at draw seed 0, from tools/reference_quality.py
+# reuters --mode pegasos (the JAX reference on the CPU): see PERF.md
+PEGASOS_ITERS, PEGASOS_BATCH = 1200, 8
+PEGASOS_REF_ACCURACY, QUALITY_SLACK = 0.7111245832070324, 0.005
+# one-vs-rest GADGET at LibSVM mnist's shape, tests/test_multiclass.py's data
+# generator; the reference's accuracy at draw seeds 0 and 1, from
+# tools/reference_quality.py mnist --mode multiclass: see PERF.md
+MULTICLASS_SHAPE = (60_000, 10_000, 780, 10)   # train rows, test rows, d, classes
+MULTICLASS_NODES, MULTICLASS_ITERS, MULTICLASS_CHECK = 10, 1200, 300
+MULTICLASS_REF_ACCURACY = 1.0
+CUT_PREFIX = 5   # cutting-plane cuts over which w is held against the CPU
+# phase 21: the mesh. Four ranks on the one card over gloo (host staging),
+# then world = device_count over NCCL
+MESH_WORLD, MESH_STEPS, MESH_FAULT_STEPS, MESH_SPARSE_CHECK_STEPS = 4, 200, 50, 3
+MESH_TIMEOUT_S = 300
+GOSSIP_MEAN_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2172,6 +2219,516 @@ def phase_control_plane(torch, serve, formats, libsvm, telemetry, tmtr, top, R, 
             "installed": list(installed)}
 
 
+def make_multiclass(n: int, d: int, C: int, seed: int = 0):
+    """tests/test_multiclass.py's generator (Gaussian class centres ×3 plus
+    unit noise), as tools/reference_quality.py --mode multiclass draws it."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(C, d)) * 3.0
+    y = rng.integers(0, C, size=n)
+    X = centers[y] + rng.normal(size=(n, d))
+    return X.astype(np.float32), y.astype(np.int32)
+
+
+def phase_solvers(torch, gadget, pegasos, cutting_plane, multiclass, P, ops, cfg, data,
+                  kernels, dev, reset, counts_of) -> dict:
+    """Phase 20: the host loop against its CPU run (the plain versions) and
+    against the unfused device loop, centralised Pegasos, Table 4's
+    cutting-plane SVM and SVM-SGD on one node's partition, and one-vs-rest
+    GADGET, each on the card against its CPU run (and Pegasos and
+    multiclass against the reference's quality); B8 at the multiclass
+    shape."""
+    Xp, yp, n_counts, ds = data
+    X_dev, y_dev = torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev)
+    out = {"host_loop": {}}
+    for topology in ("random", "exponential"):
+        c = cfg._replace(topology=topology, max_iters=HOST_LOOP_ITERS, fused=False)
+        gadget.gadget_train_reference(X_dev, y_dev, c._replace(max_iters=10, check_every=5),
+                                      n_counts=n_counts, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        gadget.reset_transfer_stats()
+        t0 = time.perf_counter()
+        res_h = gadget.gadget_train_reference(X_dev, y_dev, c, n_counts=n_counts, device=dev)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        stats, launches = dict(gadget.transfer_stats), counts_of()
+        t0 = time.perf_counter()
+        res_u = gadget.gadget_train(X_dev, y_dev, c, n_counts=n_counts, device=dev)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_c = gadget.gadget_train_reference(Xp, yp, c, n_counts=n_counts, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float((res_h.W.cpu() - res_c.W).abs().max())
+        cpu_obj_err = float(np.max(np.abs(res_h.objective_trace - res_c.objective_trace)
+                                   / np.abs(res_c.objective_trace)))
+        w_err = float((res_h.W - res_u.W).abs().max())
+        cons_err = float((res_h.w_consensus - res_u.w_consensus).abs().max())
+        obj_err = float(np.max(np.abs(res_h.objective_trace - res_u.objective_trace)
+                               / np.abs(res_u.objective_trace)))
+        n_checks = len(res_h.objective_trace)
+        log(f"  host loop, {topology}: {res_h.iters} iterations in {host_s:.3f} s "
+            f"({res_h.iters / host_s:.1f} it/s; gadget_train(fused=False) {res_u.iters / dev_s:.1f}; "
+            f"CPU {cpu_s:.1f} s); against its CPU run: W {cpu_err:.3e}, objective rel "
+            f"{cpu_obj_err:.3e}; against gadget_train(fused=False): W {w_err:.3e}, consensus "
+            f"{cons_err:.3e}, objective rel {obj_err:.3e}; transfer_stats {stats} over "
+            f"{n_checks} ε-checks; launches {launched(launches)}")
+        require(res_h.iters == res_u.iters == res_c.iters == HOST_LOOP_ITERS,
+                "host loop iteration counts differ")
+        require(cpu_err <= PATH_W_ATOL, f"host loop W differs from its CPU run by {cpu_err:.3e}")
+        require(cpu_obj_err <= PATH_OBJ_RTOL,
+                f"host loop objective trace differs from its CPU run by {cpu_obj_err:.3e}")
+        require(w_err <= HOST_LOOP_ATOL and cons_err <= HOST_LOOP_ATOL,
+                f"host loop W differs from gadget_train(fused=False) by {w_err:.3e}")
+        require(obj_err <= PATH_OBJ_RTOL, f"host loop objective trace differs by {obj_err:.3e}")
+        want_up = HOST_LOOP_ITERS if topology == "exponential" else 0
+        require(stats == {"matrix_uploads": want_up, "host_syncs": 2 * n_checks},
+                f"host loop transfer_stats {stats}")
+        require(launches["margins"] == launches["grad_update"] == res_h.iters
+                and launches["fleet_half_step"] == 0,
+                f"host loop launched {launched(launches)} in {res_h.iters} iterations")
+        out["host_loop"][topology] = dict(iters=res_h.iters, seconds=host_s,
+                                          iters_per_s=res_h.iters / host_s,
+                                          unfused_iters_per_s=res_u.iters / dev_s,
+                                          cpu_w_err=cpu_err, cpu_objective_rel_err=cpu_obj_err,
+                                          w_err=w_err, consensus_err=cons_err,
+                                          objective_rel_err=obj_err, transfer_stats=stats,
+                                          margins=launches["margins"],
+                                          grad_update=launches["grad_update"])
+
+    # centralised Pegasos, Table 3's run: the whole training set on one card
+    Xtr, ytr = torch.from_numpy(ds.X_train).to(dev), torch.from_numpy(ds.y_train).to(dev)
+    Xte, yte = torch.from_numpy(ds.X_test).to(dev), torch.from_numpy(ds.y_test).to(dev)
+    pegasos.pegasos_train(Xtr, ytr, ds.lam, 10, batch_size=PEGASOS_BATCH, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    peg = pegasos.pegasos_train(Xtr, ytr, ds.lam, PEGASOS_ITERS, batch_size=PEGASOS_BATCH,
+                                device=dev)
+    torch.cuda.synchronize()
+    peg_s = time.perf_counter() - t0
+    peg_launches = counts_of()
+    t0 = time.perf_counter()
+    peg_cpu = pegasos.pegasos_train(ds.X_train, ds.y_train, ds.lam, PEGASOS_ITERS,
+                                    batch_size=PEGASOS_BATCH, device="cpu")
+    peg_cpu_s = time.perf_counter() - t0
+    peg_err = float((peg.w.cpu() - peg_cpu.w).abs().max())
+    peg_acc = float((torch.where(Xte @ peg.w >= 0, 1.0, -1.0) == yte).float().mean())
+    log(f"  pegasos: {PEGASOS_ITERS} iterations of B = {PEGASOS_BATCH} in {peg_s:.3f} s "
+        f"({PEGASOS_ITERS / peg_s:.1f} it/s; CPU {peg_cpu_s:.1f} s), objective "
+        f"{float(peg.objective):.4f}, test accuracy {peg_acc:.4f} (reference "
+        f"{PEGASOS_REF_ACCURACY:.4f}), w against the CPU {peg_err:.3e}")
+    require(peg_err <= PATH_W_ATOL, f"pegasos w differs from its CPU run by {peg_err:.3e}")
+    require(abs(peg_acc - PEGASOS_REF_ACCURACY) <= QUALITY_SLACK,
+            f"pegasos accuracy {peg_acc:.4f} against the reference's {PEGASOS_REF_ACCURACY:.4f}")
+    require(not launched(peg_launches), f"pegasos launched {launched(peg_launches)}")
+    out["pegasos"] = dict(iters=PEGASOS_ITERS, batch_size=PEGASOS_BATCH, seconds=peg_s,
+                          iters_per_s=PEGASOS_ITERS / peg_s, test_accuracy=peg_acc,
+                          objective=float(peg.objective), cpu_w_err=peg_err)
+
+    # Table 4's online baselines, as benchmarks/table4_online_baselines.py runs
+    # them on each node's partition: node 0's, on the card against the CPU.
+    # A row whose margin sits at 1 joins one run's cut and not the other's,
+    # so past the first cuts the two runs part (the reference's own float32
+    # and float64 runs do): w is held over CUT_PREFIX cuts, and the full run's
+    # objective by the method's certificate (each objective lies within its
+    # gap above the optimum)
+    n0 = int(n_counts[0])
+    X0, y0 = Xp[0, :n0], yp[0, :n0]
+    X0_dev, y0_dev = torch.from_numpy(X0).to(dev), torch.from_numpy(y0).to(dev)
+    cutting_plane.svm_sgd(X0_dev[:8], y0_dev[:8], ds.lam, n_epochs=1, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    cp5 = cutting_plane.cutting_plane_svm(X0_dev, y0_dev, ds.lam, max_cuts=CUT_PREFIX,
+                                          device=dev)
+    t0 = time.perf_counter()
+    cp = cutting_plane.cutting_plane_svm(X0_dev, y0_dev, ds.lam, device=dev)
+    torch.cuda.synchronize()
+    cp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sgd = cutting_plane.svm_sgd(X0_dev, y0_dev, ds.lam, device=dev)
+    torch.cuda.synchronize()
+    sgd_s = time.perf_counter() - t0
+    base_launches = counts_of()
+    t0 = time.perf_counter()
+    cp_cpu = cutting_plane.cutting_plane_svm(X0, y0, ds.lam, device="cpu")
+    sgd_cpu = cutting_plane.svm_sgd(X0, y0, ds.lam, device="cpu")
+    base_cpu_s = time.perf_counter() - t0
+    cp5_cpu = cutting_plane.cutting_plane_svm(X0, y0, ds.lam, max_cuts=CUT_PREFIX, device="cpu")
+    cp5_err = float((cp5.w.cpu() - cp5_cpu.w).abs().max())
+    cp_err = float((cp.w.cpu() - cp_cpu.w).abs().max())
+    cp_obj_diff = abs(cp.objective - cp_cpu.objective)
+    sgd_err = float((sgd.cpu() - sgd_cpu).abs().max())
+    cp_acc = float((torch.where(Xte @ cp.w >= 0, 1.0, -1.0) == yte).float().mean())
+    sgd_acc = float((torch.where(Xte @ sgd >= 0, 1.0, -1.0) == yte).float().mean())
+    log(f"  online baselines on node 0's {n0} rows: cutting plane, {CUT_PREFIX} cuts: w "
+        f"against the CPU {cp5_err:.3e}; {cp.n_cuts} cuts in {cp_s:.3f} s (CPU "
+        f"{cp_cpu.n_cuts} cuts), gap {cp.gap:.3e} (CPU {cp_cpu.gap:.3e}), objective "
+        f"{cp.objective:.6f} (CPU {cp_cpu.objective:.6f}), test accuracy {cp_acc:.4f}, w "
+        f"against the CPU {cp_err:.3e}; "
+        f"SVM-SGD {2 * n0} steps in {sgd_s:.3f} s, test accuracy {sgd_acc:.4f}, w against "
+        f"the CPU {sgd_err:.3e}; CPU both {base_cpu_s:.1f} s")
+    require(cp5.n_cuts == cp5_cpu.n_cuts == CUT_PREFIX and cp5_err <= PATH_W_ATOL,
+            f"cutting plane w over {CUT_PREFIX} cuts differs from its CPU run by {cp5_err:.3e}")
+    require(bool(torch.isfinite(cp.w).all())
+            and cp_obj_diff <= max(cp.gap, cp_cpu.gap),
+            f"cutting plane objective {cp.objective} against the CPU's {cp_cpu.objective}, "
+            f"beyond the gaps {cp.gap:.3e} / {cp_cpu.gap:.3e}")
+    require(sgd_err <= PATH_W_ATOL, f"SVM-SGD w differs from its CPU run by {sgd_err:.3e}")
+    require(not launched(base_launches), f"the baselines launched {launched(base_launches)}")
+    out["online_baselines"] = dict(rows=n0, cutting_plane=dict(
+        n_cuts=cp.n_cuts, seconds=cp_s, gap=cp.gap, objective=cp.objective,
+        cpu_objective=cp_cpu.objective, test_accuracy=cp_acc, cpu_w_err=cp_err,
+        prefix_cpu_w_err=cp5_err), svm_sgd=dict(
+        steps=2 * n0, seconds=sgd_s, test_accuracy=sgd_acc, cpu_w_err=sgd_err))
+
+    # one-vs-rest GADGET at mnist's shape
+    n, n_te, d, C = MULTICLASS_SHAPE
+    t0 = time.perf_counter()
+    Xall, yall = make_multiclass(n + n_te, d, C, seed=0)
+    n_i = n // MULTICLASS_NODES
+    Xp_m = Xall[:n].reshape(MULTICLASS_NODES, n_i, d)
+    yp_m = yall[:n].reshape(MULTICLASS_NODES, n_i)
+    gen_s = time.perf_counter() - t0
+    cfg_m = gadget.GadgetConfig(lam=1e-3, batch_size=8, gossip_rounds=4, topology="random",
+                                max_iters=MULTICLASS_ITERS, check_every=MULTICLASS_CHECK)
+    Xm_dev, ym_dev = torch.from_numpy(Xp_m).to(dev), torch.from_numpy(yp_m).to(dev)
+    multiclass.gadget_train_multiclass(Xm_dev, ym_dev, C, cfg_m._replace(max_iters=10),
+                                       device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = multiclass.gadget_train_multiclass(Xm_dev, ym_dev, C, cfg_m, device=dev)
+    torch.cuda.synchronize()
+    mc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mc_cpu = multiclass.gadget_train_multiclass(Xp_m, yp_m, C, cfg_m, device="cpu")
+    mc_cpu_s = time.perf_counter() - t0
+    mc_err = float((mc.W.cpu() - mc_cpu.W).abs().max())
+    Xq = torch.from_numpy(Xall[n:]).to(dev)
+    yq = torch.from_numpy(yall[n:]).to(dev)
+    W_c = mc.w_consensus.contiguous()
+    reset()
+    pred = multiclass.predict_multiclass(W_c, Xq)
+    mc_launches = counts_of()
+    mc_acc = float((pred.long() == yq.long()).float().mean())
+    log(f"  multiclass at mnist's shape (train {n} x {d}, {C} classes, data {gen_s:.1f} s): "
+        f"{mc.iters} iterations in {mc_s:.3f} s ({mc.iters / mc_s:.1f} it/s; CPU "
+        f"{mc_cpu_s:.1f} s), W against the CPU {mc_err:.3e}, test accuracy {mc_acc:.4f} "
+        f"(reference {MULTICLASS_REF_ACCURACY:.4f}), predict launches {launched(mc_launches)}")
+    require(mc.iters == mc_cpu.iters, "multiclass iteration counts differ")
+    require(mc_err <= PATH_W_ATOL, f"multiclass W differs from its CPU run by {mc_err:.3e}")
+    require(abs(mc_acc - MULTICLASS_REF_ACCURACY) <= QUALITY_SLACK,
+            f"multiclass accuracy {mc_acc:.4f} against {MULTICLASS_REF_ACCURACY:.4f}")
+    require(mc_launches["dense_scores"] == 1, f"predict_multiclass launched {launched(mc_launches)}")
+    (got, got_l), (want, want_l) = (P.dense_scores(Xq, W_c, n_classes=C),
+                                    P.dense_scores_plain(Xq, W_c, n_classes=C))
+    err = rel_err(got, want)
+    require(err[1] <= KERNEL_RTOL and torch.equal(got_l, want_l),
+            f"dense_scores at the multiclass shape: rel err {err[1]:.3e} or labels off")
+    t = device_ms(torch, lambda: P.dense_scores(Xq, W_c, n_classes=C), 200)
+    t_plain = device_ms(torch, lambda: P.dense_scores_plain(Xq, W_c, n_classes=C), 200)
+    t_mm = device_ms(torch, lambda: torch.mm(Xq, W_c.t()), 200)
+    b_ms, b_by = bound(ops.launch_cost("dense_predict", B=n_te, d=d, C=C))
+    log(f"  {'dense_scores':16s} X ({n_te}, {d}), W ({C}, {d}): err {err[0]:.3e} (rel "
+        f"{err[1]:.3e}, scores up to {float(want.abs().max()):.1f}), kernel "
+        f"{t * 1e3:.2f} us, plain {t_plain * 1e3:.2f} us, torch.mm {t_mm * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by})")
+    kernels["dense_scores"]["other_shapes"]["multiclass"] = dict(
+        shape=f"X ({n_te}, {d}), W ({C}, {d})", max_abs_err=err[0], ms=t, plain_ms=t_plain,
+        library_ms=t_mm, bound_ms=b_ms, bound_by=b_by)
+    out["multiclass"] = dict(shape=[n, n_te, d, C], iters=mc.iters, seconds=mc_s,
+                             iters_per_s=mc.iters / mc_s, test_accuracy=mc_acc,
+                             cpu_w_err=mc_err, dense_scores=mc_launches["dense_scores"])
+    return out
+
+
+def mesh_rank(rank: int, world: int, backend: str, rdv: str, work: str,
+              device_type: str = "cuda") -> None:
+    """One rank of phase 21, in a process of its own (spawned): it joins the
+    group, trains its shard on ``device_type`` and writes what it measured
+    to ``work``. Any exception exits non-zero, which fails the phase."""
+    try:
+        _mesh_rank(rank, world, backend, rdv, Path(work), device_type)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        raise SystemExit(1)
+
+
+def _mesh_rank(rank, world, backend, rdv, work, device_type) -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import counter_rng as crng
+    from repro_torch.core.consensus import gossip_mix
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.gadget import make_gadget_mesh_step
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.configs.gadget_svm import PAPER_RUNS
+    from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
+    from repro_torch.kernels.hinge_subgrad import ops
+    from repro_torch.kernels.hinge_subgrad import predict as P
+    from repro_torch.kernels.hinge_subgrad import sparse as S
+    from repro_torch.serve import make_mesh_scorer
+
+    torch.set_num_threads(1)  # ranks share the host's cores
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:  # a rehearsal of the rank's code on the CPU
+        dev = torch.device(device_type)
+    dist.init_process_group(backend, init_method=f"file://{rdv}", rank=rank, world_size=world)
+    mesh = Mesh({"nodes": world})
+    axes = {"nodes": world}
+    data = np.load(work / f"data_{world}.npz")
+    n_r, d = int(data["counts"][rank]), int(data["d"])
+    cols = torch.from_numpy(data["cols"][rank, :n_r]).to(dev)
+    vals = torch.from_numpy(data["vals"][rank, :n_r]).to(dev)
+    y = torch.from_numpy(data["y"][rank, :n_r]).to(dev)
+    X = torch.zeros((n_r, d), dtype=torch.float32, device=dev).scatter_add_(1, cols.long(), vals)
+    cfg = PAPER_RUNS["reuters"].gadget
+    mesh_fns = (K.margins, K.grad_update, P.dense_scores, S.ell_margins_prefetch_coeff,
+                S.ell_grad_update_prefetch_fold)
+
+    def counts() -> dict:
+        return {fn.__name__: fn.launches for fn in mesh_fns}
+
+    def reset() -> None:
+        for fn in mesh_fns:
+            fn.launches = 0
+
+    def train(step, X_local, steps):
+        w = torch.zeros((d,), dtype=torch.float32, device=dev)
+        for t in range(1, steps + 1):
+            key = crng.fold_in(crng.fold_in(crng.prng_key(0), t), rank)
+            w = step(w, X_local, y, t, key)
+        return w
+
+    res = {"rank": rank, "rows": n_r, "backend": mesh.backend}
+    step_k = make_gadget_mesh_step(cfg, axes, mesh=mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    train(step_k, X, 3)  # warm-up
+    sync()
+    dist.barrier()
+    reset()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    w_k = train(step_k, X, MESH_STEPS)
+    sync()
+    step_s = time.perf_counter() - t0
+    st = mesh.stats()
+    res.update(dense_launches=counts(), us_per_step=1e6 * step_s / MESH_STEPS,
+               exchange_share=st["exchange_s"] / step_s, exchanges=st["exchanges"],
+               host_staged_bytes=st["host_staged_bytes"])
+    w_p = train(make_gadget_mesh_step(cfg, axes, mesh=mesh, use_kernels=False), X, MESH_STEPS)
+    res["kernel_vs_plain"] = float((w_k - w_p).abs().max())
+    res["finite"] = bool(torch.isfinite(w_k).all())
+
+    if world > 1:
+        def faulted(**kw):
+            return train(make_gadget_mesh_step(cfg._replace(faults=FaultPlan(**kw)), axes,
+                                               mesh=mesh), X, MESH_FAULT_STEPS)
+        w_clean = train(step_k, X, MESH_FAULT_STEPS)
+        w_inert = faulted(drop_prob=0.0, seed=7)
+        w_dead = faulted(dead_nodes=(2,), seed=7)
+        w_drop = faulted(drop_prob=0.5, drop="message", seed=7)
+        try:
+            make_gadget_mesh_step(cfg._replace(faults=FaultPlan(dead_nodes=(world,))), axes,
+                                  mesh=mesh)
+            raised = False
+        except ValueError:
+            raised = True
+        res["faults"] = dict(inert_equal=bool(torch.equal(w_inert, w_clean)),
+                             dead_max=float(w_dead.abs().max()),
+                             drop_finite=bool(torch.isfinite(w_drop).all()),
+                             drop_max=float(w_drop.abs().max()),
+                             drop_differs=not bool(torch.equal(w_drop, w_clean)),
+                             out_of_range_raised=raised)
+
+        bound_s = int(data["block_bound"])
+        step_s_ = make_gadget_mesh_step(cfg._replace(sparse_schedule="prefetch"), axes, bound_s,
+                                        mesh=mesh)
+        ell = (cols, vals)
+        reset()
+        w_s3 = train(step_s_, ell, MESH_SPARSE_CHECK_STEPS)
+        w_d3 = train(step_k, X, MESH_SPARSE_CHECK_STEPS)
+        w_s = train(step_s_, ell, MESH_STEPS)
+        c = counts()
+        # the same ELL step on the plain half-step: what holds B2/B3 at this shape
+        step_sp = make_gadget_mesh_step(cfg._replace(sparse_schedule="prefetch"), axes,
+                                        bound_s, mesh=mesh, use_kernels=False)
+        w_p3 = train(step_sp, ell, MESH_SPARSE_CHECK_STEPS)
+        w_p = train(step_sp, ell, MESH_STEPS)
+        res["sparse"] = dict(plain_3=float((w_s3 - w_p3).abs().max()),
+                             plain_200=float((w_s - w_p).abs().max()),
+                             err_3=float((w_s3 - w_d3).abs().max()),
+                             err_200=float((w_s - w_k).abs().max()),
+                             launches={k: c[k] for k in ("ell_margins_prefetch_coeff",
+                                                         "ell_grad_update_prefetch_fold")},
+                             steps=MESH_SPARSE_CHECK_STEPS + MESH_STEPS)
+
+        g = torch.Generator(device=dev).manual_seed(100 + rank)
+        v = torch.randn(d, generator=g, device=dev)
+        mean = torch.stack(mesh.all_gather(v)).mean(dim=0)
+        one = torch.stack(mesh.all_gather(gossip_mix(v, 1, axis_sizes=axes, rounds=1,
+                                                     mesh=mesh))).mean(dim=0)
+        full = gossip_mix(v, 0, axis_sizes=axes, rounds=world.bit_length() - 1,
+                          mesh=mesh)  # log2(world) rounds: the whole schedule
+        res["gossip"] = dict(mean_kept=float((one - mean).abs().max()),
+                             full_to_mean=float((full - mean).abs().max()))
+
+    # the mesh scorer: the consensus of the kernel run over the test set
+    w_mean = mesh.all_reduce_sum(w_k) / world
+    Xte = torch.zeros((int(data["test_rows"]), d), dtype=torch.float32, device=dev)
+    Xte.scatter_add_(1, torch.from_numpy(data["test_cols"]).to(dev).long(),
+                     torch.from_numpy(data["test_vals"]).to(dev))
+    reset()
+    scores, labels = make_mesh_scorer(w_mean, mesh=mesh, device=dev)(Xte)
+    c = counts()
+    # B8 on each rank's rows against the plain scores on the same rows
+    plain_s, plain_l = make_mesh_scorer(w_mean, mesh=mesh, use_kernels=False, device=dev)(Xte)
+    # and the whole batch on one process
+    want_s, want_l = ops.dense_predict(w_mean, Xte)
+    res["scorer"] = dict(err=float((scores - plain_s).abs().max())
+                         / max(1.0, float(plain_s.abs().max())),
+                         labels_equal=bool(torch.equal(labels, plain_l)),
+                         one_process_err=float((scores - want_s).abs().max())
+                         / max(1.0, float(want_s.abs().max())),
+                         one_process_labels_equal=bool(torch.equal(labels, want_l)),
+                         dense_scores=c["dense_scores"], rows=int(Xte.shape[0]))
+    (work / f"rank{rank}_{backend}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh(world: int, backend: str, work: Path, device_type: str = "cuda") -> list[dict]:
+    """Spawn ``world`` ranks of :func:`mesh_rank` and wait for them; any rank
+    that fails or hangs fails the phase (the rest are killed)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    rdv = work / f"rdv_{backend}_{world}_{time.monotonic_ns()}"  # a fresh file each run
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, backend, str(rdv), str(work),
+                                                 device_type))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+            if p.exitcode not in (None, 0):
+                break  # a rank failed: the others would wait on it
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * world, f"mesh ranks ({backend}, world {world}) exited {codes}")
+    return [json.loads((work / f"rank{r}_{backend}.json").read_text()) for r in range(world)]
+
+
+def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
+    """Phase 21: the mesh step, its faults, the sparse mesh step, the mesh
+    scorer and gossip_mix on four gloo ranks sharing the card, then the
+    dense mesh at world = the card count over NCCL. The kernels are already
+    built (phase 2), so no rank runs nvcc."""
+    X_te = ds_r.X_test
+    pad = -X_te.shape[0] % MESH_WORLD
+    for world in sorted({MESH_WORLD, torch.cuda.device_count()}):
+        parts, y_parts, counts = partition(ds_r.X_train, ds_r.y_train, world, seed=0)
+        np.savez(work / f"data_{world}.npz", cols=parts.cols, vals=parts.vals, y=y_parts,
+                 counts=counts, d=parts.d, block_bound=parts.block_bound(1),
+                 test_cols=np.pad(X_te.cols, ((0, pad), (0, 0))),
+                 test_vals=np.pad(X_te.vals, ((0, pad), (0, 0))),
+                 test_rows=X_te.shape[0] + pad)
+    out = {}
+    t0 = time.perf_counter()
+    ranks = run_mesh(MESH_WORLD, "gloo", work)
+    gloo_s = time.perf_counter() - t0
+    staged = sum(r["host_staged_bytes"] for r in ranks)
+    log(f"  backend {ranks[0]['backend']}, world {MESH_WORLD}, host_staged_bytes {staged} "
+        f"(ranks {[r['host_staged_bytes'] for r in ranks]}), {gloo_s:.1f} s with start-up")
+    for r in ranks:
+        log(f"    rank {r['rank']}: {r['rows']} rows, {r['us_per_step']:.1f} us a step, "
+            f"{r['exchange_share']:.3f} of it exchanging ({r['exchanges']} exchanges in "
+            f"{MESH_STEPS} steps), kernels against plain {r['kernel_vs_plain']:.3e}, "
+            f"launches {r['dense_launches']}")
+        require(r["backend"] == "gloo" and r["finite"], f"rank {r['rank']}: backend or W")
+        require(r["kernel_vs_plain"] <= PATH_W_ATOL,
+                f"rank {r['rank']}: kernel step differs from the plain by {r['kernel_vs_plain']:.3e}")
+        require(r["dense_launches"]["margins"] == r["dense_launches"]["grad_update"] == MESH_STEPS,
+                f"rank {r['rank']}: dense mesh launches {r['dense_launches']}")
+        f = r["faults"]
+        require(f["inert_equal"], f"rank {r['rank']}: an inert plan moved the step")
+        require((f["dead_max"] == 0.0) == (r["rank"] == 2),
+                f"rank {r['rank']}: dead-rank check (max |w| {f['dead_max']})")
+        require(f["drop_finite"] and f["drop_max"] > 0 and f["drop_differs"],
+                f"rank {r['rank']}: message drops {f}")
+        require(f["out_of_range_raised"], f"rank {r['rank']}: out-of-range dead id accepted")
+        sp = r["sparse"]
+        require(sp["plain_3"] <= SPARSE_PARITY_ATOL and sp["plain_200"] <= PATH_W_ATOL,
+                f"rank {r['rank']}: sparse mesh step against its plain version {sp}")
+        require(sp["err_3"] <= SPARSE_PARITY_ATOL and sp["err_200"] <= PATH_W_ATOL,
+                f"rank {r['rank']}: sparse mesh step against dense {sp}")
+        require(all(n == sp["steps"] for n in sp["launches"].values()),
+                f"rank {r['rank']}: sparse mesh launches {sp['launches']}")
+        sc = r["scorer"]
+        require(sc["err"] <= KERNEL_RTOL and sc["labels_equal"] and sc["dense_scores"] == 1
+                and sc["one_process_err"] <= KERNEL_RTOL and sc["one_process_labels_equal"],
+                f"rank {r['rank']}: mesh scorer {sc}")
+        g = r["gossip"]
+        require(g["mean_kept"] <= GOSSIP_MEAN_ATOL and g["full_to_mean"] <= GOSSIP_MEAN_ATOL,
+                f"rank {r['rank']}: gossip_mix {g}")
+    log(f"  faults: inert plan bit-identical, rank 2 dead at zero, message drops finite and "
+        f"different, id {MESH_WORLD} refused; sparse against its plain version: "
+        f"{max(r['sparse']['plain_3'] for r in ranks):.3e} after {MESH_SPARSE_CHECK_STEPS} "
+        f"steps, {max(r['sparse']['plain_200'] for r in ranks):.3e} after {MESH_STEPS}; "
+        f"against dense: {max(r['sparse']['err_3'] for r in ranks):.3e} and "
+        f"{max(r['sparse']['err_200'] for r in ranks):.3e}; scorer over "
+        f"{ranks[0]['scorer']['rows']} rows against plain "
+        f"{max(r['scorer']['err'] for r in ranks):.3e}, against one process "
+        f"{max(r['scorer']['one_process_err'] for r in ranks):.3e}; "
+        f"gossip_mix mean kept {max(r['gossip']['mean_kept'] for r in ranks):.3e}, full "
+        f"schedule {max(r['gossip']['full_to_mean'] for r in ranks):.3e} from the mean")
+    out["gloo"] = dict(world=MESH_WORLD, seconds=gloo_s, host_staged_bytes=staged,
+                       ranks=ranks,
+                       margins=sum(r["dense_launches"]["margins"] for r in ranks),
+                       grad_update=sum(r["dense_launches"]["grad_update"] for r in ranks),
+                       dense_scores=sum(r["scorer"]["dense_scores"] for r in ranks),
+                       ell_margins_prefetch_coeff=sum(
+                           r["sparse"]["launches"]["ell_margins_prefetch_coeff"] for r in ranks),
+                       ell_grad_update_prefetch_fold=sum(
+                           r["sparse"]["launches"]["ell_grad_update_prefetch_fold"] for r in ranks))
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = run_mesh(world, "nccl", work)
+    nccl_s = time.perf_counter() - t0
+    for r in ranks:
+        log(f"  backend {r['backend']}, world {world}, rank {r['rank']}: {r['rows']} rows, "
+            f"{r['us_per_step']:.1f} us a step, {r['exchange_share']:.3f} exchanging, "
+            f"host_staged_bytes {r['host_staged_bytes']}, kernels against plain "
+            f"{r['kernel_vs_plain']:.3e}, launches {r['dense_launches']}, scorer "
+            f"{r['scorer']['err']:.3e}")
+        require(r["backend"] == "nccl" and r["finite"] and r["host_staged_bytes"] == 0,
+                f"rank {r['rank']}: NCCL run {r['backend']}, staged {r['host_staged_bytes']}")
+        require(r["kernel_vs_plain"] <= PATH_W_ATOL, f"NCCL rank {r['rank']}: kernels off plain")
+        require(r["dense_launches"]["margins"] == r["dense_launches"]["grad_update"] == MESH_STEPS,
+                f"NCCL rank {r['rank']}: launches {r['dense_launches']}")
+        sc = r["scorer"]
+        require(sc["err"] <= KERNEL_RTOL and sc["labels_equal"]
+                and sc["one_process_err"] <= KERNEL_RTOL and sc["one_process_labels_equal"],
+                f"NCCL rank {r['rank']}: mesh scorer {sc}")
+    out["nccl"] = dict(world=world, seconds=nccl_s, ranks=ranks,
+                       margins=sum(r["dense_launches"]["margins"] for r in ranks),
+                       grad_update=sum(r["dense_launches"]["grad_update"] for r in ranks),
+                       dense_scores=sum(r["scorer"]["dense_scores"] for r in ranks))
+    return out
+
+
 def profile_iterations(torch, run) -> dict:
     """Device time by kernel, in all and in kernels alone (copies, such as
     pageable uploads whose time follows the host's, left out), kernel
@@ -2237,6 +2794,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import counter_rng
     from repro_torch.core import gadget as gadget_mod
+    from repro_torch.core import cutting_plane, multiclass, pegasos
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.gadget import GadgetConfig, gadget_train
     from repro_torch.telemetry.train import TrainTelemetry
@@ -2669,9 +3227,21 @@ def main() -> int:
                                       ds_c, w_c, n_correct_c, buckets, publisher["installed"],
                                       dev, tmp, reset, counts_of)
         phase_s["19"] = time.perf_counter() - t0 - sum(phase_s.values())
+        free_cuda(torch)
+        log("phase 20: the remaining solvers: host loop, Pegasos, the online baselines, "
+            "multiclass")
+        solvers = phase_solvers(torch, gadget_mod, pegasos, cutting_plane, multiclass, P, ops,
+                                cfg, reuters, kernels, dev, reset, counts_of)
+        free_cuda(torch)
+        phase_s["20"] = time.perf_counter() - t0 - sum(phase_s.values())
+        log(f"  {phase_s['20']:.1f} s")
+        log("phase 21: the mesh, four gloo ranks on the card, then NCCL")
+        mesh = phase_mesh(torch, partition, ds_r, tmp)
+        phase_s["21"] = time.perf_counter() - t0 - sum(phase_s.values())
+        log(f"  {phase_s['21']:.1f} s")
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
-    log("phase 20: summary")
+    log("phase 22: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -2715,11 +3285,28 @@ def main() -> int:
         more_paths[name] += [
             {"path": "fused step above its minibatch cap (phase 15)",
              "launches": c1["train_launches"][name]},
-            {"path": "faulted unfused training (phase 16)", "launches": faults["unfused"][name]}]
+            {"path": "faulted unfused training (phase 16)", "launches": faults["unfused"][name]},
+            {"path": "host-loop reference, random topology (phase 20)",
+             "launches": solvers["host_loop"]["random"][name]},
+            {"path": "host-loop reference, exponential topology (phase 20)",
+             "launches": solvers["host_loop"]["exponential"][name]},
+            {"path": f"dense mesh step, {MESH_WORLD} gloo ranks, all ranks (phase 21)",
+             "launches": mesh["gloo"][name]},
+            {"path": f"dense mesh step over NCCL, world {mesh['nccl']['world']} (phase 21)",
+             "launches": mesh["nccl"][name]}]
     for name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"):
         more_paths[name] += [
             {"path": "CCAT stream (phase 17)", "launches": anytime["ccat_stream"][name]},
-            {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]}]
+            {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]},
+            {"path": f"sparse mesh step, prefetch, {MESH_WORLD} gloo ranks, all ranks (phase 21)",
+             "launches": mesh["gloo"][name]}]
+    more_paths["dense_scores"] += [
+        {"path": "predict_multiclass at mnist's shape, C = 10 (phase 20)",
+         "launches": solvers["multiclass"]["dense_scores"]},
+        {"path": f"make_mesh_scorer, {MESH_WORLD} gloo ranks, all ranks (phase 21)",
+         "launches": mesh["gloo"]["dense_scores"]},
+        {"path": f"make_mesh_scorer over NCCL, world {mesh['nccl']['world']} (phase 21)",
+         "launches": mesh["nccl"]["dense_scores"]}]
     more_paths["ell_scores_prefetch"] += [
         {"path": "serving behind the publisher (phase 18)",
          "launches": publisher["ell_scores_prefetch"]},
@@ -2793,7 +3380,7 @@ def main() -> int:
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
             "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
-            "control_plane": control,
+            "control_plane": control, "solvers": solvers, "mesh": mesh,
             "later_phase_s": phase_s,
             "ptxas": resources,
             "total_s": time.perf_counter() - t_all}

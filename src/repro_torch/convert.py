@@ -49,11 +49,13 @@ def weights_to_torch(w, device: torch.device | str | None = None) -> torch.Tenso
 def result_to_torch(result, device: torch.device | str | None = None) -> dict:
     """The weights of a ``GadgetResult``-like value (a mapping or an object
     with ``W``, ``w_consensus`` and ``W_avg``) as ``{name: tensor}``; a
-    field that is None stays None."""
+    field that is None stays None, and one the value lacks (a
+    ``MulticlassResult`` has no ``W_avg``) is None."""
     dev = resolve_device(device)
     out = {}
     for name in _RESULT_FIELDS:
-        v = result[name] if isinstance(result, Mapping) else getattr(result, name)
+        v = (result.get(name) if isinstance(result, Mapping)
+             else getattr(result, name, None))
         out[name] = None if v is None else _tensor(v, dev)
     return out
 

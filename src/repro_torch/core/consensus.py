@@ -1,0 +1,110 @@
+"""Consensus strategies: the paper's gossip protocol as an alternative to
+all-reduce data parallelism for any model. Port of ``repro.core.consensus``
+onto :class:`~repro_torch.core.mesh.Mesh` (one replica a process).
+
+* ``allreduce``: gradients are averaged over the replicas every step (a SUM
+  divided by the replica count: gloo has no ``ReduceOp.AVG``).
+* ``gossip``: each replica applies its own update, then the *parameters*
+  are mixed with R Push-Sum rounds over the time-varying one-peer
+  exponential graph (one exchange a round). R = log2(n) gives exact
+  averaging; fewer rounds the paper's partial consensus.
+
+:func:`gossip_mix_stacked` is the single-process view: every leaf carries a
+leading replica axis and a round is ``s·x + (1 − s)·roll(x, hop)``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core.mesh import Mesh
+from repro_torch.core.push_sum import (PushSumState, exponential_schedule, push_sum_round,
+                                       tree_leaves, tree_map)
+
+__all__ = ["ConsensusConfig", "allreduce_grads", "gossip_mix", "gossip_mix_stacked",
+           "mix_params"]
+
+
+class ConsensusConfig(NamedTuple):
+    kind: str = "allreduce"       # "allreduce" | "gossip" | "none"
+    gossip_rounds: int = 2        # R — Push-Sum rounds per optimizer step
+    self_share: float = 0.5
+    mix_every: int = 1            # gossip only every k-th step (local SGD flavour)
+
+    def validate(self) -> "ConsensusConfig":
+        if self.kind not in ("allreduce", "gossip", "none"):
+            raise ValueError(f"unknown consensus kind {self.kind!r}")
+        if self.gossip_rounds < 1 or self.mix_every < 1:
+            raise ValueError("gossip_rounds and mix_every must be >= 1")
+        return self
+
+
+def allreduce_grads(grads: Any, axis_names: Sequence[str], *, mesh) -> Any:
+    """The mean of every leaf over the replicas of ``mesh``: a SUM divided by
+    the number of replicas. ``axis_names`` must cover every axis of size
+    above 1 (a sub-mesh mean would need sub-groups)."""
+    size = 1
+    for ax in axis_names:
+        size *= mesh.axis_sizes[ax]
+    if size != mesh.world:
+        raise ValueError(f"axes {tuple(axis_names)} span {size} of the mesh's {mesh.world} "
+                         "ranks; the mean runs over the whole mesh")
+    return tree_map(lambda g: mesh.all_reduce_sum(g) / size, grads)
+
+
+def gossip_mix(params: Any, step: int, *, axis_sizes: dict[str, int], rounds: int,
+               self_share: float = 0.5, mesh=None) -> Any:
+    """R Push-Sum rounds on the parameter tree over the mesh, returning this
+    rank's estimate. The hop schedule is rotated by ``step`` so consecutive
+    steps continue the exponential sequence."""
+    sched = exponential_schedule(axis_sizes)
+    if not sched:
+        return params
+    mesh = Mesh(axis_sizes) if mesh is None else mesh
+    L = len(sched)
+    leaves = tree_leaves(params)
+    state = PushSumState(values=params, weight=torch.ones(
+        (), dtype=torch.float32, device=leaves[0].device))
+    base = (int(step) * rounds) % L
+    for k in range(rounds):
+        state = push_sum_round(state, sched[(base + k) % L], self_share=self_share, mesh=mesh)
+    return state.estimate()
+
+
+def gossip_mix_stacked(params: Any, step: int, *, n_nodes: int, rounds: int = 1,
+                       self_share: float = 0.5, payload_dtype: torch.dtype | None = None) -> Any:
+    """Gossip over a leading replica axis of size ``n_nodes`` in one process:
+    a round is ``x ← s·x + (1 − s)·roll(x, hop, 0)`` with hops 1, 2, …, n/2
+    rotated by ``step``. The schedule is doubly stochastic, so the Push-Sum
+    weight stays 1 and is not tracked. ``payload_dtype`` (e.g.
+    ``torch.bfloat16``) quantises only the sent share; the kept share stays
+    full precision."""
+    if n_nodes == 1:
+        return params
+    if n_nodes & (n_nodes - 1):
+        raise ValueError("n_nodes must be a power of two")
+    hops = [1 << k for k in range((n_nodes - 1).bit_length())]
+
+    def mixer(hop):
+        def mix(x):
+            sent = x.to(payload_dtype) if payload_dtype is not None else x
+            recv = torch.roll(sent, hop, dims=0).to(torch.float32)
+            return (self_share * x.to(torch.float32) + (1.0 - self_share) * recv).to(x.dtype)
+        return mix
+
+    L = len(hops)
+    base = (int(step) * rounds) % L
+    for k in range(rounds):
+        params = tree_map(mixer(hops[(base + k) % L]), params)
+    return params
+
+
+def mix_params(cfg: ConsensusConfig, params: Any, step: int, *,
+               axis_sizes: dict[str, int], mesh=None) -> Any:
+    """Post-update parameter mixing by the configured strategy (gossip only
+    every ``mix_every``-th step)."""
+    if cfg.kind != "gossip" or int(step) % cfg.mix_every != 0:
+        return params
+    return gossip_mix(params, step, axis_sizes=axis_sizes, rounds=cfg.gossip_rounds,
+                      self_share=cfg.self_share, mesh=mesh)

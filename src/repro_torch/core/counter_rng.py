@@ -77,7 +77,15 @@ def random_bits(key, index):
 def randint(key, index, maxval):
     """``jax.random.randint(key, shape, 0, maxval)`` (int32) at the flat
     ``index`` of each element: two words a value, reduced mod the span as
-    JAX reduces them (uint32 arithmetic, wrapping)."""
+    JAX reduces them (uint32 arithmetic, wrapping). With a key of Python
+    ints, an int ``index`` and an int ``maxval`` it is computed on the host
+    in Python ints (no device work for a single draw)."""
+    if isinstance(index, int):
+        hi = random_bits(fold_in(key, 0), index)  # split(key): a key for each word
+        lo = random_bits(fold_in(key, 1), index)
+        span = max(int(maxval), 1)
+        mult = ((2 ** 16 % span) ** 2 & _M32) % span
+        return ((((hi % span) * mult & _M32) + lo % span) & _M32) % span
     ndim = max(index.dim(), *(torch.as_tensor(k).dim() for k in key))
     parts = torch.arange(2, dtype=torch.int64, device=index.device).view((2,) + (1,) * ndim)
     hi, lo = random_bits(fold_in(key, parts), index)  # split(key): a key for each word

@@ -30,7 +30,8 @@ import torch
 from repro_torch.core import counter_rng as crng
 
 __all__ = ["FaultPlan", "DROP_MODES", "validate_plan", "dead_mask", "apply_faults",
-           "faulty_rounds", "keyed_fail_masks", "count_drops", "count_drops_node"]
+           "faulty_rounds", "keyed_fail_masks", "fault_stream_key", "round_fail_key",
+           "count_drops", "count_drops_node"]
 
 DROP_MODES = ("link", "message")
 # the reference's salt of the failure stream (repro.core.faults._FAULT_SALT)
@@ -118,6 +119,19 @@ def keyed_fail_masks(plan: FaultPlan, t0: int, n: int, R: int, m: int,
     key = crng.fold_in(key, torch.arange(R, dtype=torch.int64, device=device)[None, :, None])
     cells = torch.arange(m * m, dtype=torch.int64, device=device)[None, None, :]
     return crng.bernoulli(key, cells, plan.drop_prob).view(n, R, m, m)
+
+
+def fault_stream_key(plan: FaultPlan) -> tuple:
+    """Base key of the plan's failure stream, ``fold_in(PRNGKey(seed), salt)``."""
+    return crng.fold_in(crng.prng_key(plan.seed), _FAULT_SALT)
+
+
+def round_fail_key(plan: FaultPlan, t, r) -> tuple:
+    """Key of the failure draw at (iteration t, gossip round r): the
+    reference's ``round_fail_key``, from which the simulator's masks and the
+    mesh step's per-node fail bits all derive. Python ints give a pair of
+    ints (no device work); int64 tensors broadcast."""
+    return crng.fold_in(crng.fold_in(fault_stream_key(plan), t), r)
 
 
 def _real_drops(Bs: torch.Tensor, fails: torch.Tensor, plan: FaultPlan,

@@ -39,6 +39,14 @@ tensors at iterations the host knows, so they add no sync inside a chunk;
 they are read back when the run ends. The reference runs the same loop as
 one jitted ``lax.while_loop``.
 
+:func:`gadget_train_reference` keeps the reference's host-loop oracle: the
+same draws, always unfused, a deterministic topology's matrices uploaded
+every iteration and two blocking syncs an ε-check. ``transfer_stats``
+counts what each loop really does (matrix uploads, host syncs).
+:func:`make_gadget_mesh_step` runs one node a process on a
+:class:`~repro_torch.core.mesh.Mesh`: the local half-step, then Push-Sum
+rounds as point-to-point exchanges.
+
 Randomness comes from a draw source (:class:`GeneratorDraws` by default,
 :class:`RecordedDraws` to replay given draws). The port's own draws are
 the reference's ``jax.random`` streams, reproduced bit for bit by a
@@ -62,8 +70,11 @@ from repro_torch.core import svm_objective as obj
 from repro_torch.core import topology as topo
 from repro_torch.core import counter_rng as crng
 from repro_torch.core.faults import FaultPlan
-from repro_torch.core.push_sum import collapse_rounds, mix_collapsed, mix_rounds
+from repro_torch.core.mesh import Mesh
+from repro_torch.core.push_sum import (PushSumState, collapse_rounds, exponential_schedule,
+                                       mix_collapsed, mix_rounds, push_sum_round)
 from repro_torch.kernels.hinge_subgrad import ops
+from repro_torch.kernels.hinge_subgrad import ref as hinge_ref
 from repro_torch.sparse.formats import minibatch_block_bound
 from repro_torch.telemetry import registry as tmr
 from repro_torch.telemetry import trace as tmtr
@@ -71,10 +82,25 @@ from repro_torch.telemetry import train as tmt
 
 __all__ = ["GadgetConfig", "GadgetResult", "NonFiniteWeightsError", "SegmentResult",
            "SnapshotRing", "TrainState", "DrawPlan", "GeneratorDraws", "RecordedDraws",
-           "gadget_train", "gadget_train_stream", "DEFAULT_SNAPSHOT_SLOTS"]
+           "gadget_train", "gadget_train_stream", "gadget_train_reference",
+           "make_gadget_mesh_step", "transfer_stats", "reset_transfer_stats",
+           "DEFAULT_SNAPSHOT_SLOTS"]
 
 # default capacity of the anytime-export ring, as the reference's
 DEFAULT_SNAPSHOT_SLOTS = 8
+
+# Host-device traffic of the training loops: ``matrix_uploads`` counts
+# host-to-device copies of mixing matrices, ``host_syncs`` the blocking
+# device-to-host reads of the ε-check and the traces. gadget_train uploads a
+# deterministic topology's cycle once and syncs once per ε-chunk (the stream
+# once per segment); gadget_train_reference uploads every iteration and
+# syncs twice per ε-check, as the reference's host loop.
+transfer_stats = {"matrix_uploads": 0, "host_syncs": 0}
+
+
+def reset_transfer_stats() -> None:
+    transfer_stats["matrix_uploads"] = 0
+    transfer_stats["host_syncs"] = 0
 
 
 class NonFiniteWeightsError(FloatingPointError):
@@ -479,6 +505,7 @@ class _Run:
                      if cfg.faults is not None and cfg.faults.dead_nodes else None)
         self._cycle = None  # a deterministic topology's uploaded per-iteration cycle
         self._stack = None  # its uploaded round matrices, under faults
+        self._host_stack = None  # its round matrices on the host, for the host loop
 
     def consensus_of(self, W: torch.Tensor) -> torch.Tensor:
         return (W * self.counts_f[:, None]).sum(dim=0) / self.total
@@ -489,9 +516,24 @@ class _Run:
         if self._stack is None:
             self._stack = torch.from_numpy(
                 topo.build_matrix_stack(self.cfg.topology, self.m)).to(self.dev)
+            transfer_stats["matrix_uploads"] += 1
         R, T = self.cfg.gossip_rounds, self._stack.shape[0]
         idx = ((_arange(n, self.dev)[:, None] + (t0 - 1)) * R + _arange(R, self.dev)) % T
         return self._stack[idx]
+
+    def _uploaded_rounds(self, t0: int, n: int) -> torch.Tensor:
+        """The host loop's rounds of iterations t0 … t0+n−1, (n, R, m, m): a
+        deterministic topology's R matrices built on the host and uploaded
+        one iteration at a time, each upload counted."""
+        if self._host_stack is None:
+            self._host_stack = topo.build_matrix_stack(self.cfg.topology, self.m)
+        R, T = self.cfg.gossip_rounds, self._host_stack.shape[0]
+        rounds = []
+        for t in range(t0, t0 + n):
+            idx = ((t - 1) * R + np.arange(R)) % T
+            rounds.append(torch.from_numpy(self._host_stack[idx]).to(self.dev))
+            transfer_stats["matrix_uploads"] += 1
+        return torch.stack(rounds)
 
     def _step(self, ids, W, Bs, t: int):
         """Steps (a)-(h) for all m nodes at iteration t; ``Bs`` the collapsed
@@ -526,14 +568,19 @@ class _Run:
             W_new = torch.where(self.dead[:, None], W, W_new)
         return W_new, wts
 
-    def chunk(self, W, W_sum, t0: int, n: int, rings=None, count_drops: bool = False):
+    def chunk(self, W, W_sum, t0: int, n: int, rings=None, count_drops: bool = False,
+              upload_rounds: bool = False):
         """Iterations t0 … t0+n−1 from ``(W, W_sum)``, with no host sync.
         Returns ``(W, W_sum, masses (n,), drops)``: ``drops`` the (n, m)
         per-sender faulted-message counts when ``count_drops`` and faults are
         on, else None. ``rings`` (a :class:`_Rings`) records at its
-        iterations."""
+        iterations. ``upload_rounds``: a deterministic topology's rounds
+        come from :meth:`_uploaded_rounds` (the host loop), not from the
+        cycle uploaded once."""
         cfg, plan = self.cfg, self.plan
         ids, mix = self.draws.take(t0, n, plan)
+        if mix is None and upload_rounds:
+            mix = self._uploaded_rounds(t0, n)
         drops = None
         if cfg.faults is not None:
             clean = mix if mix is not None else self._clean_rounds(t0, n)
@@ -544,6 +591,7 @@ class _Run:
                 drops = flt.count_drops_node(clean, fails, cfg.faults, dead=self.dead)
         elif mix is None and self._cycle is None:
             self._cycle = _mixing_cycle(cfg, self.m, self.dev)
+            transfer_stats["matrix_uploads"] += 1
         masses = []
         for k in range(n):
             t = t0 + k
@@ -761,6 +809,7 @@ def _segments(run: _Run, seg: int, W, W_sum, t: int, rings: _Rings | None = None
         host = torch.cat([w_cons.to(torch.float64),
                           torch.stack([s.to(torch.float64) for s in scalars])]
                          ).cpu().numpy()  # the segment's one host sync
+        transfer_stats["host_syncs"] += 1
         seconds = time.monotonic() - seg_t0
         w_host, vals = host[:run.d].astype(np.float32), host[run.d:]
         iteration = t - 1
@@ -929,3 +978,190 @@ def gadget_train_stream(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
         yield SegmentResult(iteration=g.iteration, W=g.W, w_consensus=g.w_host,
                             objective=g.objective, epsilon=g.epsilon, done=g.done,
                             W_sum=g.W_sum, mass=g.mass, telemetry=g.stats, trace=seg_ctx)
+
+
+# ---------------------------------------------------------------------------
+# Host-loop reference (seed semantics): the parity oracle
+# ---------------------------------------------------------------------------
+
+
+class _HostSnapshots:
+    """The host loop's anytime ring: each snapshot read back as it is taken
+    (a blocking sync), slot for slot the device ring."""
+
+    def __init__(self, every: int, slots: int, d: int):
+        self.every, self.slots, self.count = every, slots, 0
+        self.W = np.zeros((slots, d), np.float32)
+        self.iterations = np.zeros((slots,), np.int32)
+        self.objectives = np.full((slots,), np.nan, np.float32)
+
+    def after(self, run: _Run, t: int, W, wts, mass, drops) -> None:
+        if t % self.every:
+            return
+        w_snap = run.consensus_of(W)
+        slot = self.count % self.slots
+        self.W[slot] = w_snap.cpu().numpy()
+        self.iterations[slot] = t
+        self.objectives[slot] = float(run.objective_of(w_snap))
+        self.count += 1
+
+    def ring(self, run: _Run, w_cons: torch.Tensor, iters: int) -> SnapshotRing:
+        return SnapshotRing(every=self.every, W=self.W, iterations=self.iterations,
+                            objectives=self.objectives, count=self.count,
+                            final_w=w_cons.cpu().numpy(), final_iteration=iters,
+                            final_objective=float(run.objective_of(w_cons)))
+
+
+def gadget_train_reference(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
+                           n_counts=None, snapshot_every: int | None = None,
+                           snapshot_slots: int = DEFAULT_SNAPSHOT_SLOTS,
+                           device: torch.device | str | None = None,
+                           draws: GeneratorDraws | RecordedDraws | None = None) -> GadgetResult:
+    """The reference's host loop, seed semantics: :func:`gadget_train`'s
+    unfused chunks on the same draws, differing only in their transfers: a
+    deterministic topology's R round matrices are built on the host and
+    uploaded one iteration at a time, and every ε-check is two blocking
+    syncs (ε, then the objective with the chunk's least mass). Dense and
+    ELL partitions, faults, ``n_counts``, ``device`` and ``draws`` as
+    :func:`gadget_train`. ``snapshot_every=K`` fills the anytime ring on the
+    host, slot for slot the device ring."""
+    _validate_topology(cfg)
+    snap_every = _validate_snapshotting(snapshot_every, snapshot_slots)
+    run = _Run(X_parts, y_parts, cfg._replace(fused=False), n_counts, device, draws)
+    cfg = run.cfg
+    snaps = _HostSnapshots(snap_every, snapshot_slots, run.d) if snap_every else None
+    W = torch.zeros((run.m, run.d), dtype=torch.float32, device=run.dev)
+    W_sum = torch.zeros_like(W)
+    obj_trace, time_trace, eps_trace, mass_trace = [], [], [], []
+    eps = float("inf")
+    it = 0
+    while it < cfg.max_iters:
+        chunk = min(cfg.check_every, cfg.max_iters - it)
+        W_prev = W
+        W, W_sum, masses, _ = run.chunk(W, W_sum, it + 1, chunk, snaps, upload_rounds=True)
+        it += chunk
+        eps = float(torch.linalg.vector_norm(W - W_prev, dim=1).max())  # blocking sync
+        transfer_stats["host_syncs"] += 1
+        w_cons = run.consensus_of(W)
+        objective, mass = torch.stack([run.objective_of(w_cons), masses.min()]).tolist()
+        transfer_stats["host_syncs"] += 1  # the objective is a second blocking sync
+        obj_trace.append(objective)
+        time_trace.append(it)
+        eps_trace.append(eps)
+        mass_trace.append(mass)
+        if eps < cfg.epsilon:
+            break
+    w_cons = run.consensus_of(W)
+    return GadgetResult(
+        W=W,
+        w_consensus=w_cons,
+        iters=it,
+        epsilon=eps,
+        objective_trace=np.asarray(obj_trace, np.float32),
+        time_trace=np.asarray(time_trace, np.int32),
+        eps_trace=np.asarray(eps_trace, np.float32),
+        W_avg=W_sum / max(it, 1),
+        snapshots=snaps.ring(run, w_cons, it) if snaps is not None else None,
+        mass_trace=np.asarray(mass_trace, np.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mesh path: one GADGET iteration a process
+# ---------------------------------------------------------------------------
+
+
+def make_gadget_mesh_step(cfg: GadgetConfig, axis_sizes: dict[str, int],
+                          sparse_block_bound: int | None = None, *, mesh=None,
+                          use_kernels: bool | None = None):
+    """One node's GADGET step for a mesh of processes, one node a rank.
+
+    Returns ``step(w, X_local, y_local, t, key)``: the local Pegasos
+    half-step, then ``cfg.gossip_rounds`` Push-Sum rounds over the
+    one-peer exponential schedule of ``axis_sizes`` (none on a one-node
+    mesh), then the optional projection. ``key`` is a ``counter_rng`` key
+    pair of Python ints and the ids, drawn on the host, are
+    ``randint(key, (B,), 0, n_local)``, so the
+    reference's ``split(fold_in(PRNGKey(0), t), m)[rank]`` draws its ids.
+
+    ``X_local``: the rank's dense (n_local, d) rows, run through
+    ``ops.local_half_step`` (``margins`` then ``grad_update``), or a
+    ``(cols, vals)`` pair of its (n_local, k) ELL planes, run through
+    ``ops.ell_fleet_half_step`` as a one-node fleet with
+    ``cfg.sparse_schedule`` and ``sparse_block_bound`` (derive it from the
+    full planes, ``formats.minibatch_block_bound``). ``use_kernels=False``
+    takes the plain PyTorch half-steps instead.
+
+    ``cfg.faults`` masks the sends: in round k at iteration t each rank
+    draws its fail bit ``bernoulli(fold_in(round_fail_key(plan, t, k),
+    rank), p)`` on the host, a dead rank or a dead partner fails, and dead
+    ranks are frozen. ``plan.dead_nodes`` are linear indices over
+    ``axis_sizes`` (row-major, dict order); an id out of range raises here.
+    ``mesh``: a :class:`~repro_torch.core.mesh.Mesh` over ``axis_sizes``,
+    by default one built here on the world group (none for a one-node mesh
+    without faults)."""
+    use_kernels = True if use_kernels is None else bool(use_kernels)
+    sched = exponential_schedule(axis_sizes)
+    R = cfg.gossip_rounds if sched else 0  # a one-node mesh has no neighbours
+    n_total = 1
+    for n_ax in axis_sizes.values():
+        n_total *= int(n_ax)
+    faults = None
+    if cfg.faults is not None:
+        faults = flt.validate_plan(cfg.faults, n_total)
+        if faults.drop_prob == 0.0 and not faults.dead_nodes:
+            faults = None  # an inert plan: the unmasked path, bit for bit
+    dead_ids = frozenset(faults.dead_nodes) if faults is not None else frozenset()
+    if mesh is not None and dict(mesh.axis_sizes) != {str(a): int(n) for a, n in axis_sizes.items()}:
+        raise ValueError(f"mesh axes {mesh.axis_sizes} are not {axis_sizes}")
+    if mesh is None and (R or faults is not None):
+        mesh = Mesh(axis_sizes)
+
+    def half_step(w, X_local, y_local, ids, t: int):
+        if isinstance(X_local, tuple):
+            cols_l, vals_l = X_local
+            Cb, Vb, yb = cols_l[ids][None], vals_l[ids][None], y_local[ids][None]
+            if use_kernels:
+                return ops.ell_fleet_half_step(w[None], Cb, Vb, yb, lam=cfg.lam, t=t,
+                                               project=cfg.project_before_gossip,
+                                               schedule=cfg.sparse_schedule,
+                                               n_blocks_max=sparse_block_bound)[0]
+            return hinge_ref.ell_fleet_half_step_ref(w[None], Cb, Vb, yb, cfg.lam,
+                                                     torch.tensor(t, dtype=torch.float32),
+                                                     project=cfg.project_before_gossip)[0]
+        Xb, yb = X_local[ids], y_local[ids]
+        if use_kernels:
+            return ops.local_half_step(w, Xb, yb, lam=cfg.lam, t=t,
+                                       project=cfg.project_before_gossip)
+        # float32 step scalars, as the reference's traced t makes them
+        return hinge_ref.half_step_ref(w, Xb, yb, cfg.lam, torch.tensor(t, dtype=torch.float32),
+                                       project=cfg.project_before_gossip)
+
+    def step(w: torch.Tensor, X_local, y_local: torch.Tensor, t, key) -> torch.Tensor:
+        t = int(t)
+        n_local = (X_local[0] if isinstance(X_local, tuple) else X_local).shape[0]
+        # a few ids: drawn on the host, one upload
+        ids = torch.tensor([crng.randint(key, i, n_local) for i in range(cfg.batch_size)],
+                           dtype=torch.int64).to(w.device)
+        w_half = half_step(w, X_local, y_local, ids, t)
+        state = PushSumState(values=(w_half,),
+                             weight=torch.ones((), dtype=torch.float32, device=w.device))
+        lin = mesh.rank if mesh is not None else 0
+        dead = lin in dead_ids
+        for k in range(R):
+            rnd = sched[k % len(sched)]
+            if faults is None:
+                state = push_sum_round(state, rnd, mesh=mesh)
+                continue
+            fail = bool(crng.bernoulli(crng.fold_in(flt.round_fail_key(faults, t, k), lin), 0,
+                                       faults.drop_prob))
+            fail = fail or dead or mesh.partner(rnd.axis, rnd.hop) in dead_ids
+            state = push_sum_round(state, rnd, fault=(fail, dead, faults.drop), mesh=mesh)
+        (w_new,) = state.estimate()
+        if cfg.project_after_gossip:
+            w_new = obj.project_ball(w_new, cfg.lam)
+        if faults is not None and dead:
+            w_new = w  # crashed nodes are frozen
+        return w_new
+
+    return step

@@ -75,10 +75,13 @@ def hinge_subgradient(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor) -> torc
 def pegasos_update(w: torch.Tensor, X: torch.Tensor, y: torch.Tensor, lam: float,
                    t: int) -> torch.Tensor:
     """One Pegasos step at iteration t (1-based): α = 1/(λt),
-    w ← (1 − λα)w + α·mean_{violators} y·x, then the ball projection."""
-    alpha = 1.0 / (lam * t)
+    w ← (1 − λα)w + α·mean_{violators} y·x, then the ball projection. The
+    scalars α and 1 − λα are formed in float32, as the reference forms them
+    from a float32 t."""
+    lam32 = np.float32(lam)
+    alpha = np.float32(1.0) / (lam32 * np.float32(t))
     L_hat = -hinge_subgradient(w, X, y)
-    w_half = (1.0 - lam * alpha) * w + alpha * L_hat
+    w_half = float(np.float32(1.0) - lam32 * alpha) * w + float(alpha) * L_hat
     return project_ball(w_half, lam)
 
 

@@ -10,14 +10,15 @@ admission (``max_pending`` and the reject/shed/block policies), deadlines
 and typed ``QueryRejected`` / ``Shed`` / ``DeadlineExceeded`` outcomes;
 ``engine`` is ``SvmServer``, scoring dense batches on the ``dense_scores``
 kernel and padded-ELL batches on ``ell_scores_prefetch``, with ``watch`` /
-``maybe_reload`` hot-swapping the weight plane between drains; ``overload``
+``maybe_reload`` hot-swapping the weight plane between drains, and
+``make_mesh_scorer`` splitting a batch over a mesh of processes; ``overload``
 is the hysteretic ``DegradeLadder`` stepping a server and its batcher to
 the int8 plane and the cheapest bucket under sustained pressure.
 """
 from repro_torch.serve.batcher import (ADMISSION_POLICIES, Bucket,  # noqa: F401
                                        DeadlineExceeded, MicroBatcher, QueryRejected,
                                        Shed, bucket_ladder, calibrate_buckets)
-from repro_torch.serve.engine import SvmServer  # noqa: F401
+from repro_torch.serve.engine import SvmServer, make_mesh_scorer  # noqa: F401
 from repro_torch.serve.overload import DegradeLadder  # noqa: F401
 from repro_torch.serve.publisher import TrainPublisher  # noqa: F401
 from repro_torch.serve.snapshot import (SERVE_FORMAT_VERSION, SERVE_KIND,  # noqa: F401

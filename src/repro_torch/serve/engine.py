@@ -25,6 +25,10 @@ half of the train-to-serve loop: between drains the server polls the
 checkpoint root's ``LATEST`` pointer and hot-swaps when it moved, forward
 on a publish, backward on a rollback (``checkpoint.point_latest``); a step
 that fails to load ``reload_quarantine`` times is quarantined.
+
+:func:`make_mesh_scorer` is the batch-parallel scorer over a
+:class:`~repro_torch.core.mesh.Mesh` of processes: every rank scores its
+slice of the batch with ``dense_scores`` and the slices are all-gathered.
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch._device import resolve_device
+from repro_torch.core.mesh import Mesh
 from repro_torch.kernels.hinge_subgrad import ops as hinge_ops
 from repro_torch.kernels.hinge_subgrad import ref as hinge_ref
 from repro_torch.serve import snapshot as snap_mod
@@ -43,7 +49,7 @@ from repro_torch.sparse.formats import DEFAULT_BUCKET_BLK_D, block_map
 from repro_torch.telemetry import trace as tmtr
 from repro_torch.telemetry.registry import Registry
 
-__all__ = ["SvmServer"]
+__all__ = ["SvmServer", "make_mesh_scorer"]
 
 # Counters every server keeps on its registry (as ``serve.<key>`` series);
 # stats() reads them back under these exact keys.
@@ -379,3 +385,46 @@ class SvmServer:
         s["degraded"] = int(self.degraded)
         s["plane"] = self._plane
         return s
+
+
+def make_mesh_scorer(W, *, mesh=None, use_kernels: bool | None = None,
+                     device: torch.device | str | None = None):
+    """Batch-parallel serving over a mesh of processes: W replicated on every
+    rank, the queries split across the ranks.
+
+    Returns ``scorer(X) -> (scores, labels)``. Every rank passes the same
+    global (B, d) batch; rank r scores rows [r·B/n, (r+1)·B/n) through
+    ``ops.dense_predict`` (the ``dense_scores`` kernel on CUDA, one launch;
+    ``use_kernels=False`` the plain scores and argmax) and the slices are
+    all-gathered, so every rank returns the whole batch's result, as the
+    reference's sharded scorer. W: (d,) binary or (C, d) classes. B must
+    divide by the mesh's size (pad with zero rows; they score 0). ``mesh``:
+    by default the world as one axis ``"batch"``; ``device``: CUDA unless
+    given."""
+    dev = resolve_device(device)
+    if mesh is None:
+        mesh = Mesh({"batch": dist.get_world_size()})
+    W_dev = (W if isinstance(W, torch.Tensor) else torch.from_numpy(np.asarray(W, np.float32))
+             ).to(device=dev, dtype=torch.float32).contiguous()
+    use_kernels = use_kernels is None or bool(use_kernels)
+    binary = W_dev.ndim == 1
+    n = mesh.world
+
+    def scorer(X):
+        X = torch.as_tensor(X).to(device=dev, dtype=torch.float32)
+        B = X.shape[0]
+        if B % n:
+            raise ValueError(f"batch of {B} rows does not split over {n} ranks; pad it "
+                             "with zero rows")
+        rows = B // n
+        Xl = X[mesh.rank * rows:(mesh.rank + 1) * rows].contiguous()
+        if use_kernels:
+            scores, labels = hinge_ops.dense_predict(W_dev, Xl)
+        else:
+            S = hinge_ref.predict_scores_ref(W_dev[None] if binary else W_dev, Xl)
+            scores, labels = hinge_ops._finish_predict(
+                S, torch.argmax(S, dim=-1).to(torch.int32), binary)
+        return (torch.cat(mesh.all_gather(scores.contiguous())),
+                torch.cat(mesh.all_gather(labels.contiguous())))
+
+    return scorer

@@ -32,7 +32,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 74  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 79  # every module of the port was imported
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
@@ -61,3 +61,32 @@ def test_svm_server_without_card_raises(monkeypatch):
         SvmServer(w)
     labels = SvmServer(w, device="cpu").score(np.ones((2, 4), np.float32))[1]
     np.testing.assert_array_equal(labels, [1.0, 1.0])  # asking for the CPU works
+
+
+def _new_entry_points():
+    from repro_torch.core import cutting_plane, gadget, multiclass, pegasos
+    from repro_torch.serve import make_mesh_scorer
+    X = np.zeros((2, 3, 4), np.float32)
+    y = np.ones((2, 3), np.float32)
+    cfg = gadget.GadgetConfig(max_iters=2)
+    return {
+        "gadget_train_reference": lambda **kw: gadget.gadget_train_reference(X, y, cfg, **kw),
+        "pegasos_train": lambda **kw: pegasos.pegasos_train(X[0], y[0], 1e-2, 2, **kw),
+        "cutting_plane_svm": lambda **kw: cutting_plane.cutting_plane_svm(
+            X[0], y[0], 1e-2, max_cuts=2, **kw),
+        "svm_sgd": lambda **kw: cutting_plane.svm_sgd(X[0], y[0], 1e-2, n_epochs=1, **kw),
+        "gadget_train_multiclass": lambda **kw: multiclass.gadget_train_multiclass(
+            X, np.zeros((2, 3), np.int32), 2, cfg, **kw),
+        "make_mesh_scorer": lambda **kw: make_mesh_scorer(np.ones(4, np.float32), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["gadget_train_reference", "pegasos_train",
+                                  "cutting_plane_svm", "svm_sgd",
+                                  "gadget_train_multiclass", "make_mesh_scorer"])
+def test_new_entry_points_without_card_raise(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _new_entry_points()[name]()
+    if name != "make_mesh_scorer":  # the scorer needs a process group past the device check
+        _new_entry_points()[name](device="cpu")  # asking for the CPU works

@@ -17,6 +17,24 @@ port's draws before the Threefry streams), ``mix32`` (a multiply-xorshift
 hash of (seed, stream, t, …), the Threefry streams' first replacement) or
 ``lowbias32`` (the same hash with a stronger finaliser).
 
+``--mode pegasos`` trains the paper's centralised baseline as Table 3 runs
+it (``pegasos_train(X_train, y_train, lam, n_iters=1200, batch_size=8)``)
+on the whole training set; ``--mode multiclass`` trains one-vs-rest GADGET
+(``gadget_train_multiclass``: 10 nodes, λ 1e-3, B = 8, R = 4, the random
+topology, 1,200 iterations, ``check_every`` 300) on data of LibSVM mnist's
+shape (60,000 × 780 train, 10,000 test, 10 classes) from
+``tests/test_multiclass.py``'s generator (Gaussian class centres ×3 plus
+unit noise, numpy seed 0), and prints its test accuracy (argmax) and the
+mean over classes of each one-vs-rest primal objective. Both take
+``--impl torch``. ``chip_smoke.py`` phase 20 sets its limits from them.
+``--mode cutting_plane`` runs Table 4's cutting-plane SVM on node 0's
+partition (``PAPER_RUNS[name].n_nodes`` nodes, partition seed 0) over 5 and
+60 cuts, on the float32 data and on the same numbers widened to float64,
+and prints each run's cuts, gap, objective and test accuracy and the
+largest difference between the two runs' w: how far rounding alone moves
+the solver (``chip_smoke.py`` phase 20 holds the card's w against the CPU
+over the 5-cut prefix and the full run's objective by the gap).
+
 Usage:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_quality.py ccat \\
         --scale 0.1 --sparse --seeds 0 1
@@ -24,6 +42,12 @@ Usage:
         --drop-prob 0.1 --drop link --seeds 0 1
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_quality.py ccat \\
         --scale 0.1 --sparse --impl torch --draws mix32 --seeds $(seq 0 47)
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_quality.py reuters \\
+        --mode pegasos --seeds 0 1
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_quality.py mnist \\
+        --mode multiclass --seeds 0 1
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_quality.py reuters \\
+        --mode cutting_plane [--impl torch]
 """
 from __future__ import annotations
 
@@ -115,10 +139,121 @@ def _torch_train(Xp, yp, cfg, n_counts, draws="own"):
     return res._replace(w_consensus=res.w_consensus.numpy())
 
 
+PEGASOS_ITERS, PEGASOS_BATCH = 1200, 8          # benchmarks/table3_gadget_vs_pegasos.py
+MULTICLASS_SHAPE = (60_000, 10_000, 780, 10)    # LibSVM mnist: train, test, d, classes
+MULTICLASS_CFG = dict(lam=1e-3, batch_size=8, gossip_rounds=4, topology="random",
+                      max_iters=1200, check_every=300)
+MULTICLASS_NODES = 10
+
+
+def make_multiclass(n: int, d: int, C: int, seed: int = 0):
+    """tests/test_multiclass.py's generator: Gaussian class centres ×3 plus
+    unit noise; float32 X, int32 labels."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(C, d)) * 3.0
+    y = rng.integers(0, C, size=n)
+    X = centers[y] + rng.normal(size=(n, d))
+    return X.astype(np.float32), y.astype(np.int32)
+
+
+def multiclass_objective(W: np.ndarray, X: np.ndarray, y: np.ndarray, lam: float) -> float:
+    """Mean over classes of the one-vs-rest primal objective of W (C, d)."""
+    y_bin = np.where(y[:, None] == np.arange(W.shape[0])[None, :], 1.0, -1.0)
+    hinge = np.maximum(0.0, 1.0 - y_bin * (X @ W.T)).mean(axis=0)
+    return float(np.mean(0.5 * lam * np.sum(W.astype(np.float64) ** 2, axis=1) + hinge))
+
+
+def _baseline(args) -> None:
+    """``--mode pegasos`` and ``--mode multiclass``: one JSON line a seed."""
+    t0 = time.perf_counter()
+    if args.mode == "pegasos":
+        ds = make_dataset(args.name, scale=args.scale, seed=0)
+        X, y, Xte, yte, lam = ds.X_train, ds.y_train, ds.X_test, ds.y_test, ds.lam
+    else:
+        n, n_te, d, C = MULTICLASS_SHAPE
+        Xall, yall = make_multiclass(n + n_te, d, C, seed=0)
+        X, y, Xte, yte = Xall[:n], yall[:n], Xall[n:], yall[n:]
+        lam = MULTICLASS_CFG["lam"]
+        n_i = n // MULTICLASS_NODES
+        Xp = X[:MULTICLASS_NODES * n_i].reshape(MULTICLASS_NODES, n_i, d)
+        yp = y[:MULTICLASS_NODES * n_i].reshape(MULTICLASS_NODES, n_i)
+    gen_s = time.perf_counter() - t0
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        if args.mode == "pegasos":
+            if args.impl == "torch":
+                from repro_torch.core.pegasos import pegasos_train as train
+                res = train(X, y, lam, PEGASOS_ITERS, batch_size=PEGASOS_BATCH, seed=seed,
+                            device="cpu")
+            else:
+                from repro.core.pegasos import pegasos_train as train
+                res = train(jnp.asarray(X), jnp.asarray(y), lam, PEGASOS_ITERS,
+                            batch_size=PEGASOS_BATCH, seed=seed)
+            w = np.asarray(res.w)
+            acc = float(np.mean(np.where(Xte @ w >= 0, 1.0, -1.0) == yte))
+            objective, iters = float(np.asarray(res.objective)), PEGASOS_ITERS
+        else:
+            if args.impl == "torch":
+                from repro_torch.core import gadget as TG
+                from repro_torch.core.multiclass import gadget_train_multiclass
+                res = gadget_train_multiclass(Xp, yp, C, TG.GadgetConfig(
+                    **MULTICLASS_CFG, seed=seed), device="cpu")
+            else:
+                from repro.core.gadget import GadgetConfig
+                from repro.core.multiclass import gadget_train_multiclass
+                res = gadget_train_multiclass(jnp.asarray(Xp), jnp.asarray(yp), C,
+                                              GadgetConfig(**MULTICLASS_CFG, seed=seed))
+            W = np.asarray(res.w_consensus)
+            acc = float(np.mean(np.argmax(Xte @ W.T, axis=1) == yte))
+            objective, iters = multiclass_objective(W, X, y, lam), res.iters
+        print(json.dumps({"impl": args.impl, "mode": args.mode, "dataset": args.name,
+                          "n_train": int(len(y)), "n_test": int(len(yte)),
+                          "d": int(X.shape[1]), "seed": seed, "iters": iters,
+                          "test_accuracy": acc, "objective": objective,
+                          "generate_s": gen_s, "train_s": time.perf_counter() - t0}),
+              flush=True)
+
+
+def _cutting_plane(args) -> None:
+    """``--mode cutting_plane``: one JSON line for each cut limit."""
+    ds = make_dataset(args.name, scale=args.scale, seed=0)
+    Xp, yp, nc = partition(ds.X_train, ds.y_train, PAPER_RUNS[args.name].n_nodes, seed=0)
+    X0, y0 = np.asarray(Xp[0, :int(nc[0])]), np.asarray(yp[0, :int(nc[0])])
+    if args.impl == "torch":
+        from repro_torch.core.cutting_plane import cutting_plane_svm as cp_torch
+
+        def solve(X, y, cuts):
+            res = cp_torch(X, y, ds.lam, max_cuts=cuts, device="cpu")
+            return res._replace(w=res.w.numpy())
+    else:
+        from repro.core.cutting_plane import cutting_plane_svm
+
+        def solve(X, y, cuts):
+            return cutting_plane_svm(X, y, ds.lam, max_cuts=cuts)
+    for cuts in (5, 60):
+        runs = {}
+        for dtype in (np.float32, np.float64):
+            t0 = time.perf_counter()
+            res = solve(X0.astype(dtype), y0.astype(dtype), cuts)
+            acc = float(np.mean(np.where(ds.X_test @ res.w >= 0, 1.0, -1.0) == ds.y_test))
+            runs[np.dtype(dtype).name] = dict(n_cuts=res.n_cuts, gap=res.gap,
+                                              objective=res.objective, test_accuracy=acc,
+                                              train_s=time.perf_counter() - t0, w=res.w)
+        w_diff = float(np.abs(runs["float32"].pop("w") - runs["float64"].pop("w")).max())
+        print(json.dumps({"impl": args.impl, "mode": args.mode, "dataset": args.name,
+                          "rows": int(len(y0)), "max_cuts": cuts, "runs": runs,
+                          "w_float32_vs_float64": w_diff}), flush=True)
+
+
 def main() -> None:
     """Parse the arguments, train once per seed, print one JSON line each."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("name", choices=sorted(PAPER_RUNS))
+    ap.add_argument("--mode", choices=("gadget", "pegasos", "multiclass", "cutting_plane"),
+                    default="gadget",
+                    help="GADGET (default), centralised Pegasos as Table 3 runs it, "
+                         "one-vs-rest GADGET at mnist's shape, or Table 4's cutting plane "
+                         "on node 0")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--sparse", action="store_true", help="ELL features")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
@@ -133,6 +268,12 @@ def main() -> None:
     ap.add_argument("--draws", choices=("own", "generator", "mix32", "lowbias32"),
                     default="own", help="with --impl torch: the port's draw source")
     args = ap.parse_args()
+    if args.mode == "cutting_plane":
+        _cutting_plane(args)
+        return
+    if args.mode != "gadget":
+        _baseline(args)
+        return
 
     run = PAPER_RUNS[args.name]
     cfg = run.gadget
