@@ -53,7 +53,10 @@ Phases, each of which exits non-zero on failure:
    ``rglru_scan`` bit for bit its plain version at (2, 4096, 4096), at a
    D of 130 (4-byte copies) and 4100, and at S = 1; ``wkv_scan`` at
    RWKV6-3B's (2, 4096, 40, 64), at n 16, 24, 64, 80 and 256 with T 1, 33
-   and 4097, and ragged shapes;
+   and 4097, and ragged shapes; then gradients through B10-B12: each
+   wrapper's ``torch.autograd.Function`` (B11's backward the kernel on the
+   time-flipped inputs, B10's and B12's the plain version recomputed) against
+   autograd through the plain version, relative 1e-5 (B10 in bf16: 2e-2);
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
    fused), then the test set scored with ``dense_predict``; held to test
@@ -188,7 +191,32 @@ Phases, each of which exits non-zero on failure:
     ``dense_predict``; ``gossip_mix`` keeping the mean and a full schedule
     reaching it; then the dense mesh at world = the card count over NCCL (a
     one-node mesh on a one-card machine). A rank's failure fails the run;
-22. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+22. the MoE, VLM and audio families at full width, each model's bytes
+    reckoned before it is drawn (depth cut, never width, if it does not
+    fit; the cut printed): qwen2-moe-a2.7b (24 layers, 60 experts top-4,
+    shared 5,632; 14.0 B f32 parameters) prefilled over 2 x 4096 tokens
+    (``flash_attention`` once a layer), then decode against prefill at one
+    layer with a capacity that drops nothing; llava-next-mistral-7b over
+    576 patch embeddings and 3,520 text tokens a row; hubert-xlarge's
+    encoder over 2 x 4096 frames (48 non-causal launches at head size 80);
+23. training: (a) every family at its reduced config, all-reduce and
+    gossip (G = 4), on the card against the same state and batches on the
+    CPU: the first gradients (each leaf within 5e-5 of its own max), the
+    loss of two SGD steps (1e-5 relative) and the parameters after them
+    (1e-4 relative); (b) qwen2-moe-a2.7b at full width, 2 layers, AdamW, 4
+    steps of 2 x 2048 ``Batcher`` tokens, and one step under remat "full"
+    equal bit for bit to the step without it;
+    (c) hubert-xlarge at full width and depth, 3 steps of 2 x 1024 masked
+    frames; (d) rwkv6-3b at full width, 2 layers, gossip at G = 4, the
+    replicas' spread shrinking at every mix (against the same step without
+    its mix); (e) recurrentgemma-9b at full width over one cycle, and one
+    step under remat "dots" equal bit for bit to the step without it (the
+    remat steps' launches count each block's kernels twice). Each run
+    checks that every parameter gets a finite gradient, requires finite
+    losses and each step's launches and plain backward passes (B10, B12)
+    equal to the expected ones, and prints loss, seconds per step and
+    ``torch.cuda.max_memory_allocated``;
+24. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
     phases' objects; each kernel's ``paths`` lists the later phases that
     run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
@@ -202,6 +230,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -337,6 +366,29 @@ CUT_PREFIX = 5   # cutting-plane cuts over which w is held against the CPU
 MESH_WORLD, MESH_STEPS, MESH_FAULT_STEPS, MESH_SPARSE_CHECK_STEPS = 4, 200, 50, 3
 MESH_TIMEOUT_S = 300
 GOSSIP_MEAN_ATOL = 1e-6
+# phase 22: the MoE, VLM and audio families; qwen2-moe's decode against
+# prefill at one layer over this many tokens
+MOE_DECODE_LEN = 256
+# phase 23: training. (a) every family at its reduced config, card against
+# CPU: the first batch's gradients, each leaf relative to its own largest
+# (TRAIN_GRAD_RTOL: the CPU's own gradients move by up to 6.8e-6 of that when
+# only its thread count changes, rwkv6's bonus_u; a backward that drops or
+# mis-signs a term is off by O(1)), the loss of each step (TRAIN_LOSS_RTOL),
+# and the parameters after two SGD steps (TRAIN_CHECK_RTOL; SGD passes no
+# rounding through a per-element normalisation, as AdamW would)
+TRAIN_CHECK_ARCHS = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2), ("mixtral-8x22b", 2),
+                     ("recurrentgemma-9b", 3), ("rwkv6-3b", 2), ("llava-next-mistral-7b", 2),
+                     ("hubert-xlarge", 2))
+TRAIN_CHECK_SEQ, TRAIN_CHECK_RTOL, TRAIN_REPLICAS = 64, 1e-4, 4
+TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL = 5e-5, 1e-5
+# (b)-(e) at full width: (batch, tokens) of each step
+TRAIN_MOE_LAYERS, TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 2, (2, 2048), 4
+TRAIN_HUBERT_BATCH = (2, 1024)
+TRAIN_RWKV_LAYERS, TRAIN_RWKV_BATCH = 2, (2, 512)   # per replica
+TRAIN_RG_BATCH = (1, 2048)
+# one step with remat on against the same step with it off, bit for bit:
+# (b) under "full", (e) under "dots"
+TRAIN_REMAT = {"qwen2-moe-a2.7b": "full", "recurrentgemma-9b": "dots"}
 
 
 def log(msg: str) -> None:
@@ -2729,6 +2781,504 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
     return out
 
 
+def phase_kernel_grads(torch, FA, RG, WK, gen, dev) -> dict:
+    """Gradients through B10-B12 on the card: each wrapper's
+    ``torch.autograd.Function`` (B11's backward the kernel on the
+    time-flipped inputs, B10's and B12's the plain version recomputed under
+    autograd) against autograd through the plain version on the same
+    inputs, relative ``KERNEL_RTOL`` (B10 in bf16: ``BF16_ATOL``)."""
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    def check(name, fn, plain, inputs, rtol=KERNEL_RTOL, atol=None):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        y = fn(*leaves)
+        d_out = randn(*y.shape).to(y.dtype)
+        require(y.grad_fn is not None, f"{name}: the kernel's output carries no gradient")
+        got = torch.autograd.grad(y, leaves, d_out, materialize_grads=True)
+        want = torch.autograd.grad(plain(*leaves), leaves, d_out, materialize_grads=True)
+        errs = [rel_err(g.float(), w.float()) for g, w in zip(got, want)]
+        worst = max(e[0] if atol is not None else e[1] for e in errs)
+        require(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: gradient not finite")
+        require(worst <= (atol if atol is not None else rtol),
+                f"{name}: gradient against autograd through the plain version {worst:.3e}")
+        out[name] = max(e[1] for e in errs)
+        log(f"  grad {name}: worst {'abs' if atol is not None else 'rel'} err {worst:.3e}")
+
+    for which, (b, s, h, hkv, dh, causal, window, dt) in {
+            "attn": (2, 200, 4, 2, 64, True, 0, torch.float32),
+            "attn_window": (1, 300, 4, 1, 80, True, 64, torch.float32),
+            "attn_encoder": (2, 150, 4, 4, 80, False, 0, torch.float32),
+            "attn_bf16": (2, 200, 4, 2, 64, True, 0, torch.bfloat16)}.items():
+        q, k, v = randn(b, s, h, dh).to(dt), randn(b, s, hkv, dh).to(dt), randn(b, s, hkv, dh).to(dt)
+        check(f"flash_attention {which}",
+              lambda q, k, v: FA.flash_attention(q, k, v, causal=causal, window=window),
+              lambda q, k, v: FA.flash_attention_plain(q, k, v, causal=causal, window=window),
+              (q, k, v), atol=BF16_ATOL if dt == torch.bfloat16 else None)
+    for which, (B, S, D) in {"rglru": (2, 300, 130), "rglru_s1": (1, 1, 64),
+                             "rglru_wide": (1, 257, 4096)}.items():
+        a = 0.8 + 0.199 * torch.rand(B, S, D, generator=gen, device=dev)
+        check(f"rglru_scan {which}", RG.rglru_scan, RG.rglru_scan_plain, (a, randn(B, S, D)))
+    for which, (B, S, H, n) in {"wkv": (2, 65, 3, 64), "wkv_t1": (1, 1, 2, 24),
+                                "wkv_n80": (1, 33, 2, 80)}.items():
+        w = 0.8 + 0.199 * torch.rand(B, S, H, n, generator=gen, device=dev)
+        check(f"wkv_scan {which}", WK.wkv_scan, WK.wkv_scan_plain,
+              (randn(B, S, H, n, scale=0.3), randn(B, S, H, n, scale=0.3),
+               randn(B, S, H, n, scale=0.3), w, randn(H, n, scale=0.1)))
+    return out
+
+
+def plain_backward_counts(FA, WK) -> dict:
+    return {"flash_attention": FA.flash_attention.plain_backwards,
+            "wkv_scan": WK.wkv_scan.plain_backwards}
+
+
+def reset_plain_backwards(FA, WK) -> None:
+    FA.flash_attention.plain_backwards = 0
+    WK.wkv_scan.plain_backwards = 0
+
+
+def fit_depth(torch, Model, cfg, label: str, copies: float, extra_bytes: int):
+    """``cfg`` cut in depth (never in width) until ``copies`` float32 copies
+    of its parameters plus ``extra_bytes`` fit in the card's free memory;
+    prints the reckoning and any cut."""
+    free, _ = torch.cuda.mem_get_info()
+    n_layers = cfg.n_layers
+    while True:
+        c = dataclasses.replace(cfg, n_layers=n_layers)
+        n = sum(p.numel() for p in Model(c, device="meta").parameters())
+        need = 4 * n * copies + extra_bytes
+        if need <= 0.92 * free or n_layers == 1:
+            break
+        n_layers -= 1
+    log(f"  {label}: {n:,} parameters, {copies} f32 copies + {extra_bytes / 1e9:.1f} GB = "
+        f"{need / 1e9:.1f} GB of {free / 1e9:.1f} GB free"
+        + ("" if n_layers == cfg.n_layers else f"; CUT from {cfg.n_layers} to {n_layers} layers"))
+    require(need <= free, f"{label} does not fit at one layer")
+    return c, n
+
+
+def batch_prefix(batch: dict, n: int) -> dict:
+    return {k: v[:, :n] for k, v in batch.items()}
+
+
+def forward_phase(torch, model, batch: dict, expect: dict, K, P, S, X) -> dict:
+    """One warm-up forward over a prefix, then the prefill step over
+    ``batch`` with every launch counted (each kernel of ``expect`` that many
+    times, every other never), the logits finite and of the batch's shape."""
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(model)
+    prefill(batch_prefix(batch, 64))
+    torch.cuda.synchronize()
+    reset_counts(K, P, S, X)
+    t0 = time.perf_counter()
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    got = counts(K, P, S, X)
+    seq = sum(v.shape[1] for k, v in batch.items() if k in ("tokens", "patch_embeds", "frames"))
+    B = next(iter(batch.values())).shape[0]
+    require(tuple(logits.shape) == (B, seq, model.cfg.vocab_size), f"logits {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()), f"{model.cfg.name}: logits not finite")
+    del logits
+    for name, n in got.items():
+        require(n == expect.get(name, 0), f"{name} launched {n} times in one {model.cfg.name} "
+                f"forward, want {expect.get(name, 0)}")
+    log(f"  {model.cfg.name} ({model.cfg.n_layers} layers): forward {B} x {seq} positions in "
+        f"{s:.3f} s ({B * seq / s:.1f} tokens/s), launches {launched(got)}, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return {"layers": model.cfg.n_layers, "batch": B, "positions": seq, "forward_s": s,
+            "tokens_per_s": B * seq / s, "launches": launched(got),
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_new_families(torch, get_config, Model, make_host_batch, make_prefill_step,
+                       make_serve_step, K, P, S, X, dev) -> dict:
+    """Phase 22: the MoE, VLM and audio families at full width on the card,
+    each model freed before the next is drawn."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    log("  qwen2-moe-a2.7b: prefill at full width and depth")
+    cfg = get_config("qwen2-moe-a2.7b")
+    logits_bytes = 4 * PREFILL_BATCH * PREFILL_LEN * cfg.vocab_size
+    cfg, n = fit_depth(torch, Model, cfg, cfg.name, 1, 3 * logits_bytes)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev).init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), generator=gen, device=dev)
+    out["qwen2-moe-a2.7b"] = forward_phase(torch, model, {"tokens": toks},
+                                           {"flash_attention": cfg.n_layers}, K, P, S, X)
+    out["qwen2-moe-a2.7b"]["parameters"] = n
+    del model, toks
+    free_cuda(torch)
+    # decode against prefill at one layer: every choice must fit its expert
+    # in the prefill as in decode (capacity top_k at one token), so the
+    # capacity factor is n_experts / top_k: capacity S, nothing dropped
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    model = Model(dataclasses.replace(cfg, n_layers=1, moe=moe), device=dev).init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, MOE_DECODE_LEN), generator=gen,
+                         device=dev)
+    out["qwen2-moe-a2.7b"]["decode_vs_prefill"] = decode_against_prefill(
+        torch, model, make_prefill_step(model), make_serve_step(model), toks)
+    del model, toks
+    free_cuda(torch)
+
+    log("  llava-next-mistral-7b: prefill with its patch prefix at full width and depth")
+    cfg = get_config("llava-next-mistral-7b")
+    cfg, n = fit_depth(torch, Model, cfg, cfg.name, 1, 3 * 4 * PREFILL_BATCH * PREFILL_LEN
+                       * cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev).init(gen)
+    batch = make_host_batch(cfg, PREFILL_BATCH, PREFILL_LEN, seed=22, device=dev)
+    require(batch["patch_embeds"].shape[1] == cfg.n_prefix_embeds == 576,
+            f"patch prefix {tuple(batch['patch_embeds'].shape)}")
+    out["llava-next-mistral-7b"] = forward_phase(torch, model, batch,
+                                                 {"flash_attention": cfg.n_layers}, K, P, S, X)
+    out["llava-next-mistral-7b"].update(parameters=n, patches=cfg.n_prefix_embeds)
+    del model, batch
+    free_cuda(torch)
+
+    log("  hubert-xlarge: encoder forward over frames at full width and depth")
+    cfg = get_config("hubert-xlarge")
+    cfg, n = fit_depth(torch, Model, cfg, cfg.name, 1, 0)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev).init(gen)
+    require(not hasattr(model, "embed") and hasattr(model, "head") and cfg.head_dim == 80,
+            "hubert-xlarge: an embedding table, or no head, or heads not of 80")
+    batch = make_host_batch(cfg, PREFILL_BATCH, PREFILL_LEN, seed=23, device=dev)
+    out["hubert-xlarge"] = forward_phase(torch, model, {"frames": batch["frames"]},
+                                         {"flash_attention": cfg.n_layers}, K, P, S, X)
+    out["hubert-xlarge"]["parameters"] = n
+    del model, batch
+    free_cuda(torch)
+    return out
+
+
+def state_to(optim, state, device) -> dict:
+    return optim.tree_map(lambda t: t.to(device), state)
+
+
+def replica_spread(params: dict) -> float:
+    """sqrt of the summed squared distances of the replicas from their mean."""
+    return math.sqrt(sum(float(((v - v.mean(dim=0, keepdim=True)) ** 2).sum())
+                         for v in params.values()))
+
+
+def grad_check(torch, steps, model, params: dict, batch: dict) -> tuple[float, dict, float]:
+    """One forward and backward of ``model.loss`` with ``params`` swapped in:
+    every parameter must get a gradient (not None: the kernels' outputs
+    carry theirs), and each must be finite. Returns the global norm, the
+    gradients and the loss."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with steps.swapped_params(model, leaves):
+        loss, _ = model.loss(batch)
+        loss.backward(inputs=list(leaves.values()))
+    missing = [k for k, v in leaves.items() if v.grad is None]
+    require(not missing, f"{model.cfg.name}: no gradient reached {missing[:5]}")
+    bad = [k for k, v in leaves.items() if not bool(torch.isfinite(v.grad).all())]
+    require(not bad, f"{model.cfg.name}: gradient not finite at {bad[:5]}")
+    require(bool(torch.isfinite(loss)), f"{model.cfg.name}: loss not finite")
+    norm = math.sqrt(sum(float((v.grad.float() ** 2).sum()) for v in leaves.values()))
+    return norm, {k: v.grad for k, v in leaves.items()}, float(loss.detach())
+
+
+def leaf_rel_err(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max |got − want| over its own max |want|, and its name."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        err, top = float((got[k].cpu() - w).abs().max()), float(w.abs().max())
+        worst = max(worst, (err / top if top else (0.0 if err == 0 else math.inf), k))
+    return worst
+
+
+def expected_step_launches(cfg, replicas: int = 1, remat: bool = False) -> tuple[dict, dict]:
+    """(kernel launches, plain backward passes) of one train step of ``cfg``:
+    a forward launch a layer of its kind and replica (two under ``remat``:
+    the backward recomputes each block's forward), one more B11 launch a
+    layer for the reverse scan, and one plain backward a B10 and B12 layer."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k in ("attn", "swa", "local_attn") for k in kinds)
+    n_rg, n_rw = kinds.count("rglru"), kinds.count("rwkv6")
+    fwd = 2 if remat else 1
+    launches = {"flash_attention": fwd * n_attn * replicas,
+                "rglru_scan": (fwd + 1) * n_rg * replicas, "wkv_scan": fwd * n_rw * replicas}
+    plain = {"flash_attention": n_attn * replicas, "wkv_scan": n_rw * replicas}
+    return ({k: v for k, v in launches.items() if v}, plain)
+
+
+def train_run(torch, steps, optim, model, tcfg, batches, FA, WK, K, P, S, X, label: str,
+              spread: bool = False) -> dict:
+    """``len(batches)`` train steps of ``model`` under ``tcfg`` on the card:
+    loss, seconds and launches per step, the peak memory; a gradient check
+    on the first batch; with ``spread``, the gossip replicas' spread after
+    each step against the same step without its mix."""
+    cfg = model.cfg
+    G = tcfg.n_replicas if tcfg.consensus == "gossip" else 1
+    state = steps.make_train_state(model, tcfg, torch.Generator(device=model.device).manual_seed(23))
+    first = batches[0] if G == 1 else {k: v[0] for k, v in batches[0].items()}
+    grad_norm = grad_check(torch, steps, model, state["params"] if G == 1 else
+                           {k: v[0] for k, v in state["params"].items()}, first)[0]
+    step = steps.make_train_step(model, tcfg)
+    step(state, batch_prefix(batches[0], 16) if G == 1 else
+         {k: v[:, :, :16] for k, v in batches[0].items()})  # warm-up: cuBLAS, the libraries
+    no_mix = steps.make_train_step(model, dataclasses.replace(tcfg, gossip_rounds=0))
+    want, want_plain = expected_step_launches(cfg, G)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i, b in enumerate(batches):
+        pre_spread = (replica_spread(no_mix(state, b)[0]["params"])
+                      if spread and tcfg.n_replicas > 1 else None)
+        torch.cuda.synchronize()
+        reset_counts(K, P, S, X)
+        reset_plain_backwards(FA, WK)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        sec = time.perf_counter() - t0
+        got, plain = launched(counts(K, P, S, X)), plain_backward_counts(FA, WK)
+        require(math.isfinite(loss), f"{label}: step {i} loss {loss}")
+        require(got == want, f"{label}: step {i} launched {got}, want {want}")
+        require(plain == want_plain,
+                f"{label}: step {i} ran plain backward passes {plain}, want {want_plain}")
+        row = {"step": i, "loss": loss, "s": sec, "launches": got, "plain_backwards": plain}
+        if pre_spread is not None:
+            post = replica_spread(state["params"])
+            row.update(spread_before_mix=pre_spread, spread_after_mix=post)
+            require(post < pre_spread, f"{label}: the mix did not shrink the replicas' spread "
+                    f"({pre_spread:.4e} -> {post:.4e})")
+        rows.append(row)
+        log(f"  {label} step {i}: loss {loss:.4f}, {sec:.3f} s, launches {got}, plain "
+            f"backwards {plain}" + ("" if pre_spread is None else
+                                    f", spread {pre_spread:.4e} -> {row['spread_after_mix']:.4e}"))
+    for v in optim.tree_leaves(state["params"]):
+        require(bool(torch.isfinite(v).all()), f"{label}: parameters not finite after training")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {label}: max_memory_allocated {peak:.1f} GB, gradient norm at the first batch "
+        f"{grad_norm:.4e}")
+    return {"steps": rows, "max_memory_gb": peak, "grad_norm": grad_norm,
+            "parameters": sum(v.numel() for v in state["params"].values()),
+            "s_per_step": sum(r["s"] for r in rows) / len(rows),
+            "launches_per_step": want, "plain_backwards_per_step": want_plain}
+
+
+def remat_check(torch, steps, model, tcfg, batch, policy: str, FA, WK, K, P, S, X,
+                label: str) -> dict:
+    """One train step with ``remat`` under ``policy`` against the same step
+    with it off, from one state: the parameters bit for bit, the remat
+    step's launches those of ``expected_step_launches(remat=True)`` (the
+    recompute launches each block's kernels again), and each step's
+    seconds and peak memory above what was allocated before it. The step
+    without remat runs twice first: equal results show the step itself
+    reproducible on the card, so a difference under remat is the remat's."""
+    state = steps.make_train_state(model, tcfg, torch.Generator(device=model.device).manual_seed(23))
+    rows, params = {}, {}
+    for run, remat in (("no_remat", False), ("no_remat_again", False), ("remat", True)):
+        step = steps.make_train_step(model, dataclasses.replace(tcfg, remat=remat,
+                                                                remat_policy=policy))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K, P, S, X)
+        reset_plain_backwards(FA, WK)
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        loss = float(m["loss"])
+        sec = time.perf_counter() - t0
+        got, plain = launched(counts(K, P, S, X)), plain_backward_counts(FA, WK)
+        want, want_plain = expected_step_launches(model.cfg, remat=remat)
+        require(got == want and plain == want_plain,
+                f"{label} remat={remat}: launched {got} with plain backwards {plain}, want "
+                f"{want} and {want_plain}")
+        if run == "no_remat_again":
+            repeat = [k for k, v in params["no_remat"].items() if not torch.equal(v, new["params"][k])]
+            require(not repeat, f"{label}: the step without remat is not reproducible on the card "
+                    f"({len(repeat)} parameters differ between two runs: {repeat[:5]})")
+        else:
+            params[run] = new["params"]
+        del new, m
+        rows[run] = {
+            "loss": loss, "s": sec, "step_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "launches": got, "plain_backwards": plain}
+    differ = [k for k, v in params["no_remat"].items() if not torch.equal(v, params["remat"][k])]
+    log(f"  {label} remat {policy!r}: {len(differ)} of {len(params['remat'])} parameters differ "
+        f"from the step without remat (which repeats bit for bit); " + "; ".join(
+            f"{k} {r['s']:.3f} s, step peak {r['step_peak_gb']:.1f} GB, launches {r['launches']}"
+            for k, r in rows.items()))
+    require(not differ, f"{label}: remat {policy!r} changed {differ[:5]}")
+    return {"policy": policy, **rows}
+
+
+def backward_costs(torch, FA, RG, WK, gen, dev) -> dict:
+    """Device ms of each kernel's forward and of forward plus backward at the
+    shapes of phase 23's full-width runs; the backward is the difference.
+    B10's and B12's backward is the plain version recomputed under
+    autograd, B11's one more launch of the kernel on flipped inputs."""
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).requires_grad_()
+
+    cases = {}
+    for label, (b, s, h, hkv, dh, causal, window) in {
+            "flash_attention, qwen2-moe (b)": (2, 2048, 16, 16, 128, True, 0),
+            "flash_attention, hubert (c)": (2, 1024, 16, 16, 80, False, 0),
+            "flash_attention, recurrentgemma (e)": (1, 2048, 16, 1, 256, True, 2048)}.items():
+        q, k, v = randn(b, s, h, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh)
+        cases[label] = (lambda q=q, k=k, v=v, c=causal, w=window:
+                        FA.flash_attention(q, k, v, causal=c, window=w), (q, k, v))
+    a = (0.8 + 0.199 * torch.rand(1, 2048, 4096, generator=gen, device=dev)).requires_grad_()
+    bb = randn(1, 2048, 4096)
+    cases["rglru_scan, recurrentgemma (e)"] = (lambda: RG.rglru_scan(a, bb), (a, bb))
+    r, k, v = (randn(2, 512, 40, 64, scale=0.3) for _ in range(3))
+    w = (0.8 + 0.199 * torch.rand(2, 512, 40, 64, generator=gen, device=dev)).requires_grad_()
+    u = randn(40, 64, scale=0.1)
+    cases["wkv_scan, rwkv6 (d)"] = (lambda: WK.wkv_scan(r, k, v, w, u), (r, k, v, w, u))
+    out = {}
+    for label, (fwd, inputs) in cases.items():
+        y = fwd()
+        d_out = torch.randn(y.shape, generator=gen, device=dev)
+        n = 3 if label.startswith("wkv") else 10
+        fwd_ms = device_ms(torch, fwd, n)
+        both_ms = device_ms(torch, lambda: torch.autograd.grad(fwd(), inputs, d_out), n)
+        out[label] = {"forward_ms": fwd_ms, "backward_ms": both_ms - fwd_ms}
+        log(f"  {label}: forward {fwd_ms:.3f} ms, backward {both_ms - fwd_ms:.3f} ms")
+    return out
+
+
+def phase_training(torch, get_config, Model, make_host_batch, steps, optim, Batcher,
+                   TokenStreamConfig, FA, RG, WK, K, P, S, X, dev) -> dict:
+    """Phase 23: transformer training on the card."""
+    from repro_torch.models.transformer import layer_kinds
+    out = {"card_vs_cpu": {}}
+    # (a) every family at its reduced config: the first gradients and two
+    # steps on the card against the same state and batches on the CPU
+    for arch, n_layers in TRAIN_CHECK_ARCHS:
+        cfg = get_config(arch).reduced(n_layers=n_layers)
+        for consensus in ("allreduce", "gossip"):
+            G = TRAIN_REPLICAS if consensus == "gossip" else 1
+            tcfg = steps.TrainerConfig(optimizer="sgd", lr=3e-3, warmup_steps=1, total_steps=4,
+                                       consensus=consensus, n_replicas=G)
+            model, cpu_model = Model(cfg, device=dev), Model(cfg, device="cpu")
+            state = steps.make_train_state(model, tcfg, torch.Generator(device=dev).manual_seed(1))
+            cpu_state = state_to(optim, state, "cpu")
+            first = {k: v if G == 1 else v[0] for k, v in cpu_state["params"].items()}
+            b0 = make_host_batch(cfg, 2, TRAIN_CHECK_SEQ, seed=5, device="cpu")
+            grad_norm, grads, _ = grad_check(torch, steps, model,
+                                             {k: v.to(dev) for k, v in first.items()},
+                                             {k: v.to(dev) for k, v in b0.items()})
+            grad_err, grad_leaf = leaf_rel_err(grads, grad_check(torch, steps, cpu_model, first,
+                                                                 b0)[1])
+            del grads
+            step, cpu_step = steps.make_train_step(model, tcfg), steps.make_train_step(cpu_model, tcfg)
+            want, want_plain = expected_step_launches(cfg, G)
+            losses = []
+            for i in range(2):
+                b = make_host_batch(cfg, 2 * G, TRAIN_CHECK_SEQ, seed=10 + i,
+                                    n_replicas=G if G > 1 else 0, device="cpu")
+                reset_counts(K, P, S, X)
+                reset_plain_backwards(FA, WK)
+                state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                torch.cuda.synchronize()
+                got, plain = launched(counts(K, P, S, X)), plain_backward_counts(FA, WK)
+                require(got == want, f"{arch} {consensus}: step {i} launched {got}, want {want}")
+                require(plain == want_plain,
+                        f"{arch} {consensus}: plain backwards {plain}, want {want_plain}")
+                cpu_state, cm = cpu_step(cpu_state, b)
+                losses.append((float(m["loss"]), float(cm["loss"])))
+                require(math.isfinite(losses[-1][0]), f"{arch}: loss not finite")
+            loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+            err = max(rel_err(state["params"][k].cpu(), v)[1]
+                      for k, v in cpu_state["params"].items())
+            log(f"  (a) {cfg.name} {consensus}: on the card against the CPU, first gradients "
+                f"{grad_err:.3e} of their leaf's max (<= {TRAIN_GRAD_RTOL}; {grad_leaf}), "
+                f"losses {', '.join(f'{a:.6f} / {b:.6f}' for a, b in losses)} "
+                f"({loss_err:.3e} <= {TRAIN_LOSS_RTOL}), params after 2 steps rel err "
+                f"{err:.3e} (<= {TRAIN_CHECK_RTOL}), launches a step {got}, plain backwards "
+                f"{plain}, gradient norm {grad_norm:.3e}")
+            require(grad_err <= TRAIN_GRAD_RTOL,
+                    f"{arch} {consensus}: gradients card against CPU {grad_err:.3e} at {grad_leaf}")
+            require(loss_err <= TRAIN_LOSS_RTOL,
+                    f"{arch} {consensus}: losses card against CPU {loss_err:.3e}")
+            require(err <= TRAIN_CHECK_RTOL, f"{arch} {consensus}: card against CPU {err:.3e}")
+            out["card_vs_cpu"][f"{arch} {consensus}"] = {
+                "layers": cfg.n_layers, "kinds": sorted(set(layer_kinds(cfg))),
+                "grad_rel_err": grad_err, "grad_worst_leaf": grad_leaf, "loss_rel_err": loss_err,
+                "params_rel_err": err, "launches_per_step": got, "plain_backwards_per_step": plain}
+            del model, cpu_model, state, cpu_state
+    free_cuda(torch)
+
+    # (b) qwen2-moe-a2.7b at full width, 2 layers, all-reduce AdamW, Batcher tokens
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=TRAIN_MOE_LAYERS)
+    B, T = TRAIN_MOE_BATCH
+    cfg, _ = fit_depth(torch, Model, cfg, f"(b) {cfg.name}", 9, 3 * 4 * B * T * cfg.vocab_size)
+    model = Model(cfg, device=dev)
+    tcfg = steps.TrainerConfig(optimizer="adamw", lr=3e-4, warmup_steps=1, total_steps=10)
+    batcher = Batcher(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=T, global_batch=B,
+                                        seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in batcher.global_batch(i).items()}
+               for i in range(TRAIN_MOE_STEPS)]
+    out["qwen2-moe-a2.7b"] = train_run(torch, steps, optim, model, tcfg, batches, FA, WK, K, P,
+                                       S, X, f"(b) {cfg.name} {cfg.n_layers} layers all-reduce")
+    out["qwen2-moe-a2.7b"]["remat"] = remat_check(
+        torch, steps, model, tcfg, batches[0], TRAIN_REMAT["qwen2-moe-a2.7b"], FA, WK, K, P, S, X,
+        f"(b) {cfg.name}")
+    del model, batches
+    free_cuda(torch)
+
+    # (c) hubert-xlarge at full width and depth, frames with a mask
+    cfg = get_config("hubert-xlarge")
+    B, T = TRAIN_HUBERT_BATCH
+    cfg, _ = fit_depth(torch, Model, cfg, f"(c) {cfg.name}", 8, 0)
+    model = Model(cfg, device=dev)
+    tcfg = steps.TrainerConfig(optimizer="adamw", lr=3e-4, warmup_steps=1, total_steps=10)
+    batches = [make_host_batch(cfg, B, T, seed=30 + i, device=dev) for i in range(3)]
+    require(0 < float(batches[0]["mask"].float().mean()) < 1, "the frame mask is not partial")
+    out["hubert-xlarge"] = train_run(torch, steps, optim, model, tcfg, batches, FA, WK, K, P, S,
+                                     X, f"(c) {cfg.name} {cfg.n_layers} layers all-reduce")
+    del model, batches
+    free_cuda(torch)
+
+    # (d) rwkv6-3b at full width, 2 layers, gossip at G = 4
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=TRAIN_RWKV_LAYERS)
+    G, (B, T) = TRAIN_REPLICAS, TRAIN_RWKV_BATCH
+    cfg, _ = fit_depth(torch, Model, cfg, f"(d) {cfg.name}", 8 * G, 0)
+    model = Model(cfg, device=dev)
+    tcfg = steps.TrainerConfig(optimizer="adamw", lr=3e-4, warmup_steps=1, total_steps=10,
+                               consensus="gossip", n_replicas=G)
+    batcher = Batcher(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                                        global_batch=B * G, seed=1))
+    batches = [{k: torch.from_numpy(v).to(dev).reshape(G, B, T)
+                for k, v in batcher.global_batch(i).items()} for i in range(3)]
+    out["rwkv6-3b"] = train_run(torch, steps, optim, model, tcfg, batches, FA, WK, K, P, S, X,
+                                f"(d) {cfg.name} {cfg.n_layers} layers gossip G={G}", spread=True)
+    del model, batches
+    free_cuda(torch)
+
+    # (e) recurrentgemma-9b at full width over one cycle, all-reduce
+    base = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(base, n_layers=len(base.block_pattern))
+    B, T = TRAIN_RG_BATCH
+    cfg, _ = fit_depth(torch, Model, cfg, f"(e) {cfg.name}", 7, 3 * 4 * B * T * cfg.vocab_size)
+    model = Model(cfg, device=dev)
+    tcfg = steps.TrainerConfig(optimizer="sgd", lr=3e-4, warmup_steps=1, total_steps=10)
+    batcher = Batcher(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=T, global_batch=B,
+                                        seed=2))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in batcher.global_batch(i).items()}
+               for i in range(3)]
+    out["recurrentgemma-9b"] = train_run(torch, steps, optim, model, tcfg, batches, FA, WK, K, P,
+                                         S, X, f"(e) {cfg.name} {cfg.n_layers} layers all-reduce")
+    out["recurrentgemma-9b"]["remat"] = remat_check(
+        torch, steps, model, tcfg, batches[0], TRAIN_REMAT["recurrentgemma-9b"], FA, WK, K, P, S,
+        X, f"(e) {cfg.name}")
+    del model, batches
+    free_cuda(torch)
+    out["backward_costs"] = backward_costs(torch, FA, RG, WK,
+                                           torch.Generator(device=dev).manual_seed(24), dev)
+    return out
+
+
 def profile_iterations(torch, run) -> dict:
     """Device time by kernel, in all and in kernels alone (copies, such as
     pageable uploads whose time follows the host's, left out), kernel
@@ -2816,7 +3366,11 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan import rglru_scan as RG
     from repro_torch.kernels.rwkv6_scan import ops as WO
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as WK
+    from repro_torch import optim
+    from repro_torch.data.tokens import Batcher, TokenStreamConfig
     from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import steps as steps_lm
+    from repro_torch.launch.input_specs import make_host_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import Model
     from repro_torch.sparse import formats
@@ -2868,6 +3422,7 @@ def main() -> int:
                                                 gen, dev)
     kernels.update(serving_row)
     kernels.update(phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev))
+    kernel_grads = phase_kernel_grads(torch, FA, RG, WK, gen, dev)
 
     log("phase 4: main path, reuters at full size, fused")
     t0 = time.perf_counter()
@@ -3239,9 +3794,20 @@ def main() -> int:
         mesh = phase_mesh(torch, partition, ds_r, tmp)
         phase_s["21"] = time.perf_counter() - t0 - sum(phase_s.values())
         log(f"  {phase_s['21']:.1f} s")
+    free_cuda(torch)
+    log("phase 22: serving the MoE, VLM and audio families at full width")
+    families = phase_new_families(torch, get_config, Model, make_host_batch, make_prefill_step,
+                                  make_serve_step, K, P, S, X, dev)
+    phase_s["22"] = time.perf_counter() - t0 - sum(phase_s.values())
+    log(f"  {phase_s['22']:.1f} s")
+    log("phase 23: training, every family against the CPU, then four runs at full width")
+    training = phase_training(torch, get_config, Model, make_host_batch, steps_lm, optim,
+                              Batcher, TokenStreamConfig, FA, RG, WK, K, P, S, X, dev)
+    phase_s["23"] = time.perf_counter() - t0 - sum(phase_s.values())
+    log(f"  {phase_s['23']:.1f} s")
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
-    log("phase 22: summary")
+    log("phase 24: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -3318,6 +3884,29 @@ def main() -> int:
          "launches": control["closed_loop"]["whole, traced"]["ell_scores_prefetch"]},
         {"path": "control plane, open loop under overload (phase 19)",
          "launches": control["open_loop"]["ell_scores_prefetch"]}]
+    for arch in ("qwen2-moe-a2.7b", "llava-next-mistral-7b", "hubert-xlarge"):
+        more_paths["flash_attention"].append(
+            {"path": f"{arch} forward at full width, {families[arch]['layers']} layers (phase 22)",
+             "launches": families[arch]["launches"]["flash_attention"]})
+    for run, row in training["card_vs_cpu"].items():
+        for name, n in row["launches_per_step"].items():
+            more_paths[name].append({"path": f"{run}, reduced, a train step (phase 23a)",
+                                     "launches": n, "plain_backwards":
+                                     row["plain_backwards_per_step"].get(name)})
+    for part, arch in (("b", "qwen2-moe-a2.7b"), ("c", "hubert-xlarge"), ("d", "rwkv6-3b"),
+                       ("e", "recurrentgemma-9b")):
+        row = training[arch]
+        for name, n in row["launches_per_step"].items():
+            more_paths[name].append({"path": f"{arch} training at full width, a step "
+                                     f"(phase 23{part})", "launches": n,
+                                     "plain_backwards": row["plain_backwards_per_step"].get(name)})
+        if "remat" in row:
+            r = row["remat"]
+            for name, n in r["remat"]["launches"].items():
+                more_paths[name].append({
+                    "path": f"{arch} training at full width, a step under remat "
+                            f"{r['policy']!r} (phase 23{part})", "launches": n,
+                    "plain_backwards": r["remat"]["plain_backwards"].get(name)})
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
                "ell_scores_prefetch": "predict.cu",
@@ -3333,6 +3922,9 @@ def main() -> int:
                                        "torch.where of them")
     tolerance["rglru_scan"] = "bit for bit"
     tolerance["flash_attention"] += f"; bf16 abs {BF16_ATOL} and one bf16 ulp + {KERNEL_RTOL}"
+    for name in TRANSFORMER_REPLACES:
+        tolerance[name] += (f"; gradients rel {KERNEL_RTOL} against autograd through the plain "
+                            "version")
     line = {"kernels": [dict(name=name, route="cuda", source=sources[name],
                              replaces=REPLACES[name], launches=launches[name], path=paths[name],
                              paths=more_paths[name],
@@ -3379,6 +3971,8 @@ def main() -> int:
                         "reuters_dense_queries_per_s": ds.X_test.shape[0] / dense_s,
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
+            "kernel_gradients_rel_err": kernel_grads, "new_families": families,
+            "training": training,
             "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
             "control_plane": control, "solvers": solvers, "mesh": mesh,
             "later_phase_s": phase_s,

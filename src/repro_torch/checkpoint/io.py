@@ -17,11 +17,13 @@ package restores in the other:
 
 The reference flattens with ``jax.tree.flatten`` and stores ``str(treedef)``,
 which :func:`restore` compares verbatim. :func:`tree_flatten` is the port's
-own flatten for the node types the system writes (dict, list, tuple and
-None), in JAX's leaf order (dict keys sorted), and :func:`treedef_str`
-prints JAX's treedef string for the same tree, e.g.
-``PyTreeDef({'scale': *, 'w': *})``. Any other container type raises
-``TypeError``. Leaves are numpy arrays and scalars.
+own flatten for the node types the system writes (dict, list, tuple,
+NamedTuple and None), in JAX's leaf order (dict keys sorted), and
+:func:`treedef_str` prints JAX's treedef string for the same tree, e.g.
+``PyTreeDef({'scale': *, 'w': *})``; a NamedTuple prints as JAX prints one,
+``CustomNode(namedtuple[AdamState], [*, ...])``, so an optimizer state
+restores into either package's class of that name. Any other container
+type raises ``TypeError``. Leaves are numpy arrays and scalars.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ _LEAF_TYPES = (np.ndarray, np.generic, int, float, complex)
 
 # ----------------------------------------------------------------- the tree
 # A treedef here is a nested tuple: ("leaf",), ("none",), ("dict", keys,
-# children), ("list", children) or ("tuple", children).
+# children), ("list", children), ("tuple", children) or ("namedtuple",
+# class, children).
 
 
 def tree_flatten(tree: Pytree) -> tuple[list, tuple]:
@@ -66,13 +69,15 @@ def tree_flatten(tree: Pytree) -> tuple[list, tuple]:
         if type(node) is dict:
             keys = sorted(node)
             return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return ("namedtuple", type(node), tuple(walk(c) for c in node))
         if type(node) in (list, tuple):
             return (type(node).__name__, tuple(walk(c) for c in node))
         if isinstance(node, _LEAF_TYPES):
             leaves.append(node)
             return ("leaf",)
-        raise TypeError(f"checkpoint trees hold dicts, lists, tuples, None and "
-                        f"arrays; got a node of type {type(node).__name__}")
+        raise TypeError(f"checkpoint trees hold dicts, lists, tuples, NamedTuples, None "
+                        f"and arrays; got a node of type {type(node).__name__}")
 
     return leaves, walk(tree)
 
@@ -89,6 +94,8 @@ def tree_unflatten(treedef: tuple, leaves) -> Pytree:
             return None
         if kind == "dict":
             return {k: build(c) for k, c in zip(td[1], td[2])}
+        if kind == "namedtuple":
+            return td[1](*(build(c) for c in td[2]))
         children = [build(c) for c in td[1]]
         return children if kind == "list" else tuple(children)
 
@@ -106,6 +113,9 @@ def treedef_str(treedef: tuple) -> str:
             return "None"
         if kind == "dict":
             return "{" + ", ".join(f"{k!r}: {fmt(c)}" for k, c in zip(td[1], td[2])) + "}"
+        if kind == "namedtuple":
+            inner = ", ".join(fmt(c) for c in td[2])
+            return f"CustomNode(namedtuple[{td[1].__name__}], [{inner}])"
         inner = ", ".join(fmt(c) for c in td[1])
         if kind == "list":
             return f"[{inner}]"

@@ -10,8 +10,18 @@ each block's arrays stacked over the stage's repeats; the port's ``Model``
 holds one module per layer. ``model_params_to_torch`` unstacks them in the
 reference's scan order, layer ``offset(stage) + r·len(kinds) + j`` for
 repeat ``r`` of block ``j``, into the port's ``state_dict`` keys (the
-reference's key path, dotted, under ``blocks.<layer>``);
-``model_caches_to_torch`` does the same for decode caches.
+reference's key path, dotted, under ``blocks.<layer>``), MoE channel
+mixes, the VLM's embedding and the audio model's head (no embedding)
+included; ``model_caches_to_torch`` does the same for decode caches.
+
+A train state (``launch.steps``) converts both ways:
+``train_state_to_torch`` carries the reference's (its params, the
+optimizer's ``AdamState`` or ``MomentumState`` + ``ScheduleState`` and the
+step; in gossip mode every leaf with its leading replica axis) across, and
+``train_state_to_reference`` gives the port's state back in the
+reference's layout as numpy arrays (stages stacked over repeats), which the
+port's checkpoints store, so a train state written by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -26,9 +36,11 @@ from repro_torch.models.config import ModelConfig, compile_stages
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.rwkv6 import RWKV6State
 from repro_torch.models.transformer import Model
+from repro_torch.optim import AdamState, MomentumState, ScheduleState
 
 __all__ = ["result_to_torch", "weights_to_torch", "load_params", "model_params_to_torch",
-           "model_to_torch", "model_caches_to_torch"]
+           "model_to_torch", "model_caches_to_torch", "model_params_to_reference",
+           "train_state_to_torch", "train_state_to_reference"]
 
 _RESULT_FIELDS = ("W", "w_consensus", "W_avg")
 
@@ -100,25 +112,102 @@ def _unstack(cfg: ModelConfig, stages: list) -> list:
     return layers
 
 
-def _slice(tree, r: int):
+def _slice(tree, r: int, axis: int = 0):
     if isinstance(tree, Mapping):
-        return {k: _slice(v, r) for k, v in tree.items()}
+        return {k: _slice(v, r, axis) for k, v in tree.items()}
     if hasattr(tree, "_fields"):  # a cache NamedTuple
-        return type(tree)(*(_slice(v, r) for v in tree))
-    return np.asarray(tree)[r]
+        return type(tree)(*(_slice(v, r, axis) for v in tree))
+    return np.take(np.asarray(tree), r, axis=axis)
 
 
 def model_params_to_torch(cfg: ModelConfig, params: Mapping,
-                          device: torch.device | str | None = None) -> dict:
+                          device: torch.device | str | None = None, *,
+                          replicas: bool = False) -> dict:
     """The port's ``Model`` ``state_dict`` for the reference's params of ``cfg``
-    (``embed``, ``final_norm``, optionally ``head``, and ``stages``)."""
+    (``embed`` and ``head`` where the config has them, ``final_norm`` and
+    ``stages``). ``replicas``: every leaf carries a leading replica axis
+    (gossip training), kept in front of each tensor."""
     dev = resolve_device(device)
     top = {k: v for k, v in params.items() if k != "stages"}
     state = {k: _array_tensor(v, dev) for k, v in _flatten(top).items()}
     for layer, (_, blk, r) in enumerate(_unstack(cfg, params["stages"])):
-        for k, v in _flatten(_slice(blk, r)).items():
+        for k, v in _flatten(_slice(blk, r, axis=int(replicas))).items():
             state[f"blocks.{layer}.{k}"] = _array_tensor(v, dev)
     return state
+
+
+def _nest(flat: Mapping) -> dict:
+    """Nested dicts of dotted keys (the inverse of ``_flatten``)."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def model_params_to_reference(cfg: ModelConfig, state: Mapping, *,
+                              replicas: bool = False) -> dict:
+    """The reference's params of ``cfg`` (numpy leaves, stages stacked over
+    repeats) for the port's ``state_dict`` ``state``; ``replicas`` as in
+    :func:`model_params_to_torch` (the repeat axis then comes second)."""
+    top = _nest({k: _numpy(v) for k, v in state.items() if not k.startswith("blocks.")})
+    layers = _nest({k[len("blocks."):]: v for k, v in state.items() if k.startswith("blocks.")})
+    stages, offset = [], 0
+    for kinds, repeats in compile_stages(cfg.n_layers, cfg.block_pattern):
+        stage = {}
+        for j in range(len(kinds)):
+            rows = [_flatten(layers[str(offset + r * len(kinds) + j)]) for r in range(repeats)]
+            stage[f"blk{j}"] = _nest({k: np.stack([_numpy(row[k]) for row in rows],
+                                                  axis=int(replicas)) for k in rows[0]})
+        stages.append(stage)
+        offset += repeats * len(kinds)
+    return {**top, "stages": stages}
+
+
+def _opt_map(tcfg, opt, params_fn, step_fn):
+    """An optimizer state of ``tcfg.optimizer`` with ``params_fn`` over its
+    param-shaped trees and ``step_fn`` over its counters."""
+    if tcfg.optimizer == "adamw":
+        return AdamState(step=step_fn(opt[0]), mu=params_fn(opt[1]), nu=params_fn(opt[2]))
+    (mom,), (step,) = opt
+    return (MomentumState(params_fn(mom)), ScheduleState(step_fn(step)))
+
+
+def train_state_to_torch(cfg: ModelConfig, tcfg, state: Mapping,
+                         device: torch.device | str | None = None) -> dict:
+    """The port's train state (``launch.steps.make_train_state``'s layout) for
+    the reference's of ``cfg`` under the ``TrainerConfig`` ``tcfg``: params
+    and optimizer moments as ``state_dict``s, counters as int32 tensors."""
+    dev = resolve_device(device)
+    replicas = tcfg.consensus == "gossip"
+
+    def params(tree):
+        return model_params_to_torch(cfg, tree, dev, replicas=replicas)
+
+    def step(v):
+        return torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
+
+    return {"params": params(state["params"]), "opt": _opt_map(tcfg, state["opt"], params, step),
+            "step": step(state["step"])}
+
+
+def train_state_to_reference(cfg: ModelConfig, tcfg, state: Mapping) -> dict:
+    """The reference's train state (numpy leaves, its NamedTuples' names and
+    fields) for the port's, as its checkpoints store it."""
+    replicas = tcfg.consensus == "gossip"
+
+    def params(tree):
+        return model_params_to_reference(cfg, tree, replicas=replicas)
+
+    return {"params": params(state["params"]), "opt": _opt_map(tcfg, state["opt"], params, _numpy),
+            "step": _numpy(state["step"])}
 
 
 def model_to_torch(cfg: ModelConfig, params: Mapping, device: torch.device | str | None = None,

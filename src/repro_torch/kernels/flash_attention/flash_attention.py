@@ -1,10 +1,15 @@
 """Wrapper of the ``flash_attention`` kernel (CUDA source:
 ``csrc/flash_attention.cu``) and its plain PyTorch version.
 
-For tensors on the CPU the wrapper takes the plain version; for tensors on
-a CUDA device it checks device, dtype, shape and strides and launches the
-kernel; anything else raises. A launch adds one to
-``flash_attention.launches``, and nothing else does.
+For tensors on the CPU the wrapper takes the plain version, which autograd
+differentiates; for tensors on a CUDA device it checks device, dtype, shape
+and strides and launches the kernel inside a ``torch.autograd.Function``;
+anything else raises. A launch adds one to ``flash_attention.launches``,
+and nothing else does. The reference has no backward kernel (XLA
+differentiates its plain attention), so the Function's backward recomputes
+the plain version under autograd from the saved q, k and v and takes its
+vector-Jacobian product; each such pass adds one to
+``flash_attention.plain_backwards``.
 """
 from __future__ import annotations
 
@@ -85,7 +90,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _launch(q, k, v, causal=causal, window=window)
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_plain(*leaves, causal=ctx.causal, window=ctx.window)
+            grads = torch.autograd.grad(out, leaves, d_out)
+        flash_attention.plain_backwards += 1
+        return (*grads, None, None)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -113,3 +138,4 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 
 flash_attention.launches = 0
+flash_attention.plain_backwards = 0

@@ -1,10 +1,14 @@
 """Wrapper of the ``wkv_scan`` kernel (CUDA source: ``csrc/wkv_scan.cu``)
 and its plain PyTorch version.
 
-For tensors on the CPU the wrapper takes the plain version; for tensors on
-a CUDA device it checks device, dtype, shape and contiguity and launches the
-kernel; anything else raises. A launch adds one to ``wkv_scan.launches``,
-and nothing else does.
+For tensors on the CPU the wrapper takes the plain version, which autograd
+differentiates; for tensors on a CUDA device it checks device, dtype, shape
+and contiguity and launches the kernel inside a ``torch.autograd.Function``;
+anything else raises. A launch adds one to ``wkv_scan.launches``, and
+nothing else does. The reference has no backward kernel (XLA differentiates
+its plain scan), so the Function's backward recomputes the plain version
+under autograd from the saved inputs and takes its vector-Jacobian product;
+each such pass adds one to ``wkv_scan.plain_backwards``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,26 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     must be at most ``MAX_HEAD_SIZE``."""
     if _build.on_cpu(r, k, v, w, u):
         return wkv_scan_plain(r, k, v, w, u)
-    return _launch(r, k, v, w, u)
+    return _WkvScan.apply(r, k, v, w, u)
+
+
+class _WkvScan(torch.autograd.Function):
+    """The kernel forward; the backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _launch(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = wkv_scan_plain(*leaves)
+            # at S = 1 the decay w reaches no output: its gradient is zero
+            grads = torch.autograd.grad(out, leaves, d_out, materialize_grads=True)
+        wkv_scan.plain_backwards += 1
+        return grads
 
 
 def _launch(r, k, v, w, u) -> torch.Tensor:
@@ -62,3 +85,4 @@ def _launch(r, k, v, w, u) -> torch.Tensor:
 
 
 wkv_scan.launches = 0
+wkv_scan.plain_backwards = 0

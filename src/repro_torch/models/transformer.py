@@ -1,5 +1,6 @@
-"""Model assembly: the decoder of the token-embedded families (dense GQA,
-RG-LRU hybrid, RWKV-6 SSM) as one ``nn.Module``.
+"""Model assembly: the decoder or encoder of every assigned family (dense
+GQA, MoE, RG-LRU hybrid, RWKV-6 SSM, VLM backbone, audio encoder) as one
+``nn.Module``.
 
 The reference scans stages of parameters stacked over repeats (see
 ``config.compile_stages``); here the blocks are a flat ``nn.ModuleList`` in
@@ -9,18 +10,28 @@ Parameters live in the modules, so the entry points take no params:
   * ``forward(batch)`` / ``loss(batch)``   — prefill / training objective
   * ``decode_step(tokens, caches, pos)``   — one-token serve step
 
-Caches are a flat list too, one entry per layer. Not ported yet (they raise
-``NotImplementedError``): MoE channel mixing, the ``patches`` (VLM) and
-``frames`` (audio) embeddings, and training (ROADMAP Queue A item 2).
+Caches are a flat list too, one entry per layer. The three input layouts
+are the reference's: ``tokens``; ``patches`` (VLM: precomputed patch
+embeddings before the embedded text, the loss on the text positions only);
+``frames`` (audio: precomputed frame embeddings, no embedding table, the
+cross entropy masked). ``remat`` checkpoints each block
+(``torch.utils.checkpoint``): "full" recomputes the whole block in the
+backward pass, "dots" keeps the matrix products' outputs and recomputes the
+rest. Recomputation repeats the same arithmetic, so remat on equals remat
+off bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig, compile_stages
@@ -36,19 +47,25 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
             for _ in range(repeats) for kind in kinds]
 
 
-def _unsupported(cfg: ModelConfig) -> str | None:
-    if cfg.moe is not None:
-        return "MoE channel mixing (models/moe.py)"
-    if cfg.embed_kind == "patches":
-        return "the 'patches' (VLM) embedding"
-    if cfg.embed_kind == "frames":
-        return "the 'frames' (audio) embedding"
-    return None
+# the matrix products whose outputs remat_policy="dots" keeps
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXT = {"full": ckpt.noop_context_fn,
+                  "dots": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                            _dots_policy)}
 
 
 class Block(nn.Module):
     """One layer: ``norm1``, the temporal mix (``attn``, ``rglru`` or
-    ``rwkv``), ``norm2`` and, except for rwkv6, the MLP ``ch``."""
+    ``rwkv``), ``norm2`` and, except for rwkv6, the channel mix ``ch``: an
+    MLP, or a ``MoE`` when the config has one."""
 
     def __init__(self, kind: str, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -65,7 +82,11 @@ class Block(nn.Module):
         else:
             raise ValueError(kind)
         self.norm2 = L.Norm(cfg.d_model, device=device, dtype=dtype)
-        if kind != "rwkv6":  # rwkv brings its own channel mix
+        if kind == "rwkv6":  # rwkv brings its own channel mix
+            return
+        if cfg.moe is not None:
+            self.ch = M.MoE(cfg.d_model, cfg.moe, cfg.mlp, device=device, dtype=dtype)
+        else:
             self.ch = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp, device=device, dtype=dtype)
 
     def reset(self, gen: torch.Generator | None) -> None:
@@ -76,38 +97,39 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """The decoder of ``cfg`` on ``device`` (CUDA unless the caller names
+    """The model of ``cfg`` on ``device`` (CUDA unless the caller names
     another; ``resolve_device`` raises without a card). ``dtype`` is the
     activation type, ``param_dtype`` the weights'. The weights are
     allocated, not drawn: call ``init(gen)``, or load a ``state_dict``
-    (``repro_torch.convert.model_params_to_torch`` carries the reference's)."""
+    (``repro_torch.convert.model_params_to_torch`` carries the reference's).
+    As in the reference, the token embedding is present for ``tokens`` and
+    the VLM, and the head unless the embedding is tied (always for
+    ``frames``)."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} is not ported yet (ROADMAP Queue A item 2)")
         self.cfg = cfg
         self.dtype = dtype
         dev = resolve_device(device)
-        self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, device=dev, dtype=param_dtype)
+        if cfg.embed_kind == "tokens" or cfg.family == "vlm":
+            self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, device=dev, dtype=param_dtype)
         self.final_norm = L.Norm(cfg.d_model, device=dev, dtype=param_dtype)
-        if not cfg.tie_embeddings:
+        if not cfg.tie_embeddings or cfg.embed_kind == "frames":
             self.head = L.Dense(cfg.d_model, cfg.vocab_size, device=dev, dtype=param_dtype)
         self.blocks = nn.ModuleList(Block(kind, cfg, device=dev, dtype=param_dtype)
                                     for kind in layer_kinds(cfg))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.final_norm.scale.device
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator | None) -> "Model":
         """Draw every weight from ``gen`` (on the model's device) with the
         reference's distributions and scales; returns the model."""
-        self.embed.reset(gen)
+        if hasattr(self, "embed"):
+            self.embed.reset(gen)
         if hasattr(self, "head"):
             self.head.reset(gen)
         for blk in self.blocks:
@@ -118,21 +140,32 @@ class Model(nn.Module):
     def _norm(self, p: L.Norm, x: torch.Tensor) -> torch.Tensor:
         return L.rms_norm(p, x) if self.cfg.norm == "rmsnorm" else L.layer_norm(p, x)
 
-    def _block_train(self, blk: Block, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _channel(self, ch: nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The channel mix and its aux loss (0 without MoE)."""
+        if self.cfg.moe is not None:
+            y, aux = M.moe_apply(ch, x, self.cfg.moe, self.cfg.mlp)
+            return y, aux.load_balance_loss + aux.router_z_loss
+        return ch(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _block_train(self, blk: Block, x: torch.Tensor,
+                     positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg, kind = self.cfg, blk.kind
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind in _ATTN_KINDS:
             window = cfg.window if kind in ("swa", "local_attn") else 0
             x = x + A.attention_train(blk.attn, self._norm(blk.norm1, x), positions,
                                       window=window, causal=not cfg.is_encoder,
                                       rope_theta=cfg.rope_theta)
-            x = x + blk.ch(self._norm(blk.norm2, x))
+            ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
+            x = x + ch
         elif kind == "rglru":
             x = x + G.rglru_train(blk.rglru, self._norm(blk.norm1, x))
-            x = x + blk.ch(self._norm(blk.norm2, x))
+            ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
+            x = x + ch
         else:  # rwkv6
             x = x + W.time_mix_train(blk.rwkv, self._norm(blk.norm1, x), cfg.rwkv_head_dim)
             x = x + W.channel_mix_train(blk.rwkv, self._norm(blk.norm2, x))
-        return x
+        return x, aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(self.final_norm, x)
@@ -141,25 +174,57 @@ class Model(nn.Module):
         return L.unembed(self.embed, x)
 
     # -------------------------------------------------------------- forward
-    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward of ``batch["tokens"]`` (B, S) -> (logits
-        (B, S, V) float32, aux_loss), the aux loss 0 without MoE."""
-        tokens = batch["tokens"]
-        x = L.embed(self.embed, tokens).to(self.dtype)
+    def _embed_inputs(self, batch: dict) -> torch.Tensor:
+        kind = self.cfg.embed_kind
+        if kind == "tokens":
+            return L.embed(self.embed, batch["tokens"]).to(self.dtype)
+        if kind == "patches":
+            tok = L.embed(self.embed, batch["tokens"]).to(self.dtype)
+            return torch.cat([batch["patch_embeds"].to(self.dtype), tok], dim=1)
+        if kind == "frames":
+            return batch["frames"].to(self.dtype)
+        raise ValueError(kind)
+
+    def forward(self, batch: dict, *, remat: bool = False,
+                remat_policy: str = "full") -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward -> (logits (B, S, V) float32, aux_loss), the
+        aux loss the sum of the MoE blocks' (0 without MoE). ``batch`` holds
+        the layout's inputs (see ``loss``); ``remat`` checkpoints each block
+        with ``remat_policy`` ("full" or "dots")."""
+        x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            x = self._block_train(blk, x, positions)
-        return self._logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+            if remat:
+                x, aux = ckpt.checkpoint(self._block_train, blk, x, positions,
+                                         use_reentrant=False,
+                                         context_fn=_REMAT_CONTEXT[remat_policy])
+            else:
+                x, aux = self._block_train(blk, x, positions)
+            aux_total = aux_total + aux
+        return self._logits(x), aux_total
 
     # ----------------------------------------------------------------- loss
-    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Scalar objective and metrics of ``{tokens (B,S), targets (B,S)}``:
-        the mean cross entropy of the targets plus the aux loss."""
-        logits, aux = self.forward(batch)
+    def loss(self, batch: dict, *, remat: bool = False,
+             remat_policy: str = "full") -> tuple[torch.Tensor, dict]:
+        """Scalar objective and metrics ``{"ce", "aux"}``: the cross entropy
+        of the targets plus the aux loss. Batch layouts:
+        tokens:  {tokens (B,S), targets (B,S)}
+        patches: {patch_embeds (B,P,D), tokens (B,St), targets (B,St)}
+        frames:  {frames (B,S,D), targets (B,S), mask (B,S) bool}
+        """
+        logits, aux = self.forward(batch, remat=remat, remat_policy=remat_policy)
         targets = batch["targets"]
+        if self.cfg.embed_kind == "patches":
+            logits = logits[:, -targets.shape[1]:]  # loss on text positions only
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        ce = torch.mean(lse - tgt)
+        nll = lse - tgt
+        if self.cfg.embed_kind == "frames":
+            mask = batch["mask"].float()
+            ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        else:
+            ce = torch.mean(nll)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- cache
@@ -188,11 +253,11 @@ class Model(nn.Module):
             h, cache = A.attention_decode(blk.attn, self._norm(blk.norm1, x), cache, pos,
                                           window=window, rope_theta=cfg.rope_theta)
             x = x + h
-            x = x + blk.ch(self._norm(blk.norm2, x))
+            x = x + self._channel(blk.ch, self._norm(blk.norm2, x))[0]
         elif kind == "rglru":
             h, cache = G.rglru_decode(blk.rglru, self._norm(blk.norm1, x), cache)
             x = x + h
-            x = x + blk.ch(self._norm(blk.norm2, x))
+            x = x + self._channel(blk.ch, self._norm(blk.norm2, x))[0]
         else:  # rwkv6
             tm, cache = W.time_mix_decode(blk.rwkv, self._norm(blk.norm1, x), cache,
                                           cfg.rwkv_head_dim)

@@ -5,6 +5,7 @@ reference's."""
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 
@@ -93,11 +94,34 @@ def test_manifests_equal_but_ts(tmp_path, tree, treedef):
 
 
 def test_other_node_types_raise():
-    from collections import OrderedDict, namedtuple
-    for bad in (OrderedDict(a=np.ones(1)), namedtuple("P", "a")(np.ones(1)),
-                {"s": "text"}, {1, 2}, {"t": torch.ones(2)}):
+    from collections import OrderedDict
+    for bad in (OrderedDict(a=np.ones(1)), {"s": "text"}, {1, 2}, {"t": torch.ones(2)}):
         with pytest.raises(TypeError):
             T_io.tree_flatten(bad)
+
+
+def test_namedtuples_flatten_as_jax_prints_them(tmp_path):
+    """Optimizer states are NamedTuples: the port flattens them in JAX's
+    order with JAX's treedef string, so a tree holding one crosses between
+    the packages both ways."""
+    from collections import namedtuple
+    AdamState = namedtuple("AdamState", "step mu nu")
+    Sched = namedtuple("ScheduleState", "step")
+    tree = {"opt": (AdamState(np.int32(3), {"w": np.ones(2, np.float32)}, {"w": np.zeros(2)}),
+                    Sched(np.int32(1))), "b": [np.arange(3)]}
+    leaves, td = T_io.tree_flatten(tree)
+    ref_leaves, ref_td = jax.tree.flatten(tree)
+    assert T_io.treedef_str(td) == str(ref_td)
+    for a, b in zip(leaves, ref_leaves):
+        np.testing.assert_array_equal(a, b)
+    back = T_io.tree_unflatten(td, leaves)
+    assert type(back["opt"][0]) is AdamState and back["opt"][1].step == 1
+    T_io.save(str(tmp_path / "port"), 1, tree)
+    got = R_ckpt.restore(str(tmp_path / "port"), tree)
+    np.testing.assert_array_equal(got["opt"][0].mu["w"], tree["opt"][0].mu["w"])
+    R_ckpt.save(str(tmp_path / "ref"), 1, tree)
+    got = T_ckpt.restore(str(tmp_path / "ref"), tree)
+    assert type(got["opt"][1]) is Sched and int(got["opt"][0].step) == 3
 
 
 @pytest.mark.parametrize("name", list(PACKAGES))

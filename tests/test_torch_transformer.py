@@ -1,10 +1,12 @@
 """The port's transformer serving path against the reference: ``forward``
 and ``decode_step`` of reduced llama3-8b, recurrentgemma-9b (5 layers: a
 full cycle, then a tail stage of two blocks, which tests the unstacking
-order) and rwkv6-3b on the reference's params, carried across by
+order), rwkv6-3b, the MoE families (qwen2-moe-a2.7b, mixtral-8x22b), the
+VLM (llava-next-mistral-7b, patches) and the audio encoder (hubert-xlarge,
+frames: forward only) on the reference's params, carried across by
 ``repro_torch.convert``; decode against forward inside the port; greedy
-serving against the reference's ``launch/serve.py`` loop; and what is not
-ported yet."""
+serving against the reference's ``launch/serve.py`` loop; and the
+full-width parameter shapes of every family."""
 import dataclasses
 
 import jax
@@ -21,6 +23,7 @@ from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.convert import (_flatten, _unstack, model_caches_to_torch,  # noqa: E402
                                  model_params_to_torch, model_to_torch)
 from repro_torch.launch import serve as port_serve  # noqa: E402
+from repro_torch.launch.input_specs import make_host_batch  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models.transformer import Model, layer_kinds  # noqa: E402
 
@@ -28,7 +31,9 @@ from repro_torch.models.transformer import Model, layer_kinds  # noqa: E402
 # in another order than XLA's; through the layers' norms that gives up to
 # 3.2e-5 on rwkv6's logits (its per-head group norm divides by small
 # variances) and under 5e-6 on the others.
-CASES = [("llama3-8b", 2, 1e-5), ("recurrentgemma-9b", 5, 2e-5), ("rwkv6-3b", 2, 1e-4)]
+CASES = [("llama3-8b", 2, 1e-5), ("recurrentgemma-9b", 5, 2e-5), ("rwkv6-3b", 2, 1e-4),
+         ("qwen2-moe-a2.7b", 2, 1e-5), ("mixtral-8x22b", 2, 1e-5),
+         ("llava-next-mistral-7b", 2, 1e-5), ("hubert-xlarge", 2, 1e-5)]
 DECODE_ATOL, DECODE_RTOL = 5e-4, 1e-3  # tests/test_decode_consistency.py's
 B, S = 2, 24
 
@@ -50,10 +55,18 @@ def _tokens(cfg, seed=2, shape=(B, S)):
 def test_forward_and_decode_match_reference(arch, n_layers, atol):
     cfg, ref, params, port = _pair(arch, n_layers)
     toks = _tokens(cfg)
-    want, _ = jax.jit(ref.forward)(params, {"tokens": jnp.asarray(toks)})
-    got = make_prefill_step(port)({"tokens": torch.from_numpy(toks)})
+    batch = ({"tokens": torch.from_numpy(toks)} if cfg.embed_kind == "tokens" else
+             make_host_batch(port.cfg, B, S, seed=2, device="cpu"))
+    want, want_aux = jax.jit(ref.forward)(params, {k: jnp.asarray(v.numpy())
+                                                   for k, v in batch.items()})
+    got, got_aux = port.forward(batch)
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, cfg.vocab_size)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=atol)
+    np.testing.assert_allclose(float(got_aux.detach()), float(want_aux), rtol=0, atol=1e-6)
+    if not cfg.supports_decode():
+        with pytest.raises(ValueError, match="encoder-only"):
+            port.init_cache(B, S)
+        return
 
     rcache = ref.init_cache(B, S, jnp.float32)
     tcache = model_caches_to_torch(cfg, jax.tree.map(np.asarray, rcache), device="cpu")
@@ -138,7 +151,12 @@ def test_unstacking_follows_the_scan_order():
                                    device="cpu").state_dict())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b", "llama3-8b"])
+FULL_WIDTH_PARAMS = {"recurrentgemma-9b": 9.4e9, "rwkv6-3b": 2.9e9, "llama3-8b": 7.5e9,
+                     "mixtral-8x22b": 140.4e9, "qwen2-moe-a2.7b": 14.0e9,
+                     "llava-next-mistral-7b": 7.1e9, "hubert-xlarge": 0.944e9}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_WIDTH_PARAMS))
 def test_full_width_shapes_match_reference(arch):
     """At the published width and depth the port allocates the reference's
     parameters, shape for shape, in the reference's scan order (the
@@ -154,15 +172,7 @@ def test_full_width_shapes_match_reference(arch):
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert got == want
     n = sum(int(np.prod(s)) for s in got.values())
-    expected = {"recurrentgemma-9b": 9.4e9, "rwkv6-3b": 2.9e9, "llama3-8b": 7.5e9}[arch]
-    assert abs(n / expected - 1) < 0.02, n
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
-                                  "hubert-xlarge"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch).reduced(), device="cpu")
+    assert abs(n / FULL_WIDTH_PARAMS[arch] - 1) < 0.02, n
 
 
 def test_configs_are_the_reference_configs():
