@@ -54,9 +54,13 @@ Phases, each of which exits non-zero on failure:
    D of 130 (4-byte copies) and 4100, and at S = 1; ``wkv_scan`` at
    RWKV6-3B's (2, 4096, 40, 64), at n 16, 24, 64, 80 and 256 with T 1, 33
    and 4097, and ragged shapes; then gradients through B10-B12: each
-   wrapper's ``torch.autograd.Function`` (B11's backward the kernel on the
-   time-flipped inputs, B10's and B12's the plain version recomputed) against
-   autograd through the plain version, relative 1e-5 (B10 in bf16: 2e-2);
+   operator's autograd formula (B11's backward the kernel on the
+   time-flipped inputs, B10's and B12's the plain version's vector-Jacobian
+   product written out) against autograd through the plain version, relative
+   1e-5 (B10 in bf16: 2e-2); then ``torch.library.opcheck`` of B10-B12's
+   operators and their backward operators on CUDA tensors (the fake
+   implementations against the kernels' outputs, the autograd
+   registrations);
 4. main path: GADGET on the paper's reuters dataset at full size with the
    paper's config (10 nodes, B=1, R=4, random topology, 4000 iterations,
    fused), then the test set scored with ``dense_predict``; held to test
@@ -216,7 +220,26 @@ Phases, each of which exits non-zero on failure:
     losses and each step's launches and plain backward passes (B10, B12)
     equal to the expected ones, and prints loss, seconds per step and
     ``torch.cuda.max_memory_allocated``;
-24. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+24. sharded on the card: llama3-8b, qwen2-moe-a2.7b (2 layers each),
+    recurrentgemma-9b (one cycle), rwkv6-3b and hubert-xlarge (2 layers) at
+    full width, the train state placed by ``param_specs`` (zero1, moments
+    fsdp) and ``train_state_specs`` and the batch by ``batch_specs`` as
+    DTensors on a (1, 1) ``DeviceMesh`` of one NCCL rank: two SGD steps and
+    a prefill against the same on plain tensors on the card (losses,
+    parameters and logits within 1e-6 relative, each step's B10-B12
+    launches and plain backward passes equal), and the card's peak
+    (``max_memory_allocated`` less what is resident beside the state and
+    the batch) within 15% (or 256 MiB) of ``launch.dryrun.run_one``'s
+    ``per_device_bytes`` at the same config, batch and mesh;
+25. the production dry-run at full width and depth on fake worlds of 256
+    and 512 ranks (fake CUDA tensors), one ``python -m
+    repro_torch.launch.dryrun`` process a combo, started with phase 24:
+    rwkv6-3b x long_500k, llama3-8b x decode_32k, rwkv6-3b x train_4k on 2
+    x 16 x 16 with gossip (collective-permutes on the pod axis required),
+    llama3-8b, qwen2-moe-a2.7b and llama3-405b (fsdp) x train_4k; every
+    combo ``ok``, each record's per-device GiB, FLOPs, collective bytes and
+    bottleneck printed;
+26. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
     phases' objects; each kernel's ``paths`` lists the later phases that
     run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
@@ -231,6 +254,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -389,6 +413,31 @@ TRAIN_RG_BATCH = (1, 2048)
 # one step with remat on against the same step with it off, bit for bit:
 # (b) under "full", (e) under "dots"
 TRAIN_REMAT = {"qwen2-moe-a2.7b": "full", "recurrentgemma-9b": "dots"}
+# phase 24: sharded steps on a (1, 1) mesh of one NCCL rank, against the same steps on plain tensors
+SHARDED_ARCHS = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2), ("recurrentgemma-9b", 3),
+                 ("rwkv6-3b", 2), ("hubert-xlarge", 2))
+SHARDED_BATCH = (2, 256)
+SHARDED_RTOL = 1e-6
+MEMORY_RTOL, MEMORY_ATOL = 0.15, 256 * 2 ** 20   # the card's peak against the dry-run's bytes
+# phase 25: the production dry-run, full width and depth, each combo a process of its own
+DRYRUN_COMBOS = (("rwkv6-3b", "long_500k", ()), ("llama3-8b", "decode_32k", ()),
+                 ("rwkv6-3b", "train_4k", ("--multi-pod", "--consensus", "gossip")),
+                 ("llama3-8b", "train_4k", ()), ("qwen2-moe-a2.7b", "train_4k", ()),
+                 ("llama3-405b", "train_4k", ("--param-mode", "fsdp")))
+DRYRUN_TIMEOUT_S = 600
+# phase 24's prediction of the card's peak: run_one at the same config, batch and (1, 1) mesh
+PREDICT_CODE = """
+import dataclasses, json, sys
+import torch
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch.dryrun import run_one
+spec = json.loads(sys.argv[1])
+res = run_one(spec["arch"], "train_4k", n_layers=spec["layers"], mesh_shape=(1, 1),
+              shape=InputShape("train_4k", spec["seq"], spec["batch"], "train"),
+              dtype=torch.float32, optimizer="sgd", verbose=False)
+with open(sys.argv[2], "w") as fh:
+    json.dump(dataclasses.asdict(res), fh)
+"""
 
 
 def log(msg: str) -> None:
@@ -2782,11 +2831,11 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
 
 
 def phase_kernel_grads(torch, FA, RG, WK, gen, dev) -> dict:
-    """Gradients through B10-B12 on the card: each wrapper's
-    ``torch.autograd.Function`` (B11's backward the kernel on the
-    time-flipped inputs, B10's and B12's the plain version recomputed under
-    autograd) against autograd through the plain version on the same
-    inputs, relative ``KERNEL_RTOL`` (B10 in bf16: ``BF16_ATOL``)."""
+    """Gradients through B10-B12 on the card: each operator's autograd
+    formula (B11's backward the kernel on the time-flipped inputs, B10's
+    and B12's backward operators the plain version's vector-Jacobian
+    product written out) against autograd through the plain version on the
+    same inputs, relative ``KERNEL_RTOL`` (B10 in bf16: ``BF16_ATOL``)."""
     out = {}
 
     def randn(*shape, scale=1.0):
@@ -3279,6 +3328,282 @@ def phase_training(torch, get_config, Model, make_host_batch, steps, optim, Batc
     return out
 
 
+def phase_op_checks(torch, dev) -> dict:
+    """``torch.library.opcheck`` of B10-B12's operators and their backward
+    operators on CUDA tensors at small shapes: the fake implementations give
+    the kernels' output metadata, and the autograd registrations are sound."""
+    from torch.library import opcheck
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, grad=False, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).requires_grad_(grad)
+
+    def decay(*shape, grad=False):
+        return (0.8 + 0.199 * torch.rand(*shape, generator=g, device=dev)).requires_grad_(grad)
+
+    ops = torch.ops.repro_torch
+    cases = {
+        "flash_attention": (ops.flash_attention, (randn(2, 70, 4, 64, grad=True),
+                                                  randn(2, 70, 2, 64, grad=True),
+                                                  randn(2, 70, 2, 64, grad=True), True, 16)),
+        "flash_attention_backward": (ops.flash_attention_backward,
+                                     (randn(2, 70, 4, 64), randn(2, 70, 2, 64),
+                                      randn(2, 70, 2, 64), randn(2, 70, 4, 64), True, 16)),
+        "rglru_scan": (ops.rglru_scan, (decay(2, 33, 130, grad=True), randn(2, 33, 130, grad=True))),
+        "wkv_scan": (ops.wkv_scan, (*(randn(1, 17, 2, 64, grad=True, scale=0.3) for _ in range(3)),
+                                    decay(1, 17, 2, 64, grad=True), randn(2, 64, grad=True, scale=0.1))),
+        "wkv_scan_backward": (ops.wkv_scan_backward,
+                              (*(randn(1, 17, 2, 64, scale=0.3) for _ in range(3)),
+                               decay(1, 17, 2, 64), randn(2, 64, scale=0.1), randn(1, 17, 2, 64)))}
+    out = {}
+    for name, (op, args) in cases.items():
+        t0 = time.perf_counter()
+        opcheck(op, args)
+        out[name] = time.perf_counter() - t0
+        log(f"  opcheck {name} on CUDA: passed ({out[name]:.1f} s)")
+    return out
+
+
+def start_dryruns(work: Path) -> list:
+    """Phase 25's combos (``python -m repro_torch.launch.dryrun``) and phase
+    24's predictions (``run_one`` at each sharded run's config, batch and
+    (1, 1) mesh), each in a process of its own, all started together; they
+    hold no card memory but a CUDA context (fake CUDA tensors)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    jobs = []
+    for arch, shape, flags in DRYRUN_COMBOS:
+        out = work / f"dryrun-{arch}-{shape}.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               *flags, "--out", str(out)]
+        jobs.append((("combo", arch, shape, " ".join(flags)), out, cmd))
+    batch, seq = SHARDED_BATCH
+    for arch, layers in SHARDED_ARCHS:
+        out = work / f"predict-{arch}.json"
+        spec = json.dumps({"arch": arch, "layers": layers, "batch": batch, "seq": seq})
+        jobs.append((("memory", arch), out, [sys.executable, "-c", PREDICT_CODE, spec, str(out)]))
+    started = []
+    for key, out, cmd in jobs:
+        logf = open(out.with_suffix(".log"), "w")
+        started.append((key, out, logf, subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                                                         env=env, cwd=ROOT)))
+    return started
+
+
+def finish_dryruns(started: list, t_start: float) -> dict:
+    """Wait for every job of :func:`start_dryruns` (each within what is left
+    of ``DRYRUN_TIMEOUT_S``); ``{key: record}``. A job that fails or is cut
+    fails the run, after every other job is stopped."""
+    records = {}
+    try:
+        for key, out, logf, p in started:
+            left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start))
+            try:
+                rc = p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise Failed(f"dry-run job {key} did not end within {DRYRUN_TIMEOUT_S} s")
+            logf.close()
+            tail = out.with_suffix(".log").read_text()[-3000:]
+            if key[0] == "combo":
+                require(rc == 0 and out.exists(), f"dry-run {key} exited {rc}:\n{tail}")
+                records[key] = json.loads(out.read_text().splitlines()[-1])
+            else:
+                require(rc == 0 and out.exists(), f"prediction {key} exited {rc}:\n{tail}")
+                records[key] = json.loads(out.read_text())
+    finally:
+        for _, _, logf, p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    return records
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def phase_sharded(torch, get_config, Model, make_host_batch, steps, optim, mesh_mod, shard, api,
+                  SHAPES, FA, WK, K, P, S, X, dev, prediction) -> dict:
+    """Phase 24: each sharded run's two train steps and one prefill on DTensor
+    state placed by ``param_specs`` / ``train_state_specs`` and
+    ``batch_specs`` on a (1, 1) mesh of one NCCL rank, against the same
+    steps on plain tensors: losses, parameters and logits within
+    ``SHARDED_RTOL``, each step's launches and plain backward passes equal
+    (the sharding rules reach the kernels), and the card's peak of the
+    first sharded step against the dry-run's ``per_device_bytes``
+    (``prediction(arch)``: ``run_one``'s record at the same config, batch and
+    mesh)."""
+    import torch.distributed as dist
+
+    out = {}
+    batch, seq = SHARDED_BATCH
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh(1, 1, device_type="cuda")
+        rules = api.AxisRules(mesh, {"batch": ("data",), "seq": None, "embed": None,
+                                     "vocab": "model", "mlp": "model", "expert": None,
+                                     "capacity": None, "heads_dec": None, "cache_seq": "model"})
+        for arch, layers in SHARDED_ARCHS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            tcfg = steps.TrainerConfig(optimizer="sgd", lr=3e-3, warmup_steps=1, total_steps=4)
+            model = Model(cfg, device=dev)
+            state = steps.make_train_state(model, tcfg, torch.Generator(device=dev).manual_seed(2))
+            batches = [make_host_batch(cfg, batch, seq, seed=40 + i, device=dev) for i in range(2)]
+            step = steps.make_train_step(model, tcfg)
+
+            def run(st, bs):
+                losses, launches, plains = [], [], []
+                for b in bs:
+                    reset_counts(K, P, S, X)
+                    reset_plain_backwards(FA, WK)
+                    st, m = step(st, b)
+                    torch.cuda.synchronize()
+                    losses.append(float(_full(m["loss"])))
+                    launches.append(launched(counts(K, P, S, X)))
+                    plains.append(plain_backward_counts(FA, WK))
+                return st, losses, launches, plains
+
+            plain_state, plain_losses, plain_launches, plain_plains = run(state, batches)
+            plain_params = {k: v.cpu() for k, v in plain_state["params"].items()}
+            del plain_state
+            with torch.no_grad():
+                plain_logits = steps.make_prefill_step(model)(batches[0]).cpu()
+            pspecs = shard.param_specs(mesh, state["params"], mode="zero1")
+            mspecs = shard.param_specs(mesh, state["params"], mode="fsdp")
+            sspecs = steps.train_state_specs(pspecs, tcfg, moment_specs=mspecs)
+            bspecs = shard.batch_specs(mesh, cfg, SHAPES["train_4k"])
+            with api.activate(rules):
+                dstate = shard.distribute(mesh, state, sspecs)
+                dbatches = [shard.distribute(mesh, b, bspecs) for b in batches]
+                del state
+                free_cuda(torch)
+                args = shard.local_bytes(dstate) + shard.local_bytes(dbatches[0])
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                first, losses, launches, plains = run(dstate, dbatches[:1])
+                card_bytes = torch.cuda.max_memory_allocated() - (resident - args)
+                new, more, l2, p2 = run(first, dbatches[1:])
+                losses, launches, plains = losses + more, launches + l2, plains + p2
+                with steps.swapped_params(model, dstate["params"]):
+                    logits = _full(steps.make_prefill_step(model)(dbatches[0])).cpu()
+                params = {k: _full(v).cpu() for k, v in new["params"].items()}
+            del dstate, dbatches, first, new
+            loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, plain_losses))
+            param_err = max(rel_err(params[k], v)[1] for k, v in plain_params.items())
+            logit_err = rel_err(logits, plain_logits)[1]
+            pred = prediction(arch)
+            require(pred["status"] == "ok", f"{arch}: the dry-run's prediction {pred['reason']}")
+            predicted = pred["per_device_bytes"]
+            ratio = card_bytes / predicted
+            limit = max(MEMORY_RTOL * predicted, MEMORY_ATOL)
+            log(f"  {arch}, {layers} layers, {batch} x {seq} tokens: sharded against plain: losses "
+                f"{', '.join(f'{a:.6f} / {b:.6f}' for a, b in zip(losses, plain_losses))} "
+                f"(rel {loss_err:.3e}), params {param_err:.3e}, prefill logits {logit_err:.3e} "
+                f"(<= {SHARDED_RTOL}); launches a step {launches} (plain {plain_launches}), plain "
+                f"backwards {plains}; card peak {card_bytes / 2**30:.3f} GiB, dry-run "
+                f"{predicted / 2**30:.3f} GiB, ratio {ratio:.4f}; {time.perf_counter() - t0:.1f} s")
+            require(all(math.isfinite(x) for x in losses), f"{arch}: sharded loss not finite")
+            require(max(loss_err, param_err, logit_err) <= SHARDED_RTOL,
+                    f"{arch}: sharded steps off the plain ones (losses {loss_err:.3e}, params "
+                    f"{param_err:.3e}, logits {logit_err:.3e})")
+            require(launches == plain_launches and plains == plain_plains,
+                    f"{arch}: sharded launches {launches} / {plains}, plain {plain_launches} / "
+                    f"{plain_plains}")
+            require(abs(card_bytes - predicted) <= limit,
+                    f"{arch}: card peak {card_bytes} B against the dry-run's {predicted} B")
+            out[arch] = {"layers": layers, "batch": [batch, seq], "loss_rel_err": loss_err,
+                         "param_rel_err": param_err, "logit_rel_err": logit_err,
+                         "launches_per_step": launches[0],
+                         "plain_backwards_per_step": plains[0], "card_peak_bytes": card_bytes,
+                         "dryrun_bytes": predicted, "memory_ratio": ratio,
+                         "s": time.perf_counter() - t0}
+            del model, params, plain_params
+            free_cuda(torch)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_dryrun(records: dict) -> dict:
+    """Phase 25: every production combo ``ok``; the gossip combo permutes on
+    the pod axis; per-device GiB, FLOPs, collective bytes and bottleneck."""
+    out = {}
+    for key, rec in records.items():
+        if key[0] != "combo":
+            continue
+        _, arch, shape, flags = key
+        label = f"{arch} x {shape} ({rec['mesh']}, {rec['consensus']}{', ' + flags if flags else ''})"
+        require(rec["status"] == "ok", f"dry-run {label}: {rec['status']} {rec['reason']}")
+        perms = rec["collectives"]["count_by_op"].get("collective-permute", 0)
+        log(f"  {label}: {rec['per_device_bytes'] / 2**30:.2f} GiB a device (args "
+            f"{rec['arg_bytes'] / 2**30:.2f}), {rec['hlo_flops']:.3e} FLOPs, "
+            f"{rec['collective_bytes']:.3e} collective bytes {rec['collectives']['count_by_op']}, "
+            f"{rec['bottleneck']}-bound (compute {rec['compute_s'] * 1e3:.2f} ms, memory "
+            f"{rec['memory_s'] * 1e3:.2f} ms, collective {rec['collective_s'] * 1e3:.2f} ms), "
+            f"useful-flop ratio {rec['useful_flop_ratio']:.3f}, traced in {rec['compile_secs']:.1f} s")
+        if rec["consensus"] == "gossip":
+            require(rec["mesh"].startswith("2x16x16") and perms >= 1,
+                    f"dry-run {label}: no collective-permute on the pod axis")
+        out[label] = {k: rec[k] for k in ("per_device_bytes", "arg_bytes", "temp_bytes",
+                                          "hlo_flops", "hlo_bytes", "collective_bytes",
+                                          "collectives", "bottleneck", "compute_s", "memory_s",
+                                          "collective_s", "useful_flop_ratio", "n_params",
+                                          "model_flops_global", "compile_secs")}
+    return out
+
+
+def phases_sharded_and_dryrun(torch, get_config, Model, make_host_batch, steps, optim, mesh_mod,
+                              shard, api, SHAPES, FA, WK, K, P, S, X, dev):
+    """Phases 24 and 25: the dry-run's jobs start first, phase 24 runs on the
+    card meanwhile (waiting for each prediction it needs), then phase 25
+    reads the combos' records. Returns (phase 24's and 25's objects and
+    seconds)."""
+    log("phase 24: sharded on the card, a (1, 1) mesh of one NCCL rank, against plain tensors")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as dry_tmp:
+        t_dry = time.perf_counter()
+        jobs = start_dryruns(Path(dry_tmp))
+        try:
+            def prediction(arch: str) -> dict:
+                """The dry-run's record for a sharded run (its job waited for)."""
+                for key, outp, _, proc in jobs:
+                    if key == ("memory", arch):
+                        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t_dry))
+                        require(proc.wait(timeout=left) == 0 and outp.exists(),
+                                f"prediction {key}: "
+                                + outp.with_suffix(".log").read_text()[-3000:])
+                        return json.loads(outp.read_text())
+                raise Failed(f"no prediction job for {arch}")
+
+            sharded = phase_sharded(torch, get_config, Model, make_host_batch, steps, optim,
+                                    mesh_mod, shard, api, SHAPES, FA, WK, K, P, S, X, dev,
+                                    prediction)
+            s24 = time.perf_counter() - t_dry
+            log(f"  {s24:.1f} s")
+            log("phase 25: the production dry-run, fake worlds of 256 and 512 ranks")
+            dryrun_out = phase_dryrun(finish_dryruns(jobs, t_dry))
+        finally:
+            for _, _, logf, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                logf.close()
+    s25 = time.perf_counter() - t_dry - s24
+    log(f"  {s25:.1f} s after phase 24 (its jobs started with phase 24; both "
+        f"{s24 + s25:.1f} s)")
+    return sharded, dryrun_out, s24, s25
+
+
 def profile_iterations(torch, run) -> dict:
     """Device time by kernel, in all and in kernels alone (copies, such as
     pageable uploads whose time follows the host's, left out), kernel
@@ -3372,6 +3697,10 @@ def main() -> int:
     from repro_torch.launch import steps as steps_lm
     from repro_torch.launch.input_specs import make_host_batch
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import mesh as mesh_lm
+    from repro_torch.launch import shardings as shard_lm
+    from repro_torch import sharding as sharding_api
     from repro_torch.models.transformer import Model
     from repro_torch.sparse import formats
     from repro_torch.sparse.formats import ELL
@@ -3423,6 +3752,7 @@ def main() -> int:
     kernels.update(serving_row)
     kernels.update(phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev))
     kernel_grads = phase_kernel_grads(torch, FA, RG, WK, gen, dev)
+    op_checks = phase_op_checks(torch, dev)
 
     log("phase 4: main path, reuters at full size, fused")
     t0 = time.perf_counter()
@@ -3805,9 +4135,14 @@ def main() -> int:
                               Batcher, TokenStreamConfig, FA, RG, WK, K, P, S, X, dev)
     phase_s["23"] = time.perf_counter() - t0 - sum(phase_s.values())
     log(f"  {phase_s['23']:.1f} s")
+    free_cuda(torch)
+    sharded, dryrun_out, s24, s25 = phases_sharded_and_dryrun(
+        torch, get_config, Model, make_host_batch, steps_lm, optim, mesh_lm, shard_lm,
+        sharding_api, SHAPES, FA, WK, K, P, S, X, dev)
+    phase_s["24"], phase_s["25"] = s24, s25
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
-    log("phase 24: summary")
+    log("phase 26: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -3907,6 +4242,11 @@ def main() -> int:
                     "path": f"{arch} training at full width, a step under remat "
                             f"{r['policy']!r} (phase 23{part})", "launches": n,
                     "plain_backwards": r["remat"]["plain_backwards"].get(name)})
+    for arch, row in sharded.items():
+        for name, n in row["launches_per_step"].items():
+            more_paths[name].append({"path": f"{arch} sharded train step on a (1, 1) mesh, "
+                                     f"{row['layers']} layers (phase 24)", "launches": n,
+                                     "plain_backwards": row["plain_backwards_per_step"].get(name)})
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
                "ell_scores_prefetch": "predict.cu",
@@ -3971,7 +4311,8 @@ def main() -> int:
                         "reuters_dense_queries_per_s": ds.X_test.shape[0] / dense_s,
                         "reuters_dense_accuracy": acc_d},
             "transformer": transformer,
-            "kernel_gradients_rel_err": kernel_grads, "new_families": families,
+            "kernel_gradients_rel_err": kernel_grads, "op_checks_s": op_checks,
+            "sharded": sharded, "dryrun": dryrun_out, "new_families": families,
             "training": training,
             "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
             "control_plane": control, "solvers": solvers, "mesh": mesh,

@@ -19,11 +19,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
     Raises ``RuntimeError`` when CUDA is asked for, explicitly or by default,
     and no CUDA device is present: the port never falls back to the CPU on
-    its own.
+    its own. Under ``FakeTensorMode`` (the dry-run) CUDA tensors hold no data
+    and need no card.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and not _fake_mode():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def _fake_mode() -> bool:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return any(isinstance(m, FakeTensorMode) for m in _get_current_dispatch_mode_stack())

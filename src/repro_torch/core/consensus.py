@@ -11,6 +11,9 @@ onto :class:`~repro_torch.core.mesh.Mesh` (one replica a process).
 
 :func:`gossip_mix_stacked` is the single-process view: every leaf carries a
 leading replica axis and a round is ``s·x + (1 − s)·roll(x, hop)``.
+:func:`gossip_mix_axis` is the same schedule and arithmetic with the
+replicas spread over one axis of a mesh, each rank holding its replica's
+share of every leaf: a round is one ``ppermute`` a leaf along that axis.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.core.push_sum import (PushSumState, exponential_schedule, push_
                                        tree_leaves, tree_map)
 
 __all__ = ["ConsensusConfig", "allreduce_grads", "gossip_mix", "gossip_mix_stacked",
-           "mix_params"]
+           "gossip_mix_axis", "mix_params"]
 
 
 class ConsensusConfig(NamedTuple):
@@ -82,21 +85,51 @@ def gossip_mix_stacked(params: Any, step: int, *, n_nodes: int, rounds: int = 1,
     full precision."""
     if n_nodes == 1:
         return params
-    if n_nodes & (n_nodes - 1):
-        raise ValueError("n_nodes must be a power of two")
-    hops = [1 << k for k in range((n_nodes - 1).bit_length())]
+    hops = _hops(n_nodes)
 
     def mixer(hop):
         def mix(x):
             sent = x.to(payload_dtype) if payload_dtype is not None else x
-            recv = torch.roll(sent, hop, dims=0).to(torch.float32)
-            return (self_share * x.to(torch.float32) + (1.0 - self_share) * recv).to(x.dtype)
+            return _mix(x, torch.roll(sent, hop, dims=0), self_share)
         return mix
 
     L = len(hops)
     base = (int(step) * rounds) % L
     for k in range(rounds):
         params = tree_map(mixer(hops[(base + k) % L]), params)
+    return params
+
+
+def _hops(n_nodes: int) -> list[int]:
+    if n_nodes & (n_nodes - 1):
+        raise ValueError("n_nodes must be a power of two")
+    return [1 << k for k in range((n_nodes - 1).bit_length())]
+
+
+def _mix(x: torch.Tensor, recv: torch.Tensor, self_share: float) -> torch.Tensor:
+    return (self_share * x.to(torch.float32)
+            + (1.0 - self_share) * recv.to(torch.float32)).to(x.dtype)
+
+
+def gossip_mix_axis(params: Any, step: int, *, mesh: Mesh, axis: str, rounds: int = 1,
+                    self_share: float = 0.5, payload_dtype: torch.dtype | None = None) -> Any:
+    """:func:`gossip_mix_stacked` with the replicas on ``axis`` of ``mesh``:
+    ``params`` is this rank's share of its replica's leaves, and a round at
+    hop h receives the share of the replica h places back on the axis
+    (``Mesh.ppermute``), so rank c mixes as ``roll(x, h)[c]`` does."""
+    n_nodes = mesh.axis_sizes[axis]
+    if n_nodes == 1:
+        return params
+    hops = _hops(n_nodes)
+    base = (int(step) * rounds) % len(hops)
+    for k in range(rounds):
+        hop = hops[(base + k) % len(hops)]
+
+        def mix(x, hop=hop):
+            sent = x.to(payload_dtype) if payload_dtype is not None else x
+            return _mix(x, mesh.ppermute(sent, axis, hop), self_share)
+
+        params = tree_map(mix, params)
     return params
 
 

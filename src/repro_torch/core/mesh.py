@@ -16,6 +16,11 @@ group, and :class:`Mesh` gives it the few collectives those paths use:
 * :meth:`Mesh.all_reduce_sum` and :meth:`Mesh.all_gather` on the world group.
   Gloo has no ``ReduceOp.AVG``, so a mean is a sum divided by the size.
 
+A :class:`Mesh` may carry a ``recorder`` (``launch.hlo_parse.CollectiveRecorder``
+or anything with its ``record(op, out_bytes, group_size)``), which
+:meth:`Mesh.ppermute` tells of every share it sends, under XLA's name
+``collective-permute``: the dry-run counts the gossip's bytes so.
+
 Every result comes back on the input's device. NCCL moves device tensors
 as they are. Gloo's point-to-point and collectives take CPU tensors only,
 so a CUDA tensor is copied to a host buffer before it is sent and back to
@@ -58,6 +63,7 @@ class Mesh:
             acc *= self.axis_sizes[ax]
         self.coords = {ax: (self.rank // self.strides[ax]) % n
                        for ax, n in self.axis_sizes.items()}
+        self.recorder = None
         self.reset_stats()
 
     # ------------------------------------------------------------ coordinates
@@ -99,6 +105,8 @@ class Mesh:
         dst = self.partner(axis, hop)
         src = self.rank + (((c - hop) % n) - c) * self.strides[axis]
         send = self._to_wire(x.contiguous())
+        if self.recorder is not None:
+            self.recorder.record("collective-permute", x.numel() * x.element_size(), n)
         if dst == self.rank:  # hop ≡ 0 (mod n): the share stays home
             recv = send.clone()
         else:

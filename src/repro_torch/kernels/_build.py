@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "all_sources", "build", "load", "check",
-           "on_cpu", "check_tensor", "stream", "sm_count", "copy_width"]
+           "on_cpu", "same_device", "check_tensor", "stream", "sm_count", "copy_width"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -133,6 +133,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return False
+
+
+def same_device(*tensors: torch.Tensor) -> torch.device:
+    """The one device of ``tensors``; raises ``ValueError`` when they lie on
+    more than one."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    return devices.pop()
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,

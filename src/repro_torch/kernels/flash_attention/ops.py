@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention, live_pairs
 
 __all__ = ["gqa_flash_attention", "live_pairs", "launch_cost"]
 
@@ -16,16 +16,6 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's wrapper nothing is moved, repeated or padded: one launch.
     """
     return flash_attention(q, k, v, causal=causal, window=window)
-
-
-def live_pairs(seq: int, *, causal: bool, window: int) -> int:
-    """The (query, key) pairs of one (batch, head) that the mask leaves live."""
-    total = 0
-    for qi in range(seq):
-        lo = max(0, qi - window + 1) if window else 0
-        hi = qi if causal else seq - 1
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def launch_cost(*, B: int, S: int, H: int, Hkv: int, dh: int, causal: bool = True,

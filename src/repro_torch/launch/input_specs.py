@@ -13,9 +13,11 @@ The draws are the reference's ``jax.random`` Threefry streams
 tokens by ``randint``, the mask by ``bernoulli`` (both bit for bit) and the
 embeddings by ``normal``, whose uniform bits are the reference's and whose
 inverse error function is ``torch.erfinv`` (the reference's is XLA's
-polynomial; the two differ in the last bits). The abstract shapes of the
-reference's module (``train_batch_shapes``, ``decode_input_shapes``) lower
-XLA programs and are not ported.
+polynomial; the two differ in the last bits).
+
+The abstract inputs (``train_batch_shapes``, ``decode_input_shapes``) are
+tensors that hold no data: ``meta`` tensors, or fake ones when built under
+``FakeTensorMode`` on the device named (the dry-run's fake CUDA tensors).
 """
 from __future__ import annotations
 
@@ -25,10 +27,45 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.configs.shapes import InputShape
 from repro_torch.core import counter_rng as rng
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["make_host_batch", "normal"]
+__all__ = ["make_host_batch", "normal", "train_batch_shapes", "decode_input_shapes"]
+
+
+def train_batch_shapes(cfg: ModelConfig, shape: InputShape, *, n_replicas: int = 0,
+                       act_dtype: torch.dtype = torch.bfloat16,
+                       device: torch.device | str = "meta") -> dict[str, torch.Tensor]:
+    """Empty tensors of the train / prefill batch of ``shape`` in ``cfg``'s
+    layout (the reference's ``ShapeDtypeStruct``s), with a leading replica
+    axis (G, B/G, ...) when ``n_replicas``."""
+    B, S = shape.global_batch, shape.seq_len
+    lead = (n_replicas, B // n_replicas) if n_replicas else (B,)
+
+    def empty(*dims, dtype=torch.int32):
+        return torch.empty(lead + dims, dtype=dtype, device=device)
+
+    if cfg.embed_kind == "tokens":
+        return {"tokens": empty(S), "targets": empty(S)}
+    if cfg.embed_kind == "patches":
+        P_ = min(cfg.n_prefix_embeds, S // 2)
+        return {"patch_embeds": empty(P_, cfg.d_model, dtype=act_dtype),
+                "tokens": empty(S - P_), "targets": empty(S - P_)}
+    if cfg.embed_kind == "frames":
+        return {"frames": empty(S, cfg.d_model, dtype=act_dtype), "targets": empty(S),
+                "mask": empty(S, dtype=torch.bool)}
+    raise ValueError(cfg.embed_kind)
+
+
+def decode_input_shapes(model, shape: InputShape, *, cache_dtype: torch.dtype = torch.bfloat16):
+    """(tokens (B, 1), caches, pos) for a serve step against a
+    ``shape.seq_len``-deep cache: tensors on the model's device (empty ones
+    under ``FakeTensorMode`` or on ``meta``) and ``pos`` the last slot (the
+    whole cache live), an int as ``decode_step`` takes it."""
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.empty((B, 1), dtype=torch.int32, device=model.device)
+    return tokens, model.init_cache(B, S, cache_dtype), S - 1
 
 # the uniform's open lower end: the float32 after -1 towards 0
 _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

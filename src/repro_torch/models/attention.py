@@ -17,10 +17,12 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed.tensor
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import constrain, gathered
 
 __all__ = ["Attention", "KVCache", "init_attention", "attention_train", "attention_decode",
            "init_kv_cache"]
@@ -71,13 +73,16 @@ def init_kv_cache(batch: int, seq: int, n_kv: int, head_dim: int, window: int,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+            score_axes: tuple | None = None) -> torch.Tensor:
     """GQA-native softmax(q k^T / sqrt(dh) + mask) v, f32 softmax.
 
     q: (B,Sq,H,Dh); k/v: (B,Sk,Hkv,Dh) with Hkv | H — queries are grouped
     per kv head in the einsum itself, so K/V are never repeated. ``mask``
     broadcasts to (B, Sq, Sk). Types promote as in JAX: the scores in the
-    wider of q's and k's types, the probabilities in v's.
+    wider of q's and k's types, the probabilities in v's. ``score_axes``:
+    logical axes pinned onto the (B, Hkv, rep, Sq, Sk) scores and
+    probabilities (decode keeps them sharded on the cache sequence).
     """
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
@@ -86,20 +91,24 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tenso
     qg = q.to(qk).reshape(b, sq, hkv, rep, dh)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.to(qk)).float() / math.sqrt(float(dh))
     scores = torch.where(mask[:, None, None], scores, NEG_INF)  # mask (B|1, Sq, Sk)
+    if score_axes is not None:
+        scores = constrain(scores, score_axes)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if score_axes is not None:
+        probs = constrain(probs, score_axes)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v)
     return out.reshape(b, sq, h, dh)
 
 
 def _project_qkv(p: Attention, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q = torch.einsum("bsd,dhk->bshk", x, gathered(p.wq, (1,)))
+    k = torch.einsum("bsd,dhk->bshk", x, gathered(p.wk, (1,)))
+    v = torch.einsum("bsd,dhk->bshk", x, gathered(p.wv, (1,)))
     return q, k, v
 
 
 def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    wo = p.wo.to(torch.promote_types(o.dtype, p.wo.dtype))
+    wo = gathered(p.wo, (0,)).to(torch.promote_types(o.dtype, p.wo.dtype))
     return torch.einsum("bshk,hkd->bsd", o.to(wo.dtype), wo)
 
 
@@ -122,18 +131,28 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: int, *,
     SWA: ring slot ``pos % window``, attend over the last ``window`` slots.
     The new key and value are written into ``cache`` in place (the reference
     returns a new cache; this keeps one copy of a long cache), and the same
-    cache is returned.
+    cache is returned. A DTensor cache (sharded on the cache sequence) takes
+    the reference's masked write instead, which every shard does locally,
+    and a new cache is returned.
     """
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = L.rotary(q, posb, rope_theta)
     k_new = L.rotary(k_new, posb, rope_theta)
+    # flash-decode sharding: q heads replicated, so the scores inherit the
+    # cache's sequence sharding
+    q = constrain(q, ("batch", None, "heads_dec", None))
 
     s_cache = cache.size
     slot = (pos % window) if window else pos
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    if isinstance(cache.k, torch.distributed.tensor.DTensor):
+        write = (torch.arange(s_cache, device=x.device) == slot)[None, :, None, None]
+        cache = KVCache(k=torch.where(write, k_new.to(cache.k.dtype), cache.k),
+                        v=torch.where(write, v_new.to(cache.v.dtype), cache.v))
+    else:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
 
     slots = torch.arange(s_cache, device=x.device)
     if window:
@@ -142,5 +161,6 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: int, *,
         valid = (abs_pos >= 0) & (abs_pos >= pos - window + 1)
     else:
         valid = slots <= pos
-    out = _attend(q, cache.k, cache.v, valid[None, None, :])
+    out = _attend(q, cache.k, cache.v, valid[None, None, :],
+                  score_axes=("batch", "kv_heads", "heads_dec", None, "cache_seq"))
     return _out(p, out), cache

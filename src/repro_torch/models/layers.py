@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.api import vocab_rows
+
 __all__ = [
     "Norm", "Embedding", "Dense", "MLP",
     "rms_norm", "layer_norm", "init_norm",
@@ -124,7 +126,9 @@ def init_embedding(gen: torch.Generator | None, vocab: int, d: int, dtype=torch.
 
 
 def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.table[tokens]
+    """The rows of ``table`` at ``tokens`` (vocab-parallel on a sharded
+    DTensor table: ``sharding.api.vocab_rows``)."""
+    return vocab_rows(p.table, tokens)
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,11 @@ gathers each kept choice's output and weights it. Auxiliary outputs: the
 Switch load-balance loss and the router z-loss, scaled by ``aux_coef`` and
 ``router_z_coef``. The reference runs no Pallas kernel here; neither does
 the port.
+
+On a mesh the per-row work (routing, dispatch, combine and the per-row aux
+terms) runs on each rank's own rows (``sharding.api.rows_local``): rows stay
+sharded on the batch axes, as the reference's group vmap keeps them, and
+the expert buffers are pinned with ``constrain`` at the reference's sites.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import MoEConfig
+from repro_torch.sharding.api import constrain, rows_local
 
 __all__ = ["MoE", "MoEAux", "Routing", "capacity", "route", "moe_apply"]
 
@@ -90,13 +96,14 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig, cap: int) -> Ro
     return Routing(logits, probs, topv, topi, pos, pos < cap)
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str) -> tuple[torch.Tensor, MoEAux]:
-    """x: (B, S, D) -> ((B, S, D), MoEAux). Routing is per batch row."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, cap: int):
+    """Per-row routing and dispatch of x (B, S, D): the expert buffers xe
+    (B, E, C, D), each (token, choice)'s expert id and slot (B, S·k), its
+    combine weight (B, S·k), and the per-row load-balance term, z term and
+    top-1 fractions (B,), (B,), (B, E)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(s, cfg)
-    r = route(p.router, x, cfg, cap)
-
+    r = route(router, x, cfg, cap)
     eid = r.topi.reshape(b, s * k)
     slot = torch.where(r.keep, r.pos, cap).reshape(b, s * k)    # overflow -> sink slot
     rows = torch.arange(b, device=x.device)[:, None]
@@ -106,20 +113,38 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str) -> tuple[t
     # zeros; the sink's writes collide and are dropped with it
     xe = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
     xe = xe.index_put_((rows, eid, slot), toks)[:, :, :cap]
-
-    h = torch.einsum("becd,edf->becf", xe, p.wi)
-    g = torch.einsum("becd,edf->becf", xe, p.wg)
-    ye = torch.einsum("becf,efd->becd", F.silu(h) * g, p.wo)     # (B, E, C, D)
-
-    # combine: gather each kept choice's expert output, weight, sum over k
-    gathered = ye[rows, eid, torch.clamp(slot, max=cap - 1)]    # (B, S*k, D)
     w = (r.topv.reshape(b, s * k) * r.keep.reshape(b, s * k)).to(x.dtype)
-    y = torch.sum((gathered * w[..., None]).reshape(b, s, k, d), dim=2)
-
     frac_routed = torch.mean(F.one_hot(r.topi[..., 0], e).float(), dim=1)   # (B, E)
     mean_prob = torch.mean(r.probs, dim=1)
     lb = e * torch.sum(frac_routed * mean_prob, dim=-1)
     z = torch.mean(torch.square(torch.logsumexp(r.logits, dim=-1)), dim=-1)
+    return xe, eid, slot, w, lb, z, frac_routed
+
+
+def _combine(ye: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
+             cap: int, k: int) -> torch.Tensor:
+    """Gather each kept choice's expert output from ye (B, E, C, D), weight
+    it and sum over the k choices: (B, S, D)."""
+    b, d = ye.shape[0], ye.shape[-1]
+    rows = torch.arange(b, device=ye.device)[:, None]
+    gathered = ye[rows, eid, torch.clamp(slot, max=cap - 1)]    # (B, S*k, D)
+    return torch.sum((gathered * w[..., None]).reshape(b, -1, k, d), dim=2)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str) -> tuple[torch.Tensor, MoEAux]:
+    """x: (B, S, D) -> ((B, S, D), MoEAux). Routing is per batch row."""
+    cap = capacity(x.shape[1], cfg)
+    xe, eid, slot, w, lb, z, frac_routed = rows_local(
+        lambda x, router: _dispatch(x, router, cfg, cap), (x,), (p.router,), n_out=7)
+    xe = constrain(xe, ("batch", "expert", "capacity", "embed"))
+    h = torch.einsum("becd,edf->becf", xe, p.wi)
+    g = torch.einsum("becd,edf->becf", xe, p.wg)
+    h = constrain(h, ("batch", "expert", "capacity", "mlp"))
+    g = constrain(g, ("batch", "expert", "capacity", "mlp"))
+    ye = torch.einsum("becf,efd->becd", F.silu(h) * g, p.wo)     # (B, E, C, D)
+    ye = constrain(ye, ("batch", "expert", "capacity", "embed"))
+    y = rows_local(lambda ye, eid, slot, w: _combine(ye, eid, slot, w, cap, cfg.top_k),
+                   (ye, eid, slot, w))
     if hasattr(p, "shared"):
         y = y + L.mlp_apply(p.shared, x, mlp_kind)
     return y, MoEAux(load_balance_loss=torch.mean(lb) * cfg.aux_coef,

@@ -78,19 +78,27 @@ def init_rglru_block(gen: torch.Generator | None, d_model: int, d_rnn: int | Non
     return m
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's ``jax.nn.softplus`` writes it,
+    max(x, 0) + log1p(e^-|x|), in ops every DTensor version shards."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def _gates(p: RGLRU, u: torch.Tensor):
     """u: (..., D_rnn) post-conv activations -> (a, beta_scaled_input)."""
     r = torch.sigmoid(torch.matmul(u, p.w_a).float() + p.b_a.float())
     i = torch.sigmoid(torch.matmul(u, p.w_x).float() + p.b_x.float())
-    log_a = -_C * F.softplus(getattr(p, "lambda").float()) * r
+    log_a = -_C * _softplus(getattr(p, "lambda").float()) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * i * u.float()
 
 
 def _conv1d_train(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise conv, width CONV_WIDTH. x: (B, S, D)."""
-    pads = F.pad(x, (0, 0, CONV_WIDTH - 1, 0))
+    """Causal depthwise conv, width CONV_WIDTH. x: (B, S, D). The zero
+    history is concatenated, not padded in: DTensor shards ``cat`` in every
+    version, ``F.pad``'s backward not."""
+    pads = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, CONV_WIDTH - 1, -1), x], dim=1)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for w in range(CONV_WIDTH):
         out = out + pads[:, w:w + x.shape[1]].float() * p.conv_w[w].float()

@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.kernels.rwkv6_scan.ops import wkv
 from repro_torch.kernels.rwkv6_scan.ref import wkv_scan_ref
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import grad_like, split_ready
 
 __all__ = ["RWKV6", "init_rwkv6_block", "time_mix_train", "channel_mix_train",
            "time_mix_decode", "channel_mix_decode", "RWKV6State",
@@ -103,7 +104,7 @@ def _lerp(x, x_prev, mu):
 
 def _heads(x, head_dim):
     b, s, d = x.shape
-    return x.reshape(b, s, d // head_dim, head_dim)
+    return split_ready(x, -1, d // head_dim).reshape(b, s, d // head_dim, head_dim)
 
 
 def _time_mix(p: RWKV6, x: torch.Tensor, x_prev: torch.Tensor, S0: torch.Tensor | None,
@@ -132,7 +133,7 @@ def _time_mix(p: RWKV6, x: torch.Tensor, x_prev: torch.Tensor, S0: torch.Tensor 
     # per-head group norm (population variance, as jnp.var)
     o = (out - out.mean(-1, keepdim=True)) * torch.rsqrt(
         out.var(-1, keepdim=True, correction=0) + 1e-5)
-    o = o.reshape(b, s, h * n) * p.ln_x_scale.float()
+    o = grad_like(o.reshape(b, s, h * n)) * p.ln_x_scale.float()
     o = o.to(x.dtype) * g
     return torch.matmul(o, p.w_o), S
 

@@ -19,13 +19,22 @@ cross entropy masked). ``remat`` checkpoints each block
 backward pass, "dots" keeps the matrix products' outputs and recomputes the
 rest. Recomputation repeats the same arithmetic, so remat on equals remat
 off bit for bit.
+
+On a mesh the parameters and inputs are DTensors; ``constrain`` pins the
+residual stream, the embedded inputs and the logits to the active logical
+rules at the reference's sites (the identity on plain tensors), and the
+cross entropy of vocab-sharded logits is taken shard-locally
+(:func:`_nll`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
@@ -35,10 +44,15 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig, compile_stages
+from repro_torch.sharding.api import activate, constrain, current_rules, grad_like, shard_range
 
 __all__ = ["Model", "Block", "layer_kinds"]
 
 _ATTN_KINDS = ("attn", "swa", "local_attn")
+# the residual stream's logical axes, pinned after each mix (the reference
+# pins it at block ends; between the two mixes too here, so that a
+# row-parallel product's partial sums are reduced before the norm)
+_STREAM = ("batch", "seq", "embed")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -60,6 +74,64 @@ def _dots_policy(ctx, op, *args, **kwargs):
 _REMAT_CONTEXT = {"full": ckpt.noop_context_fn,
                   "dots": functools.partial(ckpt.create_selective_checkpoint_contexts,
                                             _dots_policy)}
+
+
+def _remat_context(policy: str, rules):
+    """``_REMAT_CONTEXT[policy]`` with the forward's logical rules active in
+    the recomputation too: on CUDA the backward (and so the recomputation)
+    runs on autograd's own thread, where the thread-local rules are unset."""
+    @contextlib.contextmanager
+    def recompute_with_rules(recompute):
+        with contextlib.ExitStack() as stack:
+            if rules is not None:
+                stack.enter_context(activate(rules))
+            stack.enter_context(recompute)
+            yield
+
+    def context_fn():
+        forward, recompute = _REMAT_CONTEXT[policy]()
+        return forward, recompute_with_rules(recompute)
+    return context_fn
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """lse(logits) − logit[target], (B, S). On vocab-sharded DTensor logits
+    the log-sum-exp comes from a max and a sum over the shards and the
+    target's logit from the shard that holds it (:func:`_target_logit`):
+    the collectives carry (B, S) values, and the (B, S, V) logits are never
+    gathered."""
+    if not isinstance(logits, DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    # each (B, S) partial pinned to the batch layout: DTensor would otherwise
+    # reduce-scatter it onto the batch over `model` too, and gather the
+    # vocab-sharded gradient to meet that layout in the backward pass
+    rows = ("batch", "seq")
+    m = constrain(torch.amax(logits, dim=-1, keepdim=True).detach(), rows + (None,))
+    total = constrain(torch.sum(torch.exp(logits - m), dim=-1), rows)
+    tgt = constrain(_target_logit(logits, targets), rows)
+    return grad_like(torch.log(total) + m[..., 0] - tgt)
+
+
+def _target_logit(logits, targets: torch.Tensor) -> torch.Tensor:
+    """logit[target] of DTensor logits (B, S, V): each rank gathers the
+    targets that fall in its vocab shard (zero elsewhere) and the vocab
+    mesh dims sum them (a ``Partial`` output of ``local_map``)."""
+    mesh, pl, last = logits.device_mesh, tuple(logits.placements), logits.ndim - 1
+    vocab = [isinstance(p, Shard) and p.dim == last for p in pl]
+    offset, _ = shard_range(mesh, pl, last, logits.shape[-1])
+
+    def local(lg, tg):
+        idx = tg.long() - offset
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        got = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    rows = tuple(Replicate() if v else p for v, p in zip(vocab, pl))
+    out = tuple(Partial() if v else p for v, p in zip(vocab, pl))
+    return local_map(local, out_placements=(out,), in_placements=(pl, rows),
+                     in_grad_placements=(pl, rows), redistribute_inputs=True,
+                     device_mesh=mesh)(logits, targets)
 
 
 class Block(nn.Module):
@@ -153,19 +225,20 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind in _ATTN_KINDS:
             window = cfg.window if kind in ("swa", "local_attn") else 0
-            x = x + A.attention_train(blk.attn, self._norm(blk.norm1, x), positions,
-                                      window=window, causal=not cfg.is_encoder,
-                                      rope_theta=cfg.rope_theta)
+            x = constrain(x + A.attention_train(blk.attn, self._norm(blk.norm1, x), positions,
+                                                window=window, causal=not cfg.is_encoder,
+                                                rope_theta=cfg.rope_theta), _STREAM)
             ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
             x = x + ch
         elif kind == "rglru":
-            x = x + G.rglru_train(blk.rglru, self._norm(blk.norm1, x))
+            x = constrain(x + G.rglru_train(blk.rglru, self._norm(blk.norm1, x)), _STREAM)
             ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
             x = x + ch
         else:  # rwkv6
-            x = x + W.time_mix_train(blk.rwkv, self._norm(blk.norm1, x), cfg.rwkv_head_dim)
+            x = constrain(x + W.time_mix_train(blk.rwkv, self._norm(blk.norm1, x),
+                                               cfg.rwkv_head_dim), _STREAM)
             x = x + W.channel_mix_train(blk.rwkv, self._norm(blk.norm2, x))
-        return x, aux
+        return constrain(x, _STREAM), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(self.final_norm, x)
@@ -177,13 +250,15 @@ class Model(nn.Module):
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         kind = self.cfg.embed_kind
         if kind == "tokens":
-            return L.embed(self.embed, batch["tokens"]).to(self.dtype)
-        if kind == "patches":
-            tok = L.embed(self.embed, batch["tokens"]).to(self.dtype)
-            return torch.cat([batch["patch_embeds"].to(self.dtype), tok], dim=1)
-        if kind == "frames":
-            return batch["frames"].to(self.dtype)
-        raise ValueError(kind)
+            x = L.embed(self.embed, batch["tokens"]).to(self.dtype)
+        elif kind == "patches":
+            tok = constrain(L.embed(self.embed, batch["tokens"]).to(self.dtype), _STREAM)
+            x = torch.cat([batch["patch_embeds"].to(self.dtype), tok], dim=1)
+        elif kind == "frames":
+            x = batch["frames"].to(self.dtype)
+        else:
+            raise ValueError(kind)
+        return constrain(x, _STREAM)
 
     def forward(self, batch: dict, *, remat: bool = False,
                 remat_policy: str = "full") -> tuple[torch.Tensor, torch.Tensor]:
@@ -194,15 +269,15 @@ class Model(nn.Module):
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        context_fn = _remat_context(remat_policy, current_rules())
         for blk in self.blocks:
             if remat:
                 x, aux = ckpt.checkpoint(self._block_train, blk, x, positions,
-                                         use_reentrant=False,
-                                         context_fn=_REMAT_CONTEXT[remat_policy])
+                                         use_reentrant=False, context_fn=context_fn)
             else:
                 x, aux = self._block_train(blk, x, positions)
             aux_total = aux_total + aux
-        return self._logits(x), aux_total
+        return constrain(self._logits(x), ("batch", "seq", "vocab")), aux_total
 
     # ----------------------------------------------------------------- loss
     def loss(self, batch: dict, *, remat: bool = False,
@@ -217,9 +292,7 @@ class Model(nn.Module):
         targets = batch["targets"]
         if self.cfg.embed_kind == "patches":
             logits = logits[:, -targets.shape[1]:]  # loss on text positions only
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        nll = lse - tgt
+        nll = _nll(logits, targets)
         if self.cfg.embed_kind == "frames":
             mask = batch["mask"].float()
             ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -269,7 +342,7 @@ class Model(nn.Module):
     def decode_step(self, tokens: torch.Tensor, caches: list, pos: int):
         """One-token serve step. tokens: (B, 1), ``pos`` an int -> (logits
         (B, 1, V), new caches). KV caches are updated in place."""
-        x = L.embed(self.embed, tokens).to(self.dtype)
+        x = constrain(L.embed(self.embed, tokens).to(self.dtype), _STREAM)
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             x, cache = self._block_decode(blk, x, cache, pos)

@@ -90,9 +90,15 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 def global_norm(tree: Pytree, lead: int = 0) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32; with ``lead`` = 1
     one norm for each index of the leaves' leading (replica) axis, shape (G,)."""
-    sums = [torch.sum(torch.square(leaf.float()).reshape(leaf.shape[:lead] + (-1,)), dim=-1)
-            for leaf in tree_leaves(tree)]
+    sums = [_sum_from(torch.square(leaf.float()), lead) for leaf in tree_leaves(tree)]
     return torch.sqrt(sum(sums[1:], sums[0]))
+
+
+def _sum_from(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """The sum over every dim of ``x`` from ``lead`` on (no reshape, which a
+    DTensor sharded on an inner dim cannot take)."""
+    dims = tuple(range(lead, x.ndim))
+    return torch.sum(x, dim=dims) if dims else x
 
 
 def clip_by_global_norm(max_norm: float, lead: int = 0) -> GradientTransformation:

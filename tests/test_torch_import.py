@@ -21,6 +21,10 @@ TRAINING_MODULES = ["repro_torch.optim", "repro_torch.optim.schedules",
                     "repro_torch.optim.transforms", "repro_torch.data.tokens",
                     "repro_torch.models.moe", "repro_torch.launch.input_specs",
                     "repro_torch.launch.steps", "repro_torch.launch.train"]
+# the modules of the sharding slice
+SHARDING_MODULES = ["repro_torch.sharding", "repro_torch.sharding.api", "repro_torch.launch.mesh",
+                    "repro_torch.launch.shardings", "repro_torch.launch.hlo_parse",
+                    "repro_torch.launch.dryrun"]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -30,6 +34,7 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 assert set({TRAINING_MODULES!r}) <= set(names), sorted(set({TRAINING_MODULES!r}) - set(names))
+assert set({SHARDING_MODULES!r}) <= set(names), sorted(set({SHARDING_MODULES!r}) - set(names))
 for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
@@ -40,7 +45,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 86  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 92  # every module of the port was imported
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],

@@ -1,15 +1,17 @@
 """Gradients through the transformer kernels' wrappers (B10
 ``flash_attention``, B11 ``rglru_scan``, B12 ``wkv_scan``).
 
-On a CUDA tensor each wrapper is a ``torch.autograd.Function``: B11's
+Each wrapper is a registered operator with an autograd formula: B11's
 backward is the same scan run backwards in time
-(``rglru_scan_backward``), B10's and B12's recompute their plain versions
-under autograd. Here, on the CPU, the reverse scan runs with
+(``rglru_scan_backward``), B10's and B12's are backward operators, the
+plain versions' vector-Jacobian products written out
+(``flash_attention_backward_plain``, ``wkv_scan_backward_plain``), which
+the card runs too. Here, on the CPU, the reverse scan runs with
 ``rglru_scan_plain`` standing in for the kernel against autograd through
-the plain scan, and the plain versions' gradients (what the card's
-backward computes) are held against ``jax.grad`` of the reference's
-oracles. The card's Functions themselves are held in ``chip_smoke.py``
-phase 3."""
+the plain scan, and the wrappers' gradients are held against ``jax.grad``
+of the reference's oracles, bit for bit against the written-out products
+and to rounding against autograd through the plain versions. The card's
+operators themselves are held in ``chip_smoke.py`` phase 3."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,12 +23,14 @@ from repro.kernels.flash_attention import ref as ref_fa  # noqa: E402
 from repro.kernels.rglru_scan import ref as ref_rg  # noqa: E402
 from repro.kernels.rwkv6_scan import ref as ref_wkv  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_backward_plain, flash_attention_plain)
 from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_backward, rglru_scan_plain)
-from repro_torch.kernels.rwkv6_scan.rwkv6_scan import wkv_scan, wkv_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (  # noqa: E402
+    wkv_scan, wkv_scan_backward_plain, wkv_scan_plain)
 
 GRAD_ATOL = 1e-5
+PLAIN_ATOL = 1e-6  # the written-out backward against autograd through the plain version
 
 
 def _rand(rng, *shape, lo=None, hi=None, scale=1.0):
@@ -84,11 +88,16 @@ def test_flash_attention_gradients_match_reference(causal, window, hkv):
     got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(d_out))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=GRAD_ATOL)
-    # the plain version is what the card's backward differentiates
+    # the backward is the backward operator's written-out product, which the
+    # card runs too, bit for bit; autograd through the plain version agrees
+    # to rounding
+    card = flash_attention_backward_plain(qt.detach(), kt.detach(), vt.detach(),
+                                          torch.from_numpy(d_out), causal=causal, window=window)
     again = torch.autograd.grad(flash_attention_plain(qt, kt, vt, causal=causal, window=window),
                                 (qt, kt, vt), torch.from_numpy(d_out))
-    for g, w in zip(got, again):
-        assert torch.equal(g, w)
+    for g, c, w in zip(got, card, again):
+        assert torch.equal(g, c)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=PLAIN_ATOL)
 
 
 @pytest.mark.parametrize("B,S,H,n", [(2, 11, 3, 4), (1, 1, 2, 8)])
@@ -104,7 +113,9 @@ def test_wkv_scan_gradients_match_reference(B, S, H, n):
     got = torch.autograd.grad(wkv_scan(*ts), ts, torch.from_numpy(d_out), materialize_grads=True)
     for g, wnt in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=0, atol=GRAD_ATOL)
+    card = wkv_scan_backward_plain(*(t.detach() for t in ts), torch.from_numpy(d_out))
     again = torch.autograd.grad(wkv_scan_plain(*ts), ts, torch.from_numpy(d_out),
                                 materialize_grads=True)
-    for g, w_ in zip(got, again):
-        assert torch.equal(g, w_)
+    for g, c, w_ in zip(got, card, again):
+        assert torch.equal(g, c)
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=0, atol=PLAIN_ATOL)

@@ -102,8 +102,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_reject_other_devices():
     before = wkv_scan.launches
     wkv_scan(r, k, v, w, u)
     assert wkv_scan.launches == before
-    with pytest.raises(ValueError, match="unsupported device"):
-        wkv_scan(*(x.to("meta") for x in (r, k, v, w, u)))
+    out = wkv_scan(*(x.to("meta") for x in (r, k, v, w, u)))  # the fake: shapes only
+    assert out.device.type == "meta" and out.shape == r.shape
+    assert wkv_scan.launches == before
+    with pytest.raises(ValueError, match="different devices"):
+        wkv_scan(r, k, v, w, u.to("meta"))
 
 
 @pytest.mark.parametrize("D,width", [(1, 1), (130, 1), (4096, 4), (4100, 4)])
