@@ -22,7 +22,11 @@ Phases, each of which exits non-zero on failure:
    Llama-3-8B's (2048 tokens, 32 heads of 128, 8 kv heads), at S = 1000, with
    a window wider than S, non-causal, and in bf16 (2e-2, the reference
    test's tolerance, and each element within one bf16 ulp of the plain
-   output), at head sizes 80 and 33 in f32 and bf16, its library call the
+   output), at head sizes 80 and 33 in f32 and bf16, at phase 26's
+   examples' calls (train_100m's 8 x 256 tokens, 8 heads of 64, 4 kv
+   heads, and a replica's half at G = 2; gossip_vs_allreduce's 16 x 64
+   tokens, 4 heads of 32, 1 kv head, and a replica's quarter at G = 4,
+   all causal, no window), its library call the
    fastest SDPA backend that takes the masked f32 call, its bound at the
    peak of its route (f32 split into three TF32 products: a third of 495
    TFLOP/s), and its bf16 time; ``dense_scores`` also at four classes and
@@ -56,7 +60,8 @@ Phases, each of which exits non-zero on failure:
    and 4097, and ragged shapes; then gradients through B10-B12: each
    operator's autograd formula (B11's backward the kernel on the
    time-flipped inputs, B10's and B12's the plain version's vector-Jacobian
-   product written out) against autograd through the plain version, relative
+   product written out; B10 also at the examples' four calls) against
+   autograd through the plain version, relative
    1e-5 (B10 in bf16: 2e-2); then ``torch.library.opcheck`` of B10-B12's
    operators and their backward operators on CUDA tensors (the fake
    implementations against the kernels' outputs, the autograd
@@ -230,16 +235,43 @@ Phases, each of which exits non-zero on failure:
     launches and plain backward passes equal), and the card's peak
     (``max_memory_allocated`` less what is resident beside the state and
     the batch) within 15% (or 256 MiB) of ``launch.dryrun.run_one``'s
-    ``per_device_bytes`` at the same config, batch and mesh;
+    ``per_device_bytes`` at the same config, batch and mesh; then 16 tokens
+    of llama3-8b's decode with the weights and the caches
+    (``cache_spec_tree``) as DTensors, every step's logits within 1e-6
+    relative of the plain decode's (the caches' masked write with real
+    values);
 25. the production dry-run at full width and depth on fake worlds of 256
     and 512 ranks (fake CUDA tensors), one ``python -m
     repro_torch.launch.dryrun`` process a combo, started with phase 24:
     rwkv6-3b x long_500k, llama3-8b x decode_32k, rwkv6-3b x train_4k on 2
     x 16 x 16 with gossip (collective-permutes on the pod axis required),
-    llama3-8b, qwen2-moe-a2.7b and llama3-405b (fsdp) x train_4k; every
-    combo ``ok``, each record's per-device GiB, FLOPs, collective bytes and
-    bottleneck printed;
-26. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
+    llama3-8b, qwen2-moe-a2.7b and llama3-405b (fsdp) x train_4k, and
+    llama3-405b again with ``--seq-shard``; every combo ``ok``, each
+    record's per-device GiB, FLOPs, collective bytes and bottleneck printed,
+    and llama3-405b's bytes with sequence sharding beside those without and
+    whether they fit one card;
+26. the five examples (``examples/torch_*.py``) through their own functions,
+    the launch counters reset before each and read after it, and each one's
+    seconds: quickstart (Pegasos and GADGET within 0.005 of the reference
+    example's accuracies, their weights within 1e-4 of the same functions'
+    CPU run, one ``fleet_half_step`` launch an iteration, and the script
+    once as a process of its own), fault_tolerant_gossip (the
+    three networks on CUDA values, each mean alive-node accuracy within
+    0.01 of the reference example's, under link drops every round's
+    Push-Sum mass within 1e-6 of conserved), serve_batched (the sparse
+    pair ``auto`` picks once an iteration, every query delivered, one
+    ``ell_scores_prefetch`` launch a batch and one ``dense_scores`` a dense
+    call, shapes within the buckets, int8 agreement >= 0.9, the trained W
+    within 1e-4 of the CPU run's, and the card's snapshot served again on
+    the CPU: batched and dense scores within 1e-5 relative, labels equal),
+    gossip_vs_allreduce (three runs, each loss falling, the disagreement
+    finite, ``flash_attention`` launched), and train_100m at its defaults
+    (300 steps of 8 x 256 tokens, all-reduce and gossip at G = 2: the loss
+    of the last ten steps below the first ten's by more than 0.2, every
+    step's ``flash_attention`` launches and plain backward passes as remat
+    makes them, seconds a step, tokens/s, the peak, the checkpoint restored
+    bit for bit);
+27. a ``kernels`` JSON line (with ``serving``, ``transformer`` and the later
     phases' objects; each kernel's ``paths`` lists the later phases that
     run it, with their launches) and the final ``{"ok": true, ...}`` line.
 
@@ -423,8 +455,28 @@ MEMORY_RTOL, MEMORY_ATOL = 0.15, 256 * 2 ** 20   # the card's peak against the d
 DRYRUN_COMBOS = (("rwkv6-3b", "long_500k", ()), ("llama3-8b", "decode_32k", ()),
                  ("rwkv6-3b", "train_4k", ("--multi-pod", "--consensus", "gossip")),
                  ("llama3-8b", "train_4k", ()), ("qwen2-moe-a2.7b", "train_4k", ()),
-                 ("llama3-405b", "train_4k", ("--param-mode", "fsdp")))
+                 ("llama3-405b", "train_4k", ("--param-mode", "fsdp")),
+                 ("llama3-405b", "train_4k", ("--param-mode", "fsdp", "--seq-shard")))
+CARD_BYTES = 80e9                  # one H100's device memory
 DRYRUN_TIMEOUT_S = 600
+SHARDED_DECODE = (2, 16)           # phase 24's decode: rows, tokens through a DTensor cache
+EXAMPLES = ROOT / "examples"
+# the attention calls of phase 26's examples, (B, S, H, Hkv, dh, causal,
+# window, dtype) as the models give them; phase 3 holds their forward and
+# their gradients against the plain version
+EXAMPLE_ATTN = {"train_100m": (8, 256, 8, 4, 64, True, 0, "float32"),
+                "train_100m_g2": (4, 256, 8, 4, 64, True, 0, "float32"),
+                "gossip_example": (16, 64, 4, 1, 32, True, 0, "float32"),
+                "gossip_example_g4": (4, 64, 4, 1, 32, True, 0, "float32")}
+EXAMPLE_TIMEOUT_S = 300
+# the reference's examples on the CPU (examples/quickstart.py and
+# examples/fault_tolerant_gossip.py, JAX 0.9.0, seed 0): quickstart's test
+# accuracies unrounded, fault_tolerant_gossip's printed mean alive-node ones
+QUICKSTART_REF = {"pegasos": 0.6764408349990845, "gadget": 0.6632962822914124}
+FAULTS_REF = {"clean": 0.659, "20% link drops": 0.663, "2 dead nodes": 0.648}
+EXAMPLE_ACC_ATOL, FAULT_ACC_ATOL = 0.005, 0.01
+TRAIN_100M = (300, 8, 256)         # examples/train_100m.py's defaults: steps, batch, sequence
+TRAIN_100M_MIN_DROP = 0.2          # its "IMPROVED": the last ten losses' mean below the first ten's
 # phase 24's prediction of the card's peak: run_one at the same config, batch and (1, 1) mesh
 PREDICT_CODE = """
 import dataclasses, json, sys
@@ -1275,9 +1327,14 @@ def phase_transformer_kernels(torch, FA, FO, RG, RO, WK, WO, gen, dev) -> dict:
         "dh80_bf16": (2, 300, 4, 2, 80, True, 0, torch.bfloat16),
         "dh33": (1, 300, 4, 1, 33, True, 64, torch.float32),
         "dh33_bf16": (1, 300, 4, 1, 33, False, 0, torch.bfloat16),
+        # phase 26's examples as they call it: train_100m (all-reduce, and a
+        # replica's half of the batch under gossip at G = 2) and
+        # gossip_vs_allreduce (all-reduce, and a replica's quarter at G = 4)
+        **EXAMPLE_ATTN,
     }
     errs, main = {}, None
     for which, (b, s, h, hkv, dh, causal, window, dt) in attn_cases.items():
+        dt = getattr(torch, dt) if isinstance(dt, str) else dt
         q = randn(b, s, h, dh).to(dt)
         k, v = randn(b, s, hkv, dh).to(dt), randn(b, s, hkv, dh).to(dt)
         got = FA.flash_attention(q, k, v, causal=causal, window=window)
@@ -2860,7 +2917,9 @@ def phase_kernel_grads(torch, FA, RG, WK, gen, dev) -> dict:
             "attn": (2, 200, 4, 2, 64, True, 0, torch.float32),
             "attn_window": (1, 300, 4, 1, 80, True, 64, torch.float32),
             "attn_encoder": (2, 150, 4, 4, 80, False, 0, torch.float32),
-            "attn_bf16": (2, 200, 4, 2, 64, True, 0, torch.bfloat16)}.items():
+            "attn_bf16": (2, 200, 4, 2, 64, True, 0, torch.bfloat16),
+            **{f"attn_{k}": c for k, c in EXAMPLE_ATTN.items()}}.items():
+        dt = getattr(torch, dt) if isinstance(dt, str) else dt
         q, k, v = randn(b, s, h, dh).to(dt), randn(b, s, hkv, dh).to(dt), randn(b, s, hkv, dh).to(dt)
         check(f"flash_attention {which}",
               lambda q, k, v: FA.flash_attention(q, k, v, causal=causal, window=window),
@@ -3372,8 +3431,8 @@ def start_dryruns(work: Path) -> list:
     hold no card memory but a CUDA context (fake CUDA tensors)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     jobs = []
-    for arch, shape, flags in DRYRUN_COMBOS:
-        out = work / f"dryrun-{arch}-{shape}.jsonl"
+    for i, (arch, shape, flags) in enumerate(DRYRUN_COMBOS):
+        out = work / f"dryrun-{i}-{arch}-{shape}.jsonl"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
                *flags, "--out", str(out)]
         jobs.append((("combo", arch, shape, " ".join(flags)), out, cmd))
@@ -3428,6 +3487,42 @@ def _free_port() -> int:
 
 def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def sharded_decode(torch, model, steps, shard, api, mesh, rules, dev) -> dict:
+    """``SHARDED_DECODE`` tokens through ``model``'s serve step with its
+    weights (zero1) and its caches (``cache_spec_tree``) as DTensors, against
+    the same steps on plain tensors: every step's logits. The DTensor cache
+    takes the masked write of ``models/attention.py`` (each shard writing its
+    own slots) with real values."""
+    from torch.distributed.tensor import DTensor
+    rows, n = SHARDED_DECODE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, model.cfg.vocab_size, (rows, n), generator=gen, device=dev)
+    serve = steps.make_serve_step(model)
+    cache, plain = model.init_cache(rows, n, torch.float32), []
+    for t in range(n):
+        logits, cache = serve(tokens[:, t:t + 1], cache, t)
+        plain.append(logits)
+    plain = torch.cat(plain, dim=1)
+    del cache
+    t0 = time.perf_counter()
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    caches = model.init_cache(rows, n, torch.float32)
+    got = []
+    with api.activate(rules):
+        dparams = shard.distribute(mesh, params, shard.param_specs(mesh, params, mode="zero1"))
+        dcaches = shard.distribute(mesh, caches, shard.cache_spec_tree(mesh, caches))
+        with steps.swapped_params(model, dparams):
+            for t in range(n):
+                tok = shard.distribute(mesh, tokens[:, t:t + 1], api.PartitionSpec("data", None))
+                logits, dcaches = serve(tok, dcaches, t)
+                got.append(_full(logits))
+    got = torch.cat(got, dim=1)
+    kv = [c for c in dcaches if hasattr(c, "k")]
+    require(kv and all(isinstance(c.k, DTensor) for c in kv), "the decode caches are not DTensors")
+    return {"rows": rows, "tokens": n, "logit_rel_err": rel_err(got, plain)[1],
+            "finite": bool(torch.isfinite(got).all()), "s": time.perf_counter() - t0}
 
 
 def phase_sharded(torch, get_config, Model, make_host_batch, steps, optim, mesh_mod, shard, api,
@@ -3499,6 +3594,14 @@ def phase_sharded(torch, get_config, Model, make_host_batch, steps, optim, mesh_
                     logits = _full(steps.make_prefill_step(model)(dbatches[0])).cpu()
                 params = {k: _full(v).cpu() for k, v in new["params"].items()}
             del dstate, dbatches, first, new
+            decode = (sharded_decode(torch, model, steps, shard, api, mesh, rules, dev)
+                      if arch == "llama3-8b" else None)
+            if decode is not None:
+                log(f"  {arch} decode, {decode['rows']} rows x {decode['tokens']} tokens through "
+                    f"DTensor caches against plain tensors: logits rel err "
+                    f"{decode['logit_rel_err']:.3e} (<= {SHARDED_RTOL}), {decode['s']:.1f} s")
+                require(decode["finite"] and decode["logit_rel_err"] <= SHARDED_RTOL,
+                        f"{arch}: sharded decode off the plain one by {decode['logit_rel_err']:.3e}")
             loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, plain_losses))
             param_err = max(rel_err(params[k], v)[1] for k, v in plain_params.items())
             logit_err = rel_err(logits, plain_logits)[1]
@@ -3527,7 +3630,7 @@ def phase_sharded(torch, get_config, Model, make_host_batch, steps, optim, mesh_
                          "launches_per_step": launches[0],
                          "plain_backwards_per_step": plains[0], "card_peak_bytes": card_bytes,
                          "dryrun_bytes": predicted, "memory_ratio": ratio,
-                         "s": time.perf_counter() - t0}
+                         "decode": decode, "s": time.perf_counter() - t0}
             del model, params, plain_params
             free_cuda(torch)
     finally:
@@ -3555,11 +3658,23 @@ def phase_dryrun(records: dict) -> dict:
         if rec["consensus"] == "gossip":
             require(rec["mesh"].startswith("2x16x16") and perms >= 1,
                     f"dry-run {label}: no collective-permute on the pod axis")
+        if "--seq-shard" in flags:
+            base = next((r for k, r in records.items() if k[0] == "combo" and k[1:3] == (arch, shape)
+                         and k[3] == flags.replace(" --seq-shard", "")), None)
+            fits = rec["per_device_bytes"] <= CARD_BYTES
+            log(f"  {arch} x {shape}: {rec['per_device_bytes'] / 2**30:.2f} GiB a device with "
+                f"--seq-shard against "
+                + (f"{base['per_device_bytes'] / 2**30:.2f} GiB" if base else "(not run)")
+                + f" without; {'fits' if fits else 'does not fit'} one card's "
+                f"{CARD_BYTES / 2**30:.2f} GiB")
+            rec = dict(rec, fits_one_card=fits)
         out[label] = {k: rec[k] for k in ("per_device_bytes", "arg_bytes", "temp_bytes",
                                           "hlo_flops", "hlo_bytes", "collective_bytes",
                                           "collectives", "bottleneck", "compute_s", "memory_s",
                                           "collective_s", "useful_flop_ratio", "n_params",
                                           "model_flops_global", "compile_secs")}
+        if "fits_one_card" in rec:
+            out[label]["fits_one_card"] = rec["fits_one_card"]
     return out
 
 
@@ -3602,6 +3717,302 @@ def phases_sharded_and_dryrun(torch, get_config, Model, make_host_batch, steps, 
     log(f"  {s25:.1f} s after phase 24 (its jobs started with phase 24; both "
         f"{s24 + s25:.1f} s)")
     return sharded, dryrun_out, s24, s25
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module of its own (the examples are
+    scripts, not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_quickstart(torch, K, P, S, X, dev) -> dict:
+    """quickstart: Pegasos and GADGET at the example's sizes through its
+    functions, the accuracies against the reference example's; GADGET's
+    fused half-step is one ``fleet_half_step`` launch an iteration and
+    Pegasos launches no kernel (the reference's reaches none); then the
+    script alone in a process of its own."""
+    q = load_example("torch_quickstart")
+    ds = q.make_dataset("reuters", scale=q.SCALE, seed=0)
+    Xte, yte = torch.from_numpy(ds.X_test).to(dev), torch.from_numpy(ds.y_test).to(dev)
+    reset_counts(K, P, S, X)
+    t0 = time.perf_counter()
+    cen = q.centralized(ds, device=dev)
+    torch.cuda.synchronize()
+    peg_launches = launched(counts(K, P, S, X))
+    res = q.gadget(ds, device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = launched(counts(K, P, S, X))
+    acc = {"pegasos": float(q.obj.accuracy(cen.w, Xte, yte)),
+           "gadget": float(q.obj.accuracy(res.w_consensus, Xte, yte))}
+    log(f"  quickstart: Pegasos accuracy {acc['pegasos']:.4f} (reference "
+        f"{QUICKSTART_REF['pegasos']:.4f}), GADGET {acc['gadget']:.4f} (reference "
+        f"{QUICKSTART_REF['gadget']:.4f}) after {res.iters} iterations, launches {got} "
+        f"(Pegasos {peg_launches}), {sec:.1f} s")
+    # the same functions on the CPU (the plain versions): w and W at PATH_W_ATOL
+    t1 = time.perf_counter()
+    cen_cpu, res_cpu = q.centralized(ds, device="cpu"), q.gadget(ds, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    w_err = {"pegasos": float((cen.w.cpu() - cen_cpu.w).abs().max()),
+             "gadget": float((res.W.cpu() - res_cpu.W).abs().max())}
+    log(f"  quickstart against its CPU run ({cpu_s:.1f} s): Pegasos w {w_err['pegasos']:.3e}, "
+        f"GADGET W {w_err['gadget']:.3e} after {res_cpu.iters} iterations (<= {PATH_W_ATOL})")
+    for name, a in acc.items():
+        require(abs(a - QUICKSTART_REF[name]) <= EXAMPLE_ACC_ATOL,
+                f"quickstart {name} accuracy {a:.4f}, the reference's {QUICKSTART_REF[name]:.4f}")
+        require(w_err[name] <= PATH_W_ATOL,
+                f"quickstart's {name} weights differ from its CPU run by {w_err[name]:.3e}")
+    require(res.iters == res_cpu.iters, f"quickstart's GADGET stopped at {res.iters} iterations, "
+            f"its CPU run at {res_cpu.iters}")
+    require(not peg_launches, f"quickstart's Pegasos launched {peg_launches}")
+    require(got == {"fleet_half_step": res.iters},
+            f"quickstart's GADGET launched {got} in {res.iters} iterations")
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, str(EXAMPLES / "torch_quickstart.py")],
+                       capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    script_s = time.perf_counter() - t1
+    log(f"  python examples/torch_quickstart.py: exit {p.returncode} in {script_s:.1f} s\n"
+        + "\n".join(f"    {line}" for line in p.stdout.splitlines()))
+    require(p.returncode == 0, f"examples/torch_quickstart.py exited {p.returncode}:\n"
+            + p.stderr[-3000:])
+    require("centralized Pegasos   acc=" in p.stdout and "GADGET (10 nodes)     acc=" in p.stdout,
+            "examples/torch_quickstart.py printed no accuracy lines")
+    return {"accuracy": acc, "iters": res.iters, "launches": got, "s": sec,
+            "cpu_w_err": w_err, "script_s": script_s}
+
+
+def example_faults(torch, K, P, S, X, dev) -> dict:
+    """fault_tolerant_gossip: ``gadget_with_faults`` in its three networks
+    on CUDA values, each round's Push-Sum weight recorded on the device;
+    the mean alive-node accuracy within ``FAULT_ACC_ATOL`` of the reference
+    example's, and under link drops every round's mass conserved."""
+    f = load_example("torch_fault_tolerant_gossip")
+    ds = f.make_dataset("usps", scale=f.SCALE, seed=0)
+    Xte, yte = torch.from_numpy(ds.X_test).to(dev), torch.from_numpy(ds.y_test).to(dev)
+    Xp, yp, _ = f.partition(ds.X_train, ds.y_train, f.N_NODES)
+    Xp, yp = torch.from_numpy(Xp).to(dev), torch.from_numpy(yp).to(dev)
+    out = {}
+    for name, sim in f.cases():
+        weights = []
+
+        def recorded(st, t, round_=sim.round):
+            st = round_(st, t)
+            weights.append(st.weight)
+            return st
+
+        sim.round = recorded
+        reset_counts(K, P, S, X)
+        t0 = time.perf_counter()
+        W = f.gadget_with_faults(Xp, yp, ds.lam, sim)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        accs = [float(f.obj.accuracy(W[i], Xte, yte)) for i in range(f.N_NODES)]
+        alive = [a for i, a in enumerate(accs) if i not in sim.dead]
+        mean = float(np.mean(alive))
+        w = torch.stack(weights)
+        mass_err = float((w.mean(dim=1) - 1.0).abs().max())
+        log(f"  fault_tolerant_gossip, {name}: node-acc mean {mean:.4f} (reference "
+            f"{FAULTS_REF[name]:.3f}; min {min(alive):.4f}, max {max(alive):.4f}), "
+            f"{len(weights)} rounds on {w.device}, mass off 1 by at most {mass_err:.3e}, "
+            f"launches {launched(counts(K, P, S, X))}, {sec:.1f} s")
+        require(W.device.type == "cuda" and w.device.type == "cuda",
+                f"{name}: the values or the Push-Sum weight left the card")
+        require(bool(torch.isfinite(W).all()), f"{name}: W not finite")
+        require(abs(mean - FAULTS_REF[name]) <= FAULT_ACC_ATOL,
+                f"{name}: node-acc mean {mean:.4f}, the reference's {FAULTS_REF[name]:.3f}")
+        if sim.drop == "link" and sim.drop_prob > 0:
+            require(mass_err <= LINK_MASS_ATOL, f"{name}: Push-Sum mass off by {mass_err:.3e}")
+        out[name] = {"node_acc_mean": mean, "node_acc_min": min(alive),
+                     "node_acc_max": max(alive), "rounds": len(weights),
+                     "mass_max_err": mass_err, "s": sec}
+    return out
+
+
+def example_serve(torch, K, P, S, X, dev) -> dict:
+    """serve_batched: training through the sparse pair ``schedule="auto"``
+    picks (one launch each an iteration), the f32 and int8 exports served,
+    every ragged query delivered, one ``ell_scores_prefetch`` launch a
+    drained batch and one ``dense_scores`` a dense ``score``, the served
+    shapes within the buckets, int8 agreement >= 0.9."""
+    sb = load_example("torch_serve_batched")
+    reset_counts(K, P, S, X)
+    t0 = time.perf_counter()
+    ds, Pe, res = sb.train(dev)
+    torch.cuda.synchronize()
+    train_launches = launched(counts(K, P, S, X))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_batched_") as td:
+        reset_counts(K, P, S, X)
+        out = sb.export_and_serve(ds, Pe, res, td, dev)
+        serve_launches = launched(counts(K, P, S, X))
+        sec = time.perf_counter() - t0
+        # the same snapshot served through the plain versions on the CPU: the
+        # same queries in the same buckets, so the same inputs to B8 and B9
+        out_cpu = sb.export_and_serve(ds, Pe, res, td + "/cpu", "cpu")
+    # and the training on the CPU: W at PATH_W_ATOL
+    _, _, res_cpu = sb.train("cpu")
+    w_err = float((res.W.cpu() - res_cpu.W).abs().max())
+    ids = sorted(out_cpu["results"])
+    got_s = np.array([float(out["results"][r][0]) for r in ids])
+    want_s = np.array([float(out_cpu["results"][r][0]) for r in ids])
+    served_err = float(np.abs(got_s - want_s).max() / max(1.0, np.abs(want_s).max()))
+    dense_err = float(np.abs(out["dense_scores"] - out_cpu["dense_scores"]).max()
+                      / max(1.0, np.abs(out_cpu["dense_scores"]).max()))
+    # a label may differ from the CPU's only where the score is within the tolerance of 0
+    sure = np.abs(want_s) > KERNEL_RTOL * max(1.0, np.abs(want_s).max())
+    labels_ok = (sorted(out["results"]) == ids and all(
+        out["results"][r][1] == out_cpu["results"][r][1] for r, s_ in zip(ids, sure) if s_)
+        and np.array_equal(out["labels_f32"], out_cpu["labels_f32"]))
+    log(f"  serve_batched against the CPU: trained W {w_err:.3e} (<= {PATH_W_ATOL}) after "
+        f"{res_cpu.iters} iterations; the card's snapshot served on the CPU: batched scores "
+        f"rel {served_err:.3e}, dense scores rel {dense_err:.3e} (<= {KERNEL_RTOL}), labels "
+        f"{'equal' if labels_ok else 'DIFFER'}")
+    require(res.iters == res_cpu.iters and w_err <= PATH_W_ATOL,
+            f"serve_batched's W differs from its CPU run by {w_err:.3e}")
+    require(served_err <= KERNEL_RTOL and dense_err <= KERNEL_RTOL and labels_ok,
+            f"serve_batched's scores differ from the plain versions': batched {served_err:.3e}, "
+            f"dense {dense_err:.3e}, labels {'equal' if labels_ok else 'differ'}")
+    delivered = sum(isinstance(r, tuple) for r in out["results"].values())
+    log(f"  serve_batched: {res.iters} iterations, training launches {train_launches}; "
+        f"{delivered} of {sb.N_QUERIES} queries delivered in {out['batcher']['batches']} "
+        f"batches, {out['server']['distinct_shapes']} shapes for {len(out['buckets'])} "
+        f"buckets, serving launches {serve_launches}, int8 agreement {out['agree']:.4f}, "
+        f"{sec:.1f} s")
+    pairs = (("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"),
+             ("ell_margins_coeff", "ell_grad_update"))
+    require(any(train_launches == {a: res.iters, b: res.iters} for a, b in pairs),
+            f"serve_batched's training launched {train_launches} in {res.iters} iterations")
+    require(delivered == sb.N_QUERIES == out["batcher"]["requests"],
+            f"serve_batched delivered {delivered} of {sb.N_QUERIES} queries")
+    require(serve_launches == {"ell_scores_prefetch": out["batcher"]["batches"],
+                               "dense_scores": 2},
+            f"serve_batched's serving launched {serve_launches} for "
+            f"{out['batcher']['batches']} batches and two dense calls")
+    require(out["server"]["distinct_shapes"] <= len(out["buckets"]),
+            f"{out['server']['distinct_shapes']} shapes for {len(out['buckets'])} buckets")
+    require(out["agree"] >= INT8_MIN_AGREEMENT, f"int8 agreement {out['agree']:.4f}")
+    return {"iters": res.iters, "train_launches": train_launches,
+            "serve_launches": serve_launches, "batches": out["batcher"]["batches"],
+            "distinct_shapes": out["server"]["distinct_shapes"], "buckets": len(out["buckets"]),
+            "int8_agreement": out["agree"], "cpu_w_err": w_err,
+            "served_scores_rel_err": served_err, "dense_scores_rel_err": dense_err, "s": sec}
+
+
+def example_gossip(torch, FA, WK, K, P, S, X, dev) -> dict:
+    """gossip_vs_allreduce: the example's three runs; each ends with its
+    last five losses' mean below its first loss, the replicas'
+    disagreement finite, B10 launched on every step."""
+    g = load_example("torch_gossip_vs_allreduce")
+    out = {}
+    for mode, rounds in (("allreduce", 1), ("gossip", 1), ("gossip", 2)):
+        reset_counts(K, P, S, X)
+        reset_plain_backwards(FA, WK)
+        t0 = time.perf_counter()
+        losses, spread = g.run(mode, rounds, device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got, plain = launched(counts(K, P, S, X)), plain_backward_counts(FA, WK)
+        label = f"{mode} R={rounds}" if mode == "gossip" else mode
+        log(f"  gossip_vs_allreduce, {label}: loss {losses[0]:.3f} -> "
+            f"{np.mean(losses[-5:]):.3f}, replica disagreement {spread:.3%}, launches {got}, "
+            f"plain backwards {plain}, {sec:.1f} s")
+        require(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite")
+        require(np.mean(losses[-5:]) < losses[0], f"{label}: the loss did not fall")
+        require(math.isfinite(spread), f"{label}: disagreement {spread}")
+        require(got.get("flash_attention", 0) > 0, f"{label}: flash_attention never launched")
+        out[label] = {"first_loss": losses[0], "last5_loss": float(np.mean(losses[-5:])),
+                      "spread": spread, "launches": got, "plain_backwards": plain, "s": sec}
+    return out
+
+
+def example_train_100m(torch, FA, WK, K, P, S, X, dev, tmp: Path) -> dict:
+    """train_100m at the example's defaults in both modes: the loss drop
+    above ``TRAIN_100M_MIN_DROP`` (the example's "IMPROVED"), every step's
+    B10 launches and plain backward passes as remat makes them, seconds a
+    step, tokens/s, the peak; the checkpoint saved as the example saves it
+    and restored bit for bit."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.convert import train_state_to_reference
+    from repro_torch.models.transformer import Model
+    t = load_example("torch_train_100m")
+    cfg = t.build_100m()
+    steps_n, batch, seq = TRAIN_100M
+    out = {}
+    for mode in ("allreduce", "gossip"):
+        tcfg = t.trainer_config(steps_n, mode, 2)
+        model = Model(cfg, device=dev)
+        state = t.init_state(model, tcfg)
+        G = tcfg.n_replicas
+        n_params = sum(v.numel() for v in state["params"].values()) // G
+        want, want_plain = expected_step_launches(cfg, G, remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K, P, S, X)
+        reset_plain_backwards(FA, WK)
+        t0 = time.perf_counter()
+        state, losses = t.train(model, tcfg, state, steps=steps_n, batch=batch, seq=seq)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got, plain = launched(counts(K, P, S, X)), plain_backward_counts(FA, WK)
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        root = str(tmp / f"train_100m_{mode}")
+        t.save_checkpoint(root, steps_n, cfg, tcfg, state)
+        like = train_state_to_reference(cfg, tcfg, state)
+        back = ckpt_io.restore(root, like)
+        saved, _ = ckpt_io.tree_flatten(like)
+        restored, _ = ckpt_io.tree_flatten(back)
+        exact = len(saved) == len(restored) and all(
+            a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(saved, restored))
+        log(f"  train_100m, {mode}{f' G={G}' if G > 1 else ''}: {n_params / 1e6:.1f}M "
+            f"parameters, loss {first:.4f} -> {last:.4f} (first and last ten), "
+            f"{sec / steps_n:.4f} s a step, {batch * seq * steps_n / sec:,.0f} tokens/s, "
+            f"max_memory_allocated {peak / 1e9:.2f} GB, flash_attention {got} "
+            f"({ {k: v / steps_n for k, v in got.items()} } a step), plain backwards "
+            f"{ {k: v / steps_n for k, v in plain.items()} } a step, checkpoint of "
+            f"{len(saved)} leaves restored {'bit for bit' if exact else 'WITH DIFFERENCES'}")
+        require(all(math.isfinite(x) for x in losses), f"train_100m {mode}: a loss not finite")
+        require(last < first - TRAIN_100M_MIN_DROP,
+                f"train_100m {mode}: loss {first:.4f} -> {last:.4f}, not below by "
+                f"{TRAIN_100M_MIN_DROP}")
+        require(got == {k: v * steps_n for k, v in want.items()}
+                and plain == {k: v * steps_n for k, v in want_plain.items()},
+                f"train_100m {mode}: launches {got}, plain backwards {plain} in {steps_n} "
+                f"steps, want {want} and {want_plain} a step")
+        require(exact, f"train_100m {mode}: the checkpoint did not restore bit for bit")
+        out[mode] = {"replicas": G, "parameters": n_params, "steps": steps_n,
+                     "batch": [batch, seq], "first10_loss": first, "last10_loss": last,
+                     "s_per_step": sec / steps_n, "tokens_per_s": batch * seq * steps_n / sec,
+                     "max_memory_bytes": peak, "launches_per_step": want,
+                     "plain_backwards_per_step": want_plain, "checkpoint_leaves": len(saved)}
+        del model, state, like, back, saved, restored
+        free_cuda(torch)
+    return out
+
+
+def phase_examples(torch, FA, WK, K, P, S, X, dev) -> dict:
+    """Phase 26: the five examples (``examples/torch_*.py``) through their
+    own functions on the card, the launch counters reset before each run
+    and read after it; each example's seconds."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name, run in (
+                ("quickstart", lambda: example_quickstart(torch, K, P, S, X, dev)),
+                ("fault_tolerant_gossip", lambda: example_faults(torch, K, P, S, X, dev)),
+                ("serve_batched", lambda: example_serve(torch, K, P, S, X, dev)),
+                ("gossip_vs_allreduce", lambda: example_gossip(torch, FA, WK, K, P, S, X, dev)),
+                ("train_100m", lambda: example_train_100m(torch, FA, WK, K, P, S, X, dev,
+                                                          Path(tmp)))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            out[name + "_s"] = time.perf_counter() - t0
+            log(f"  {name}: {out[name + '_s']:.1f} s")
+            free_cuda(torch)
+    return out
 
 
 def profile_iterations(torch, run) -> dict:
@@ -4140,9 +4551,15 @@ def main() -> int:
         torch, get_config, Model, make_host_batch, steps_lm, optim, mesh_lm, shard_lm,
         sharding_api, SHAPES, FA, WK, K, P, S, X, dev)
     phase_s["24"], phase_s["25"] = s24, s25
+    free_cuda(torch)
+    log("phase 26: the five examples on the card")
+    t26 = time.perf_counter()
+    examples = phase_examples(torch, FA, WK, K, P, S, X, dev)
+    phase_s["26"] = time.perf_counter() - t26
+    log(f"  {phase_s['26']:.1f} s")
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
-    log("phase 26: summary")
+    log("phase 27: summary")
     launches = {"fleet_half_step": main_counts["fleet_half_step"],
                 "dense_scores": main_counts["dense_scores"],
                 "margins": unfused_counts["margins"],
@@ -4247,6 +4664,26 @@ def main() -> int:
             more_paths[name].append({"path": f"{arch} sharded train step on a (1, 1) mesh, "
                                      f"{row['layers']} layers (phase 24)", "launches": n,
                                      "plain_backwards": row["plain_backwards_per_step"].get(name)})
+    ex = examples
+    more_paths["fleet_half_step"].append(
+        {"path": "examples/torch_quickstart.py, GADGET (phase 26)",
+         "launches": ex["quickstart"]["launches"]["fleet_half_step"]})
+    for name, n in ex["serve_batched"]["train_launches"].items():
+        more_paths[name].append({"path": "examples/torch_serve_batched.py, training (phase 26)",
+                                 "launches": n})
+    for name, n in ex["serve_batched"]["serve_launches"].items():
+        more_paths[name].append({"path": "examples/torch_serve_batched.py, serving (phase 26)",
+                                 "launches": n})
+    for label, row in ex["gossip_vs_allreduce"].items():
+        more_paths["flash_attention"].append(
+            {"path": f"examples/torch_gossip_vs_allreduce.py, {label} (phase 26)",
+             "launches": row["launches"].get("flash_attention", 0),
+             "plain_backwards": row["plain_backwards"].get("flash_attention", 0)})
+    for mode, row in ex["train_100m"].items():
+        more_paths["flash_attention"].append(
+            {"path": f"examples/torch_train_100m.py, {mode}, a step under remat (phase 26)",
+             "launches": row["launches_per_step"]["flash_attention"],
+             "plain_backwards": row["plain_backwards_per_step"]["flash_attention"]})
     sources = {"fleet_half_step": "hinge_subgrad.cu", "margins": "hinge_subgrad.cu",
                "grad_update": "hinge_subgrad.cu", "dense_scores": "predict.cu",
                "ell_scores_prefetch": "predict.cu",
@@ -4313,7 +4750,7 @@ def main() -> int:
             "transformer": transformer,
             "kernel_gradients_rel_err": kernel_grads, "op_checks_s": op_checks,
             "sharded": sharded, "dryrun": dryrun_out, "new_families": families,
-            "training": training,
+            "training": training, "examples": examples,
             "c1_route": c1, "faults": faults, "anytime": anytime, "publisher": publisher,
             "control_plane": control, "solvers": solvers, "mesh": mesh,
             "later_phase_s": phase_s,

@@ -2,8 +2,8 @@
 all-reduce data parallelism for any model. Port of ``repro.core.consensus``
 onto :class:`~repro_torch.core.mesh.Mesh` (one replica a process).
 
-* ``allreduce``: gradients are averaged over the replicas every step (a SUM
-  divided by the replica count: gloo has no ``ReduceOp.AVG``).
+* ``allreduce``: gradients are averaged over the replica axes every step (a
+  SUM over the axes' slice divided by its size: gloo has no ``ReduceOp.AVG``).
 * ``gossip``: each replica applies its own update, then the *parameters*
   are mixed with R Push-Sum rounds over the time-varying one-peer
   exponential graph (one exchange a round). R = log2(n) gives exact
@@ -44,16 +44,12 @@ class ConsensusConfig(NamedTuple):
 
 
 def allreduce_grads(grads: Any, axis_names: Sequence[str], *, mesh) -> Any:
-    """The mean of every leaf over the replicas of ``mesh``: a SUM divided by
-    the number of replicas. ``axis_names`` must cover every axis of size
-    above 1 (a sub-mesh mean would need sub-groups)."""
-    size = 1
-    for ax in axis_names:
-        size *= mesh.axis_sizes[ax]
-    if size != mesh.world:
-        raise ValueError(f"axes {tuple(axis_names)} span {size} of the mesh's {mesh.world} "
-                         "ranks; the mean runs over the whole mesh")
-    return tree_map(lambda g: mesh.all_reduce_sum(g) / size, grads)
+    """``pmean`` over ``axis_names``: the mean of every leaf over the ranks
+    of ``mesh`` that differ from this one only on those axes (a SUM divided
+    by their count). Over every axis it is the whole-mesh mean; on a
+    (data, model) mesh ``("data",)`` is the data-parallel gradient mean."""
+    names, ranks = mesh.slice_ranks(axis_names)
+    return tree_map(lambda g: mesh.all_reduce_sum(g, axes=names) / len(ranks), grads)
 
 
 def gossip_mix(params: Any, step: int, *, axis_sizes: dict[str, int], rounds: int,

@@ -13,8 +13,12 @@ group, and :class:`Mesh` gives it the few collectives those paths use:
 * :meth:`Mesh.ppermute`: send to coordinate ``(c + hop) % n`` of an axis and
   receive from ``(c − hop) % n``, one ``batch_isend_irecv`` pair on the
   world group (no sub-groups);
-* :meth:`Mesh.all_reduce_sum` and :meth:`Mesh.all_gather` on the world group.
-  Gloo has no ``ReduceOp.AVG``, so a mean is a sum divided by the size.
+* :meth:`Mesh.all_reduce_sum` over the world group, or over the slice of
+  the calling rank along a set of axes (``pmean``'s ``axis_name`` tuple):
+  one process group per slice, built by :meth:`Mesh.slice_group` the first
+  time those axes are reduced over. Gloo has no ``ReduceOp.AVG``, so a mean
+  is a sum divided by the size;
+* :meth:`Mesh.all_gather` on the world group.
 
 A :class:`Mesh` may carry a ``recorder`` (``launch.hlo_parse.CollectiveRecorder``
 or anything with its ``record(op, out_bytes, group_size)``), which
@@ -29,6 +33,7 @@ its device after it is received; the copies are counted in
 """
 from __future__ import annotations
 
+import itertools
 import math
 import time
 
@@ -64,6 +69,7 @@ class Mesh:
         self.coords = {ax: (self.rank // self.strides[ax]) % n
                        for ax, n in self.axis_sizes.items()}
         self.recorder = None
+        self._groups: dict[tuple[str, ...], object] = {}
         self.reset_stats()
 
     # ------------------------------------------------------------ coordinates
@@ -77,6 +83,42 @@ class Mesh:
         receiver of this rank's share in :meth:`ppermute`)."""
         n, c = self.axis_sizes[axis], self.coords[axis]
         return self.rank + (((c + hop) % n) - c) * self.strides[axis]
+
+    def _members(self, origin: int, names: tuple[str, ...]) -> list[int]:
+        """The ranks at ``origin`` plus every coordinate on ``names``, sorted."""
+        return sorted(origin + sum(i * self.strides[a] for a, i in zip(names, idx))
+                      for idx in itertools.product(*(range(self.axis_sizes[a]) for a in names)))
+
+    def slice_ranks(self, axes) -> tuple[tuple[str, ...], list[int]]:
+        """``axes`` in the mesh's order, and the linear indices of the ranks
+        that share this rank's coordinates on every other axis (the slice a
+        reduction over ``axes`` spans), in increasing order."""
+        unknown = set(axes) - set(self.axis_sizes)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} are not in the mesh {self.axis_sizes}")
+        names = tuple(a for a in self.axis_sizes if a in set(axes))
+        origin = self.rank - sum(self.coords[a] * self.strides[a] for a in names)
+        return names, self._members(origin, names)
+
+    def slice_group(self, axes):
+        """The process group of this rank's slice along ``axes``: None (the
+        world group) when the slice is the whole mesh. The first call for a
+        set of axes builds one group per slice with ``dist.new_group``, in
+        the same order on every rank (every rank takes part in every
+        group's creation, its own or not), so every rank must make that
+        first call, as every rank makes the collective it serves."""
+        names, mine = self.slice_ranks(axes)
+        if len(mine) == self.world:
+            return None
+        if names not in self._groups:
+            others = [a for a in self.axis_sizes if a not in names]
+            for coords in itertools.product(*(range(self.axis_sizes[a]) for a in others)):
+                ranks = self._members(sum(c * self.strides[a] for a, c in zip(others, coords)),
+                                      names)
+                group = dist.new_group(ranks)
+                if ranks == mine:
+                    self._groups[names] = group
+        return self._groups[names]
 
     # ------------------------------------------------------------ wire copies
 
@@ -118,11 +160,13 @@ class Mesh:
         self._count(t0)
         return out
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The elementwise sum of ``x`` over every rank."""
+    def all_reduce_sum(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """The elementwise sum of ``x`` over every rank, or with ``axes``
+        over this rank's slice along those axes (see :meth:`slice_group`)."""
+        group = None if axes is None else self.slice_group(axes)
         t0 = time.perf_counter()
         buf = self._to_wire(x.clone() if not self._staged(x) else x)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         out = self._from_wire(buf, x.device)
         self._count(t0)
         return out

@@ -11,7 +11,8 @@ mask. The mask is the port's keyed one
 unless ``fails`` supplies another, so the simulator and the training loop
 share one fault model. Link mode conserves mass; message mode leaks it while
 every ratio stays consistent; dead nodes freeze with their mass on the
-diagonal.
+diagonal. The weight and the rounds live on the values' device, as in
+:class:`~repro_torch.core.push_sum.PushSumSim`; ``matrix(t)`` stays numpy.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.core import faults as flt
 from repro_torch.core import topology as topo
-from repro_torch.core.push_sum import PushSumState, tree_map
+from repro_torch.core.push_sum import PushSumState, tree_leaves, tree_map
 
 __all__ = ["FaultySim"]
 
@@ -71,10 +72,14 @@ class FaultySim:
         return flt.apply_faults(B, self.fail_mask(t), self.plan).numpy()
 
     def init(self, values) -> PushSumState:
-        return PushSumState(values=values, weight=torch.ones((self.n,), dtype=torch.float32))
+        """Unit Push-Sum weights on the device of the first leaf."""
+        device = tree_leaves(values)[0].device
+        return PushSumState(values=values, weight=torch.ones(
+            (self.n,), dtype=torch.float32, device=device))
 
     def round(self, state: PushSumState, t: int) -> PushSumState:
-        B = torch.from_numpy(self.matrix(t))
+        """One round on the weight's device, where the values live."""
+        B = torch.from_numpy(self.matrix(t)).to(state.weight.device)
 
         def mix(v):
             flat = v.reshape(self.n, -1).to(torch.float32)

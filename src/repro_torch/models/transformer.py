@@ -44,7 +44,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig, compile_stages
-from repro_torch.sharding.api import activate, constrain, current_rules, grad_like, shard_range
+from repro_torch.sharding.api import (activate, constrain, current_rules, grad_like, relayout,
+                                      shard_range)
 
 __all__ = ["Model", "Block", "layer_kinds"]
 
@@ -53,6 +54,7 @@ _ATTN_KINDS = ("attn", "swa", "local_attn")
 # pins it at block ends; between the two mixes too here, so that a
 # row-parallel product's partial sums are reduced before the norm)
 _STREAM = ("batch", "seq", "embed")
+_GATHERED = ("batch", None, "embed")  # the stream with its sequence whole
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -132,6 +134,12 @@ def _target_logit(logits, targets: torch.Tensor) -> torch.Tensor:
     return local_map(local, out_placements=(out,), in_placements=(pl, rows),
                      in_grad_placements=(pl, rows), redistribute_inputs=True,
                      device_mesh=mesh)(logits, targets)
+
+
+def _seq_sharded() -> bool:
+    """Whether the active rules shard the sequence."""
+    r = current_rules()
+    return r is not None and r.spec(("seq",))[0] is not None
 
 
 class Block(nn.Module):
@@ -219,29 +227,44 @@ class Model(nn.Module):
             return y, aux.load_balance_loss + aux.router_z_loss
         return ch(x), torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def _mixer_in(self, p: L.Norm, x: torch.Tensor) -> torch.Tensor:
+        """The normed stream a mixer (or the head) reads, with the sequence
+        gathered where the rules shard it (see :meth:`_mixer_out`)."""
+        x = self._norm(p, x)
+        return relayout(x, _GATHERED) if _seq_sharded() else x
+
+    def _mixer_out(self, y: torch.Tensor) -> torch.Tensor:
+        """A mixer's output as the residual stream holds it. Where the rules
+        shard the sequence (the dry-run's ``--seq-shard``: Megatron-style
+        sequence parallelism) the mixers read whole rows, gathered by
+        :meth:`_mixer_in`, and their partial sums are scattered back onto
+        the sequence here; the backward runs the same moves reversed."""
+        return relayout(y, _STREAM) if _seq_sharded() else y
+
     def _block_train(self, blk: Block, x: torch.Tensor,
                      positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg, kind = self.cfg, blk.kind
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind in _ATTN_KINDS:
             window = cfg.window if kind in ("swa", "local_attn") else 0
-            x = constrain(x + A.attention_train(blk.attn, self._norm(blk.norm1, x), positions,
-                                                window=window, causal=not cfg.is_encoder,
-                                                rope_theta=cfg.rope_theta), _STREAM)
-            ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
-            x = x + ch
+            x = constrain(x + self._mixer_out(A.attention_train(
+                blk.attn, self._mixer_in(blk.norm1, x), positions, window=window,
+                causal=not cfg.is_encoder, rope_theta=cfg.rope_theta)), _STREAM)
+            ch, aux = self._channel(blk.ch, self._mixer_in(blk.norm2, x))
+            x = x + self._mixer_out(ch)
         elif kind == "rglru":
-            x = constrain(x + G.rglru_train(blk.rglru, self._norm(blk.norm1, x)), _STREAM)
-            ch, aux = self._channel(blk.ch, self._norm(blk.norm2, x))
-            x = x + ch
+            x = constrain(x + self._mixer_out(G.rglru_train(
+                blk.rglru, self._mixer_in(blk.norm1, x))), _STREAM)
+            ch, aux = self._channel(blk.ch, self._mixer_in(blk.norm2, x))
+            x = x + self._mixer_out(ch)
         else:  # rwkv6
-            x = constrain(x + W.time_mix_train(blk.rwkv, self._norm(blk.norm1, x),
-                                               cfg.rwkv_head_dim), _STREAM)
-            x = x + W.channel_mix_train(blk.rwkv, self._norm(blk.norm2, x))
+            x = constrain(x + self._mixer_out(W.time_mix_train(
+                blk.rwkv, self._mixer_in(blk.norm1, x), cfg.rwkv_head_dim)), _STREAM)
+            x = x + self._mixer_out(W.channel_mix_train(blk.rwkv, self._mixer_in(blk.norm2, x)))
         return constrain(x, _STREAM), aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._norm(self.final_norm, x)
+        x = self._mixer_in(self.final_norm, x)
         if hasattr(self, "head"):
             return L.dense(self.head, x.float())
         return L.unembed(self.embed, x)
@@ -277,7 +300,12 @@ class Model(nn.Module):
             else:
                 x, aux = self._block_train(blk, x, positions)
             aux_total = aux_total + aux
-        return constrain(self._logits(x), ("batch", "seq", "vocab")), aux_total
+        # under sequence parallelism the head reads whole rows (_mixer_in) and
+        # its logits stay on the vocab: the reference's ("batch", "seq",
+        # "vocab") would give `model` to the sequence, and eagerly that moves
+        # the (B, S, V) logits all to all
+        logits_axes = ("batch", None, "vocab") if _seq_sharded() else ("batch", "seq", "vocab")
+        return constrain(self._logits(x), logits_axes), aux_total
 
     # ----------------------------------------------------------------- loss
     def loss(self, batch: dict, *, remat: bool = False,

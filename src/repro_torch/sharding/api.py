@@ -27,7 +27,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-__all__ = ["PartitionSpec", "AxisRules", "activate", "constrain", "logical_to_spec",
+__all__ = ["PartitionSpec", "AxisRules", "activate", "constrain", "relayout", "logical_to_spec",
            "param_spec", "current_rules", "placements", "rows_local", "split_ready", "grad_like",
            "shard_range", "vocab_rows", "gathered",
            "mesh_axis_sizes"]
@@ -146,6 +146,23 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[str | None]) -> torch.Tens
     if tuple(x.placements) != want:
         x = x.redistribute(mesh, want)
     return grad_like(x)
+
+
+def relayout(x: torch.Tensor, logical_axes: Sequence[str | None]) -> torch.Tensor:
+    """``x`` redistributed to the active rules' spec, its gradient left to
+    DTensor's own backward: the reverse move into ``x``'s layout, partial
+    sums reduced there. Sequence parallelism's pair: a gather of the
+    sequence before a tensor-parallel product (its backward a
+    reduce-scatter), and the scatter of the product's partial sums back
+    onto the sequence (its backward the gather). The identity outside
+    ``activate`` and on a plain tensor."""
+    r = current_rules()
+    if r is None or not _is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = placements(mesh, _fitted_spec(r, tuple(x.shape), logical_axes,
+                                         mesh_axis_sizes(mesh)))
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
 def rows_local(fn: Callable, row_args: Sequence, whole_args: Sequence = (), *,

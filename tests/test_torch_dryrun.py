@@ -1,7 +1,9 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) against the
 reference's: parameter, active-parameter and model-FLOP counts of every
 architecture, the argument bytes the reference's specs imply, skip
-messages, the collective conventions of ``tests/test_hlo_parse.py`` with
+messages, ``seq_shard`` (the arg bytes and model FLOPs kept) and
+``swa_variant`` (long_500k's skips as the reference's variant has them), the
+collective conventions of ``tests/test_hlo_parse.py`` with
 the reference's parser as the oracle, every layer counted (the 4-layer
 minus 2-layer identity that makes the reference's ``analysis.py``
 unnecessary here), the multi-pod gossip's point-to-point permutes, and the
@@ -39,6 +41,7 @@ from repro.launch.hlo_parse import (_COLL_RE, _GROUPS_RE, _shape_bytes,  # noqa:
 from repro.models.transformer import Model as RefModel  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.shapes import SHAPES, InputShape  # noqa: E402
+from repro_torch.configs.shapes import skip_reason as dryrun_skip  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.hlo_parse import CollectiveRecorder  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -81,7 +84,10 @@ def _local_bytes(mesh, tree, specs) -> int:
     return total
 
 
-def test_arg_bytes_are_the_local_shards_the_reference_specs_imply():
+def _reference_arg_bytes() -> int:
+    """The local bytes of llama3-8b's train state (2 layers, zero1 weights,
+    fsdp moments) and batch (train_4k at ``SHORT``'s length) on a 16 x 16
+    mesh, by the reference's specs."""
     mesh = FakeMesh({"data": 16, "model": 16})
     cfg = dataclasses.replace(ref_get_config("llama3-8b"), n_layers=2)
     tcfg = ref_steps.TrainerConfig(replica_axis="data")
@@ -93,12 +99,60 @@ def test_arg_bytes_are_the_local_shards_the_reference_specs_imply():
     sspecs = ref_steps.train_state_specs(pspecs, tcfg, moment_specs=mspecs)
     shape = dataclasses.replace(REF_SHAPES["train_4k"], seq_len=SHORT.seq_len)
     batch = ref_ispecs.train_batch_shapes(cfg, shape)
-    want = (_local_bytes(mesh, state, sspecs)
+    return (_local_bytes(mesh, state, sspecs)
             + _local_bytes(mesh, batch, ref_shard.batch_specs(mesh, cfg, shape)))
+
+
+def test_arg_bytes_are_the_local_shards_the_reference_specs_imply():
+    want = _reference_arg_bytes()
     res = dryrun.run_one("llama3-8b", "train_4k", n_layers=2, shape=SHORT, verbose=False)
     assert res.status == "ok", res.reason
     assert res.arg_bytes == want
     assert res.per_device_bytes > res.arg_bytes and res.hlo_flops > 0 and res.bottleneck
+
+
+def test_seq_shard_keeps_the_reference_arg_bytes_and_model_flops():
+    """``seq_shard=True`` sets the ``seq`` rule to ``model`` (the reference's
+    ``--seq-shard``): the state and batch stay the local shards the
+    reference's specs imply (no spec reads the ``seq`` rule), the model's
+    FLOPs are unchanged, and the residual stream between blocks is split
+    16 ways, so under remat (which keeps only the blocks' inputs) the
+    device holds less."""
+    kw = dict(n_layers=2, shape=SHORT, remat=True, verbose=False)
+    base = dryrun.run_one("llama3-8b", "train_4k", **kw)
+    res = dryrun.run_one("llama3-8b", "train_4k", seq_shard=True, **kw)
+    assert base.status == res.status == "ok", (base.reason, res.reason)
+    assert res.arg_bytes == base.arg_bytes == _reference_arg_bytes()
+    assert res.model_flops_global == base.model_flops_global
+    assert res.per_device_bytes < base.per_device_bytes
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_swa_variant_turns_long_500k_skips_where_the_reference_does(arch, monkeypatch):
+    """``swa_variant=True`` on long_500k: a dense arch runs as ``<arch>+swa``
+    with every block sliding-window at 4,096; the result is ``ok`` exactly
+    where the reference's ``skip_reason`` of the same variant says it runs,
+    and otherwise skipped with its message."""
+    rcfg = ref_get_config(arch)
+    dense = not rcfg.subquadratic() and not rcfg.is_encoder
+    if dense:  # the reference's variant (src/repro/launch/dryrun.py, run_one)
+        rcfg = dataclasses.replace(rcfg, name=f"{rcfg.name}+swa",
+                                   block_pattern=tuple("swa" for _ in rcfg.block_pattern),
+                                   window=4096)
+    want = ref_skip(rcfg, REF_SHAPES["long_500k"])
+    seen = []
+    monkeypatch.setattr(dryrun, "skip_reason",
+                        lambda cfg, shape: seen.append(cfg) or dryrun_skip(cfg, shape))
+    res = dryrun.run_one(arch, "long_500k", swa_variant=True, n_layers=1, verbose=False)
+    (cfg,) = seen
+    assert res.arch == (f"{arch}+swa" if dense else arch)
+    assert (cfg.name, cfg.block_pattern, cfg.window) == (rcfg.name, rcfg.block_pattern,
+                                                         rcfg.window)
+    if want is None:
+        assert res.status == "ok", res.reason
+        assert res.per_device_bytes > 0
+    else:
+        assert (res.status, res.reason) == ("skipped", want)
 
 
 def test_every_layer_is_counted():

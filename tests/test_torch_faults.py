@@ -265,3 +265,29 @@ def test_recorded_draws_need_masks_for_faulted_runs():
     with pytest.raises(ValueError, match="fails must have shape"):
         TG.gadget_train(X, y, tcfg, n_counts=N_COUNTS, device="cpu",
                         draws=TG.RecordedDraws(ids, mix, np.zeros((ITERS, R + 1, M, M), bool)))
+
+
+def test_faulty_sim_runs_on_the_values_device():
+    """The weight and every round live on the values' device: ``meta``
+    values, as CUDA ones on the card (a CPU round matrix times them raises).
+    The matrices stay numpy float32."""
+    m = 6
+    sim = tres.FaultySim(m, "random", seed=2, drop_prob=0.3, drop="link", dead_nodes=(1,))
+    values = {"w": torch.empty((m, 5), device="meta"),
+              "b": torch.empty((m, 2, 3), device="meta", dtype=torch.bfloat16)}
+    st = sim.run(values, 4)
+    assert st.weight.device.type == "meta" and st.weight.shape == (m,)
+    for k, v in st.values.items():
+        assert v.device.type == "meta" and v.shape == values[k].shape
+        assert v.dtype == values[k].dtype
+    assert sim.matrix(3).dtype == np.float32
+
+
+@pytest.mark.parametrize("drop_prob", [0.0, 0.2, 0.7])
+def test_faulty_sim_mask_is_the_keyed_mask(drop_prob):
+    """The simulator's own round-t mask is the reference's keyed draw at
+    (t, round 0), the one its training loop makes, bit for bit."""
+    sim = tres.FaultySim(10, "random", seed=3, drop_prob=drop_prob)
+    for t in (0, 1, 5, 3601):
+        np.testing.assert_array_equal(sim.fail_mask(t).numpy(),
+                                      _ref_masks(sim.plan, 1, 1, 10, t0=t)[0, 0])

@@ -1,5 +1,6 @@
 """Import rules of the port: no JAX and nothing of ``repro`` anywhere in
-``repro_torch`` or ``chip_smoke.py``, and no silent CPU fallback."""
+``repro_torch``, ``chip_smoke.py`` or the port's examples
+(``examples/torch_*.py``), and no silent CPU fallback."""
 import os
 import re
 import subprocess
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_examples import load as load_example  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -48,7 +51,8 @@ print(len(names))
     assert int(out.stdout.strip()) >= 92  # every module of the port was imported
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     assert not FORBIDDEN.findall(path.read_text()), path
@@ -76,6 +80,10 @@ def test_svm_server_without_card_raises(monkeypatch):
     np.testing.assert_array_equal(labels, [1.0, 1.0])  # asking for the CPU works
 
 
+EXAMPLES = ["torch_quickstart", "torch_fault_tolerant_gossip", "torch_serve_batched",
+            "torch_gossip_vs_allreduce", "torch_train_100m"]
+
+
 def _new_entry_points():
     from repro_torch.core import cutting_plane, gadget, multiclass, pegasos
     from repro_torch.serve import make_mesh_scorer
@@ -91,15 +99,21 @@ def _new_entry_points():
         "gadget_train_multiclass": lambda **kw: multiclass.gadget_train_multiclass(
             X, np.zeros((2, 3), np.int32), 2, cfg, **kw),
         "make_mesh_scorer": lambda **kw: make_mesh_scorer(np.ones(4, np.float32), **kw),
+        **{name: (lambda name=name, **kw: load_example(name).main([])) for name in EXAMPLES},
     }
 
 
 @pytest.mark.parametrize("name", ["gadget_train_reference", "pegasos_train",
                                   "cutting_plane_svm", "svm_sgd",
-                                  "gadget_train_multiclass", "make_mesh_scorer"])
+                                  "gadget_train_multiclass", "make_mesh_scorer"] + EXAMPLES)
 def test_new_entry_points_without_card_raise(monkeypatch, name):
+    """Each raises without a card unless the CPU is asked for; an example's
+    ``main`` with no ``--device`` raises before it builds anything
+    (``--device cpu`` runs it: ``tests/test_torch_examples.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _new_entry_points()[name]()
-    if name != "make_mesh_scorer":  # the scorer needs a process group past the device check
+    # the scorer needs a process group past the device check; the examples
+    # run whole at their own sizes
+    if name != "make_mesh_scorer" and name not in EXAMPLES:
         _new_entry_points()[name](device="cpu")  # asking for the CPU works

@@ -59,6 +59,7 @@ G_ = rng.normal(size=(M, 9)).astype(np.float32)
 W_SCORE = rng.normal(size=(3, D)).astype(np.float32)
 X_SCORE = rng.normal(size=(16, D)).astype(np.float32)
 LAM, BATCH, ROUNDS, GOSSIP_STEP = 1e-2, 2, 2, 3
+SUB_MESH_AXES = {"ar_data": ("data",), "ar_model": ("model",), "ar_both": ("data", "model")}
 """
 
 REF_SCRIPT = r"""
@@ -137,6 +138,10 @@ mixed = sharded(lambda p: jax.tree.map(lambda x: x[None], gossip_mix(
 out["gm_a"], out["gm_b"] = np.asarray(mixed["a"]), np.asarray(mixed["b"])
 out["ar"] = np.asarray(sharded(lambda g: allreduce_grads(g[0], ("nodes",))[None])(
     jnp.asarray(G_)))
+mesh_dm = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+for name, axes in SUB_MESH_AXES.items():
+    out[name] = np.asarray(sharded(lambda g: allreduce_grads(g[0], axes)[None], m=mesh_dm,
+                                   spec=PS(("data", "model")))(jnp.asarray(G_)))
 for name, W in (("sc_multi", W_SCORE), ("sc_binary", W_SCORE[0])):
     s, l = make_mesh_scorer(W, use_kernels=True)(jnp.asarray(X_SCORE))
     out[name + "_scores"], out[name + "_labels"] = np.asarray(s), np.asarray(l)
@@ -221,6 +226,9 @@ def rank_main(rank, rdv, path):
                        axis_sizes={"nodes": M}, rounds=1, mesh=mesh)
     out["gm_a"], out["gm_b"] = mixed["a"].numpy(), mixed["b"].numpy()
     out["ar"] = allreduce_grads(torch.from_numpy(G_[rank]), ("nodes",), mesh=mesh).numpy()
+    mesh_dm = Mesh({"data": 2, "model": 2})
+    for name, axes in SUB_MESH_AXES.items():
+        out[name] = allreduce_grads(torch.from_numpy(G_[rank]), axes, mesh=mesh_dm).numpy()
     for name, W in (("sc_multi", W_SCORE), ("sc_binary", W_SCORE[0])):
         s, l = make_mesh_scorer(W, mesh=mesh, device="cpu")(X_SCORE)
         out[name + "_scores"], out[name + "_labels"] = s.numpy(), l.numpy()
@@ -287,6 +295,20 @@ def port_out(tmp_path_factory):
                                  "sc_multi_scores", "sc_binary_scores"])
 def test_mesh_output_matches_reference(ref_out, port_out, key):
     np.testing.assert_allclose(port_out[key], ref_out[key], atol=ATOL)
+
+
+@pytest.mark.parametrize("key", ["ar_data", "ar_model", "ar_both"])
+def test_allreduce_over_sub_mesh_matches_reference_pmean(ref_out, port_out, key):
+    """``allreduce_grads`` over ("data",), ("model",) and both axes of a
+    (data 2, model 2) mesh: the reference's ``pmean`` over the same axes at
+    1e-6, and each rank's mean over exactly its slice."""
+    np.testing.assert_allclose(port_out[key], ref_out[key], rtol=0, atol=1e-6)
+    data = {}
+    exec(DATA, data)  # noqa: S102 — the scripts' own data block
+    g = data["G_"].reshape(2, 2, -1)  # rank = 2 · data + model
+    axes = tuple(i for i, a in enumerate(("data", "model")) if a in data["SUB_MESH_AXES"][key])
+    want = np.broadcast_to(g.mean(axis=axes, keepdims=True), g.shape).reshape(4, -1)
+    np.testing.assert_allclose(port_out[key], want, rtol=0, atol=1e-6)
 
 
 def test_mesh_kernel_step_matches_plain_reference(ref_out, port_out):

@@ -5,9 +5,12 @@ rwkv6-3b with the parameters placed by ``launch.shardings.param_specs`` in
 zero1 and in fsdp (moments fsdp, as the dry-run places them), gossip with
 ``data`` as the replica axis (G = 2: each rank steps its replica on the
 ``model`` sub-mesh and mixes with its partner point to point), and prefill
-logits. Fixed step counts (no stop rule). One subprocess spawns the 4 ranks
+logits, and decode steps of llama3-8b (full attention) and
+recurrentgemma-9b (its sliding-window ring) from a cache sharded on its
+sequence. Fixed step counts (no stop rule). One subprocess spawns the 4 ranks
 once for every case; the reference runs here on the same initial states and
 batches."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,8 +42,13 @@ STEPS, BATCH, SEQ, D_MODEL = 2, 8, 16, 64
 ARCHS = {"llama3-8b": 2, "qwen2-moe-a2.7b": 2, "recurrentgemma-9b": 3, "rwkv6-3b": 2}
 CASES = ([(arch, mode) for arch in ARCHS for mode in ("zero1", "fsdp")]
          + [("llama3-8b", "gossip"), ("rwkv6-3b", "gossip")])
+# decode from a sharded cache: llama3-8b's full attention (an absolute slot a
+# token) and recurrentgemma-9b's cycle, whose SWA ring (window 4) wraps twice
+DECODE_CASES = [("llama3-8b", 2, 0), ("recurrentgemma-9b", 3, 4)]
+DECODE_BATCH, DECODE_LEN = 4, 12
 
 RANK_SCRIPT = r"""
+import dataclasses
 import sys
 import torch
 import torch.distributed as dist
@@ -51,7 +59,7 @@ from repro_torch.configs.shapes import SHAPES
 from repro_torch.launch import shardings as shard, steps
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import Model
-from repro_torch.sharding.api import AxisRules, activate
+from repro_torch.sharding.api import AxisRules, PartitionSpec as P, activate
 
 
 def rules(mesh, gossip):
@@ -64,6 +72,28 @@ def full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
+def decode(mesh, cfg, c):
+    # token-by-token decode through the serve step with the weights and the
+    # caches as DTensors (the cache sharded on `model` along its sequence by
+    # cache_spec_tree): every step's logits, whole
+    model = Model(cfg, device="cpu")
+    params = c["params"]
+    dparams = shard.distribute(mesh, params, shard.param_specs(mesh, params, mode="zero1"))
+    tokens = c["tokens"]
+    caches = model.init_cache(tokens.shape[0], tokens.shape[1], torch.float32)
+    dcaches = shard.distribute(mesh, caches, shard.cache_spec_tree(mesh, caches))
+    serve = steps.make_serve_step(model)
+    logits = []
+    with activate(rules(mesh, False)), steps.swapped_params(model, dparams):
+        for t in range(tokens.shape[1]):
+            tok = shard.distribute(mesh, tokens[:, t:t + 1], P("data", None))
+            out, dcaches = serve(tok, dcaches, t)
+            logits.append(full(out))
+    return {"logits": torch.cat(logits, dim=1),
+            "cache_sharded": [any(type(p).__name__ == "Shard" for p in v.placements)
+                              for c_ in dcaches for v in c_]}
+
+
 def rank(r, world, rdv, work):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=rdv, rank=r, world_size=world)
@@ -73,6 +103,10 @@ def rank(r, world, rdv, work):
         out = {}
         for name, c in cases.items():
             cfg = get_config(c["arch"]).reduced(n_layers=c["layers"], d_model=c["d_model"])
+            if "decode" in c:
+                out[name] = decode(mesh, dataclasses.replace(cfg, window=c["decode"]["window"]),
+                                   c["decode"])
+                continue
             model = Model(cfg, device="cpu")
             gossip = c["mode"] == "gossip"
             tcfg = steps.TrainerConfig(**c["trainer"])
@@ -161,6 +195,27 @@ def runs(tmp_path_factory):
                                                {k: jnp.asarray(v.numpy()) for k, v in pb.items()})
             cases[name]["prefill"] = {"params": pstate["params"], "batch": pb}
             want[name]["logits"] = np.asarray(logits)
+    for arch, layers, window in DECODE_CASES:
+        pcfg = get_config(arch).reduced(n_layers=layers, d_model=D_MODEL)
+        pcfg = dataclasses.replace(pcfg, window=window)
+        rcfg = dataclasses.replace(ref_config(arch).reduced(n_layers=layers, d_model=D_MODEL),
+                                   window=window)
+        params = Model(pcfg, device="cpu").init(torch.Generator().manual_seed(7)).state_dict()
+        params = {k: v.detach() for k, v in params.items()}
+        toks = torch.from_numpy(np.random.default_rng(8).integers(
+            0, pcfg.vocab_size, (DECODE_BATCH, DECODE_LEN)))
+        ref = RefModel(rcfg)
+        rparams = jax.tree.map(jnp.asarray, model_params_to_reference(pcfg, params))
+        rstep, rcache, logits = jax.jit(ref.decode_step), ref.init_cache(
+            DECODE_BATCH, DECODE_LEN, jnp.float32), []
+        for t in range(DECODE_LEN):
+            out, rcache = rstep(rparams, jnp.asarray(toks[:, t:t + 1].numpy()), rcache,
+                                jnp.int32(t))
+            logits.append(np.asarray(out))
+        name = f"{arch}-decode"
+        cases[name] = {"arch": arch, "layers": layers, "d_model": D_MODEL,
+                       "decode": {"params": params, "tokens": toks, "window": window}}
+        want[name] = {"logits": np.concatenate(logits, axis=1)}
     torch.save(cases, work / "cases.pt")
     script = work / "ranks.py"
     script.write_text(RANK_SCRIPT)
@@ -180,6 +235,16 @@ def test_sharded_steps_match_reference(runs, arch, mode):
     for k, w in want["params"].items():
         np.testing.assert_allclose(got["params"][k].numpy(), w.numpy(), rtol=0, atol=ATOL,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("arch", [a for a, _, _ in DECODE_CASES])
+def test_sharded_decode_matches_reference(runs, arch):
+    """Every step of a decode through a cache sharded by ``cache_spec_tree``
+    (the masked write of ``models/attention.py``, every shard writing its
+    own slots) against the reference's decode on one device."""
+    want, got = (r[f"{arch}-decode"] for r in runs)
+    assert any(got["cache_sharded"])
+    np.testing.assert_allclose(got["logits"].numpy(), want["logits"], rtol=0, atol=ATOL)
 
 
 def test_sharded_prefill_logits_match_reference(runs):

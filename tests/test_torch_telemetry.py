@@ -267,3 +267,46 @@ def test_dump_cli_matches_reference(tmp_path, capsys, args):
     if args and args[0] == "--prometheus":
         assert (tmp_path / "t.prom").read_text() == (tmp_path / "r.prom").read_text()
     assert tdump.summarize(ttm.read_jsonl(path)) == rdump.summarize(rtm.read_jsonl(path))
+
+
+def _schema_checker():
+    """``tools/check_telemetry_schema.py``, the readers' contract, by path."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "check_telemetry_schema.py"
+    spec = importlib.util.spec_from_file_location("check_telemetry_schema", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_port_stream_meets_the_reference_schema(tmp_path):
+    """A short traced port run streamed through the port's ``JsonlSink``
+    (the publisher's segment, publish and attempt spans, the watching
+    server's swap span linked through the manifest, then a registry dump)
+    passes the schema checker the console and the observatory rely on: no
+    record errors and no orphan parents."""
+    from repro_torch.serve import SvmServer, TrainPublisher
+    from repro_torch.telemetry.train import TrainTelemetry
+    check = _schema_checker()
+    X, y = _data()
+    cfg = TG.GadgetConfig(lam=1e-2, batch_size=3, gossip_rounds=R, epsilon=0.0,
+                          check_every=6, max_iters=18, seed=1, faults=PLAN)
+    path = tmp_path / "run.jsonl"
+    reg = ttm.Registry()
+    with ttm.JsonlSink(path) as sink:
+        reg.attach_sink(sink)
+        pub = TrainPublisher(X, y, cfg, root=str(tmp_path / "ckpt"), segment_iters=6,
+                             n_counts=N_COUNTS, device="cpu", registry=reg, trace=True,
+                             telemetry=TrainTelemetry(every=2, slots=8)).start()
+        pub.join()
+        srv = SvmServer.watch(str(tmp_path / "ckpt"), device="cpu", registry=reg)
+        srv.score(X[0, :4])
+        reg.detach_sink()
+    ttm.dump_jsonl(reg, path)
+    records = ttm.read_jsonl(path)
+    names = {r["name"] for r in records}
+    assert {"train.segment", "publish.seconds", "publish.attempt", "serve.swap"} <= names
+    assert any(r.get("parent_id") for r in records)
+    assert check.validate_file(str(path)) == []
+    assert check.validate_trace_linkage(list(enumerate(records, 1))) == []
