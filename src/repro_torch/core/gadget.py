@@ -79,6 +79,7 @@ from repro_torch.sparse.formats import minibatch_block_bound
 from repro_torch.telemetry import registry as tmr
 from repro_torch.telemetry import trace as tmtr
 from repro_torch.telemetry import train as tmt
+from repro_torch.telemetry.ranges import region
 
 __all__ = ["GadgetConfig", "GadgetResult", "NonFiniteWeightsError", "SegmentResult",
            "SnapshotRing", "TrainState", "DrawPlan", "GeneratorDraws", "RecordedDraws",
@@ -292,7 +293,10 @@ class GeneratorDraws:
             return ids, None
         targets = flat[n * m * B:].view(n, R, m)
         Bs = topo.random_neighbor_matrix_device(m, targets=targets)
-        return ids, collapse_rounds(Bs) if plan.fused and plan.faults is None else Bs
+        if not plan.fused or plan.faults is not None:
+            return ids, Bs
+        with region("gadget.collapse"):
+            return ids, collapse_rounds(Bs)
 
     def fails(self, t0: int, n: int, plan: DrawPlan) -> torch.Tensor:
         """Failure masks of iterations t0 … t0+n−1, (n, R, m, m) bool."""
@@ -344,7 +348,8 @@ class RecordedDraws:
         s = slice(t0 - 1, t0 - 1 + n)
         mix = None if mix is None else mix[s]
         if mix is not None and plan.fused and plan.faults is None and mix.ndim == 4:
-            mix = collapse_rounds(mix)  # recorded rounds of a fault-free fused run
+            with region("gadget.collapse"):
+                mix = collapse_rounds(mix)  # recorded rounds of a fault-free fused run
         return ids[s], mix
 
     def fails(self, t0: int, n: int, plan: DrawPlan) -> torch.Tensor:
@@ -540,32 +545,40 @@ class _Run:
         (m, m) product (fused) or the (R, m, m) rounds. Returns the new
         weights and the post-mix mass weights."""
         cfg, X = self.cfg, self.X
-        yb = self.y[self.node_index, ids]
-        if isinstance(X, tuple):
-            # sparse: the half-step is fleet-wide whether fused or not; fused
-            # selects only the mixing below
-            W_half = ops.ell_fleet_half_step(W, X[0][self.node_index, ids],
-                                             X[1][self.node_index, ids], yb, lam=cfg.lam,
-                                             t=t, project=cfg.project_before_gossip,
-                                             schedule=cfg.sparse_schedule,
-                                             n_blocks_max=self.block_bound)
-        elif cfg.fused:
-            W_half = ops.fleet_half_step(W, X[self.node_index, ids], yb, lam=cfg.lam, t=t,
-                                         project=cfg.project_before_gossip,
-                                         row_mask=self.row_mask)
-        else:
-            W_half = ops.unfused_fleet_half_step(W, X[self.node_index, ids], yb,
-                                                 lam=cfg.lam, t=t,
-                                                 project=cfg.project_before_gossip)
-        mix = mix_collapsed if cfg.fused else mix_rounds
-        vals, wts = mix(W_half * self.counts_f[:, None], self.counts_f, Bs)
-        W_new = vals / wts[:, None]
-        if cfg.project_after_gossip:
-            W_new = obj.project_ball(W_new, cfg.lam)
-        if self.dead is not None:
-            # crashed nodes neither train nor receive: frozen bit for bit
-            # after the mix's renormalising divide
-            W_new = torch.where(self.dead[:, None], W, W_new)
+        with region("gadget.step"):
+            with region("gadget.gather"):
+                yb = self.y[self.node_index, ids]
+                if isinstance(X, tuple):  # the minibatch's ELL columns and values
+                    Xb = (X[0][self.node_index, ids], X[1][self.node_index, ids])
+                else:
+                    Xb = X[self.node_index, ids]
+            with region("gadget.half_step"):
+                if isinstance(X, tuple):
+                    # sparse: the half-step is fleet-wide whether fused or not;
+                    # fused selects only the mixing below
+                    W_half = ops.ell_fleet_half_step(W, *Xb, yb, lam=cfg.lam, t=t,
+                                                     project=cfg.project_before_gossip,
+                                                     schedule=cfg.sparse_schedule,
+                                                     n_blocks_max=self.block_bound)
+                elif cfg.fused:
+                    W_half = ops.fleet_half_step(W, Xb, yb, lam=cfg.lam, t=t,
+                                                 project=cfg.project_before_gossip,
+                                                 row_mask=self.row_mask)
+                else:
+                    W_half = ops.unfused_fleet_half_step(W, Xb, yb, lam=cfg.lam, t=t,
+                                                         project=cfg.project_before_gossip)
+            mix = mix_collapsed if cfg.fused else mix_rounds
+            pushed = W_half * self.counts_f[:, None]
+            with region("gadget.mix"):
+                vals, wts = mix(pushed, self.counts_f, Bs)
+            W_new = vals / wts[:, None]
+            if cfg.project_after_gossip:
+                with region("gadget.projection"):
+                    W_new = obj.project_ball(W_new, cfg.lam)
+            if self.dead is not None:
+                # crashed nodes neither train nor receive: frozen bit for bit
+                # after the mix's renormalising divide
+                W_new = torch.where(self.dead[:, None], W, W_new)
         return W_new, wts
 
     def chunk(self, W, W_sum, t0: int, n: int, rings=None, count_drops: bool = False,
@@ -578,31 +591,39 @@ class _Run:
         come from :meth:`_uploaded_rounds` (the host loop), not from the
         cycle uploaded once."""
         cfg, plan = self.cfg, self.plan
-        ids, mix = self.draws.take(t0, n, plan)
-        if mix is None and upload_rounds:
-            mix = self._uploaded_rounds(t0, n)
-        drops = None
-        if cfg.faults is not None:
-            clean = mix if mix is not None else self._clean_rounds(t0, n)
-            fails = self.draws.fails(t0, n, plan)
-            faulty = flt.apply_faults(clean, fails, cfg.faults, dead=self.dead)
-            mix = collapse_rounds(faulty) if cfg.fused else faulty
-            if count_drops:
-                drops = flt.count_drops_node(clean, fails, cfg.faults, dead=self.dead)
-        elif mix is None and self._cycle is None:
-            self._cycle = _mixing_cycle(cfg, self.m, self.dev)
-            transfer_stats["matrix_uploads"] += 1
-        masses = []
-        for k in range(n):
-            t = t0 + k
-            Bs = mix[k] if mix is not None else self._cycle[(t - 1) % self._cycle.shape[0]]
-            W, wts = self._step(ids[k], W, Bs, t)
-            W_sum = W_sum + W
-            mass = wts.sum() / self.total
-            masses.append(mass)
-            if rings is not None:
-                rings.after(self, t, W, wts, mass, None if drops is None else drops[k])
-        return W, W_sum, torch.stack(masses), drops
+        with region("gadget.trainer"):
+            with region("gadget.draws"):
+                ids, mix = self.draws.take(t0, n, plan)
+            if mix is None and upload_rounds:
+                mix = self._uploaded_rounds(t0, n)
+            drops = None
+            if cfg.faults is not None:
+                clean = mix if mix is not None else self._clean_rounds(t0, n)
+                with region("gadget.draws"):
+                    fails = self.draws.fails(t0, n, plan)
+                with region("gadget.faults"):
+                    faulty = flt.apply_faults(clean, fails, cfg.faults, dead=self.dead)
+                if cfg.fused:
+                    with region("gadget.collapse"):
+                        mix = collapse_rounds(faulty)
+                else:
+                    mix = faulty
+                if count_drops:
+                    drops = flt.count_drops_node(clean, fails, cfg.faults, dead=self.dead)
+            elif mix is None and self._cycle is None:
+                self._cycle = _mixing_cycle(cfg, self.m, self.dev)
+                transfer_stats["matrix_uploads"] += 1
+            masses = []
+            for k in range(n):
+                t = t0 + k
+                Bs = mix[k] if mix is not None else self._cycle[(t - 1) % self._cycle.shape[0]]
+                W, wts = self._step(ids[k], W, Bs, t)
+                W_sum = W_sum + W
+                mass = wts.sum() / self.total
+                masses.append(mass)
+                if rings is not None:
+                    rings.after(self, t, W, wts, mass, None if drops is None else drops[k])
+            return W, W_sum, torch.stack(masses), drops
 
     def record_iterations(self, n_iters: int) -> None:
         """Registry accounting for ``n_iters`` finished iterations:
@@ -768,6 +789,7 @@ class _Segment(NamedTuple):
     done: bool
     stats: tmt.SegmentTelemetry | None
     seconds: float
+    start: float  # time.time() at the segment's start: the torch profiler's clock
 
 
 def _segments(run: _Run, seg: int, W, W_sum, t: int, rings: _Rings | None = None,
@@ -778,53 +800,61 @@ def _segments(run: _Run, seg: int, W, W_sum, t: int, rings: _Rings | None = None
     ``cfg.epsilon`` or ``cfg.max_iters``. ``rings`` record inside the
     segments; ``segment_stats`` adds each segment's
     :class:`~repro_torch.telemetry.train.SegmentTelemetry`. Raises
-    :class:`NonFiniteWeightsError` at a non-finite consensus."""
+    :class:`NonFiniteWeightsError` at a non-finite consensus. Each segment
+    is one ``gadget.segment`` profiler range, closed before the ``yield``."""
     cfg = run.cfg
     count_drops = cfg.faults is not None and (
         rings.count_drops if rings is not None else segment_stats)
     while True:
-        seg_t0 = time.monotonic()
-        n_active = max(0, min(seg, cfg.max_iters - t + 1))
-        W_prev, drops, masses = W, None, None
-        if n_active:
-            W, W_sum, masses, drops = run.chunk(W, W_sum, t, n_active, rings,
-                                                count_drops=count_drops)
-            t += n_active
-            mass = masses.min()
-            if n_active < seg:
-                # the reference scans whole chunks and counts an idle tail
-                # iteration as full mass
-                mass = torch.clamp(mass, max=1.0)
-        else:
-            mass = torch.ones((), device=run.dev)
-        w_cons = run.consensus_of(W)
-        scalars = [torch.linalg.vector_norm(W - W_prev, dim=1).max(),
-                   run.objective_of(w_cons), mass]
-        if segment_stats:
-            nan = torch.full((), float("nan"), device=run.dev)
-            scalars += [torch.linalg.vector_norm(W - w_cons[None, :], dim=1).max(),
-                        nan if masses is None else masses.min(),
-                        nan if masses is None else masses.max(),
-                        torch.zeros((), device=run.dev) if drops is None else drops.sum()]
-        host = torch.cat([w_cons.to(torch.float64),
-                          torch.stack([s.to(torch.float64) for s in scalars])]
-                         ).cpu().numpy()  # the segment's one host sync
-        transfer_stats["host_syncs"] += 1
-        seconds = time.monotonic() - seg_t0
-        w_host, vals = host[:run.d].astype(np.float32), host[run.d:]
-        iteration = t - 1
-        if not np.all(np.isfinite(w_host)):
-            raise _nonfinite(iteration)
-        run.record_iterations(n_active)
-        stats = None
-        if segment_stats:
-            stats = tmt.SegmentTelemetry(disagreement=float(vals[3]),
-                                         mass_min=float(vals[4]), mass_max=float(vals[5]),
-                                         objective=float(vals[1]), drops=int(vals[6]))
-        eps = float(vals[0])
-        done = eps < cfg.epsilon or iteration >= cfg.max_iters
-        yield _Segment(iteration, n_active, W, W_sum, w_host, eps, float(np.float32(vals[1])),
-                       float(np.float32(vals[2])), done, stats, seconds)
+        seg_t0, start = time.monotonic(), time.time()
+        with region("gadget.segment"):
+            n_active = max(0, min(seg, cfg.max_iters - t + 1))
+            W_prev, drops, masses = W, None, None
+            if n_active:
+                W, W_sum, masses, drops = run.chunk(W, W_sum, t, n_active, rings,
+                                                    count_drops=count_drops)
+                t += n_active
+            with region("gadget.check"):
+                if n_active:
+                    mass = masses.min()
+                    if n_active < seg:
+                        # the reference scans whole chunks and counts an idle
+                        # tail iteration as full mass
+                        mass = torch.clamp(mass, max=1.0)
+                else:
+                    mass = torch.ones((), device=run.dev)
+                w_cons = run.consensus_of(W)
+                scalars = [torch.linalg.vector_norm(W - W_prev, dim=1).max(),
+                           run.objective_of(w_cons), mass]
+                if segment_stats:
+                    nan = torch.full((), float("nan"), device=run.dev)
+                    scalars += [torch.linalg.vector_norm(W - w_cons[None, :], dim=1).max(),
+                                nan if masses is None else masses.min(),
+                                nan if masses is None else masses.max(),
+                                torch.zeros((), device=run.dev) if drops is None
+                                else drops.sum()]
+                readings = torch.cat([w_cons.to(torch.float64),
+                                      torch.stack([s.to(torch.float64) for s in scalars])])
+            with region("gadget.sync"):
+                host = readings.cpu().numpy()  # the segment's one host sync
+            transfer_stats["host_syncs"] += 1
+            seconds = time.monotonic() - seg_t0
+            w_host, vals = host[:run.d].astype(np.float32), host[run.d:]
+            iteration = t - 1
+            if not np.all(np.isfinite(w_host)):
+                raise _nonfinite(iteration)
+            run.record_iterations(n_active)
+            stats = None
+            if segment_stats:
+                stats = tmt.SegmentTelemetry(disagreement=float(vals[3]),
+                                             mass_min=float(vals[4]), mass_max=float(vals[5]),
+                                             objective=float(vals[1]), drops=int(vals[6]))
+            eps = float(vals[0])
+            done = eps < cfg.epsilon or iteration >= cfg.max_iters
+            segment = _Segment(iteration, n_active, W, W_sum, w_host, eps,
+                               float(np.float32(vals[1])), float(np.float32(vals[2])), done,
+                               stats, seconds, start)
+        yield segment
         if done:
             return
 
@@ -973,7 +1003,7 @@ def gadget_train_stream(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
                 attrs["resumed_from_trace"] = trace_link
             tmtr.emit_span(trace_registry if trace_registry is not None
                            else tmr.default_registry(),
-                           "train.segment", seg_ctx, g.seconds, **attrs)
+                           "train.segment", seg_ctx, g.seconds, start=g.start, **attrs)
         first_segment = False
         yield SegmentResult(iteration=g.iteration, W=g.W, w_consensus=g.w_host,
                             objective=g.objective, epsilon=g.epsilon, done=g.done,

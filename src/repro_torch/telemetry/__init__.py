@@ -3,8 +3,9 @@ the training trace ring's config and decode (``train``), the per-node
 health observatory, the Prometheus and JSONL exporters with the
 ``python -m repro_torch.telemetry.dump`` CLI, causal tracing (lineage
 spans, :class:`RequestTracer`, :func:`lineage_chains` and the
-``python -m repro_torch.telemetry.trace`` CLI) and the
-``python -m repro_torch.telemetry.top`` console."""
+``python -m repro_torch.telemetry.trace`` CLI), the
+``python -m repro_torch.telemetry.top`` console and the profiler ranges of
+the training loop (:func:`region`)."""
 from repro_torch.telemetry.export import (  # noqa: F401
     JsonlSink,
     dump_jsonl,
@@ -13,6 +14,7 @@ from repro_torch.telemetry.export import (  # noqa: F401
     to_prometheus,
     write_prometheus,
 )
+from repro_torch.telemetry.ranges import region  # noqa: F401
 from repro_torch.telemetry.registry import (  # noqa: F401
     Counter, Gauge, Histogram, Registry, Span, counter, default_registry, gauge,
     histogram, reset, span,
@@ -74,4 +76,5 @@ __all__ = [
     "ObservatoryReport",
     "analyze",
     "publish_node_health",
+    "region",
 ]

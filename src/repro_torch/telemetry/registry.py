@@ -263,6 +263,10 @@ class Span:
     Spans close on the exception path too: a raise inside the block still
     observes the histogram and emits the record, with an ``error`` field
     naming the exception (the raise itself propagates unchanged).
+
+    The record's ``start`` is ``time.time()`` at entry, the clock of its
+    ``ts`` (stamped at exit) and of the torch profiler's trace, so a span
+    lines up with a device trace.
     """
 
     def __init__(self, registry: "Registry", name: str, fields: dict):
@@ -271,9 +275,10 @@ class Span:
         self.fields = dict(fields)
         self.seconds: float | None = None
         self._t0: float | None = None
+        self._start: float | None = None
 
     def __enter__(self) -> "Span":
-        self._t0 = self.registry.clock()
+        self._t0, self._start = self.registry.clock(), time.time()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
@@ -282,7 +287,8 @@ class Span:
             self.fields.setdefault("error", f"{exc_type.__name__}: {exc}")
         self.registry.histogram(self.name).observe(self.seconds)
         self.registry.emit({"kind": "span", "name": self.name, "labels": {},
-                            "seconds": self.seconds, "fields": self.fields})
+                            "seconds": self.seconds, "start": self._start,
+                            "fields": self.fields})
 
 
 class Registry:

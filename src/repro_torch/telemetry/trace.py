@@ -30,7 +30,9 @@ Two record families ride the registry's JSONL sink:
   O(reservoir) memory.
 
 Span records carry ``trace_id`` / ``span_id`` / ``parent_id`` at the top
-level, next to ``kind`` and ``name``.
+level, next to ``kind`` and ``name``, and ``start`` beside the ``ts`` of
+their end, both ``time.time()``: the torch profiler's clock, so the lineage
+lines up with a device trace.
 """
 from __future__ import annotations
 
@@ -122,13 +124,18 @@ def _trace_fields(ctx: TraceContext) -> dict:
 
 
 def emit_span(registry: Registry, name: str, ctx: TraceContext,
-              seconds: float, **attrs) -> None:
+              seconds: float, *, start: float | None = None, **attrs) -> None:
     """Record one completed traced span: observes ``seconds`` into the
     histogram ``name`` and emits a ``span`` record (trace ids at top level,
-    ``attrs`` under ``fields``) to the registry's sink."""
+    ``attrs`` under ``fields``) to the registry's sink. The record's
+    ``start`` is ``start`` (``time.time()`` at the span's start), or now
+    less ``seconds``: the clock of its ``ts`` and of the torch profiler's
+    trace."""
     registry.histogram(name).observe(seconds)
     registry.emit({"kind": "span", "name": name, "labels": {},
-                   "seconds": float(seconds), **_trace_fields(ctx),
+                   "seconds": float(seconds),
+                   "start": time.time() - float(seconds) if start is None else start,
+                   **_trace_fields(ctx),
                    "fields": {k: v for k, v in attrs.items() if v is not None}})
 
 
@@ -158,9 +165,10 @@ class TracedSpan:
         self.attrs = dict(attrs)
         self.seconds: Optional[float] = None
         self._t0: Optional[float] = None
+        self._start: Optional[float] = None
 
     def __enter__(self) -> "TracedSpan":
-        self._t0 = self.registry.clock()
+        self._t0, self._start = self.registry.clock(), time.time()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
@@ -168,7 +176,7 @@ class TracedSpan:
         if exc_type is not None:
             self.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
         emit_span(self.registry, self.name, self.ctx, self.seconds,
-                  **self.attrs)
+                  start=self._start, **self.attrs)
 
 
 class RequestTracer:
