@@ -7,7 +7,7 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
-3. kernels: each of the fifteen kernel entries against its plain PyTorch
+3. kernels: each of the sixteen kernel entries against its plain PyTorch
    version on the card, at the shapes of its main path and at ragged shapes (for the
    sparse kernels: pad entries, a pad row, an all-pad node, and a touched-
    block map one slot too short; for the serving kernel: tied classes, pad
@@ -43,7 +43,12 @@ Phases, each of which exits non-zero on failure:
    plain version at the real CCAT minibatch, at every blk_d and from a W
    off the 16-byte grid;
    ``ell_grad_update_prefetch_fold`` bit for bit the buckets kernel
-   followed by ``fold_buckets``; ``ell_margins_prefetch_coeff``'s margins
+   followed by ``fold_buckets``; ``ell_grad_update_fused`` bit for bit the
+   touched-block map followed by ``ell_margins_prefetch_coeff`` and
+   ``ell_grad_update_prefetch_fold`` (main, ragged, undersized), timed beside
+   that route (torch.profiler) and at B 1 to 64 beside the route's whole
+   call (host and device time of each);
+   ``ell_margins_prefetch_coeff``'s margins
    bit for bit the margins entry's and its coefficients bit for bit
    ``torch.where(margins < 1, y, 0)`` (main, ragged, undersized), timed
    beside the margins entry followed by that ``where``; the sweep's
@@ -79,18 +84,19 @@ Phases, each of which exits non-zero on failure:
    iteration, the same numbers on both devices), W within 1e-4 and the objective trace within 1e-5 relative;
 7. sparse main path: GADGET on CCAT as ELL planes at full width
    (d = 47,236, k = 76; rows cut to scale 0.1) with the paper's CCAT config
-   and ``sparse_schedule="auto"``, which must resolve to the prefetch pair
-   at blk_d = 128; ``ell_margins_prefetch_coeff`` and
-   ``ell_grad_update_prefetch_fold`` launched once per iteration (the
-   margins-only entry never), held to the quality limits below; device
+   and ``sparse_schedule="auto"``, which must resolve to the prefetch
+   schedule at blk_d = 128; ``ell_grad_update_fused`` launched once per
+   iteration (no other sparse kernel) and the registry's ``kernel.launches``
+   naming it alone, held to the quality limits below; device
    time and kernel launches an iteration from torch.profiler;
 8. sweep path: the same data with ``sparse_schedule="sweep"`` for 400
    iterations, ``ell_margins_coeff`` and ``ell_grad_update`` once per
    iteration (the margins-only entry never), profiled as phase 7;
 9. sparse parity: 200 iterations of the phase 7 config on the card against
    their CPU replay (W within 1e-4, objective 1e-5 relative), prefetch
-   against sweep on the card on the same draws (W bit for bit: both margins
-   run one kernel body, and the map is sound), and reuters' ELL planes
+   against sweep on the card on the same draws (W bit for bit: the fused
+   half-step's margins run the margins kernel's rows and its fold the sweep
+   grad's scatter, and the map is sound), and reuters' ELL planes
    against their dense form on the same draws (consensus within 1e-5);
 10. serving: the phase 7 model as a ``Snapshot``, exported f32 and int8,
     loaded with ``SvmServer.load``, and all CCAT test queries served twice
@@ -144,8 +150,8 @@ Phases, each of which exits non-zero on failure:
 17. the anytime export: a faulted reuters stream (1000 iterations in
     segments of 500) bit for bit ``gadget_train``; the CCAT stream of phase
     7's config in segments of 500 bit for bit ``gadget_train`` with
-    ``check_every=500``, ``ell_margins_prefetch_coeff`` and
-    ``ell_grad_update_prefetch_fold`` once an iteration; the run killed after
+    ``check_every=500``, ``ell_grad_update_fused`` once an iteration; the
+    run killed after
     two segments, its train state written with ``to_checkpoint`` and read
     back with ``train_state_from_checkpoint``, resumed bit for bit the
     uninterrupted run; ``snapshot_every=500, snapshot_slots=4``: the last four
@@ -194,7 +200,7 @@ Phases, each of which exits non-zero on failure:
     and ``grad_update`` a step a rank) against the plain step (W 1e-4); the
     four fault checks (inert plan bit-identical, a dead rank frozen at zero,
     message drops finite and different, an out-of-range id raising); the
-    ELL planes through the prefetch pair against the dense step (1e-5 after
+    ELL planes through the prefetch schedule against the dense step (1e-5 after
     3 steps, 1e-4 after 200); ``make_mesh_scorer`` over reuters' test set
     (padded to 3,300) through ``dense_scores`` against one-process
     ``dense_predict``; ``gossip_mix`` keeping the mean and a full schedule
@@ -317,6 +323,9 @@ SPARSE_PARITY_ATOL = 1e-5   # phase 9: ELL against dense (prefetch against sweep
 # CPU, same data and config, draw seeds 0 and 1): see PERF.md
 CCAT_MIN_ACCURACY, CCAT_MAX_OBJECTIVE = 0.72, 0.70
 CCAT_SCALE = 0.1
+# the kernels of CCAT's half-step at the paper's B = 1 (phase 7 holds the
+# route rule to it): the fused entry, once an iteration
+CCAT_HALF_STEP = ("ell_grad_update_fused",)
 SERVE_ROWS, SERVE_MIN_K = 8, 19   # the bucket ladder of examples/serve_batched.py
 SERVE_SAMPLE = 2000               # training rows the buckets are calibrated on
 INT8_MIN_AGREEMENT = 0.9          # int8 against f32 labels, the example's bar
@@ -333,6 +342,9 @@ REPLACES = {
     "ell_margins_prefetch_coeff": "src/repro/kernels/hinge_subgrad/sparse.py:210",
     "ell_grad_update_prefetch": "src/repro/kernels/hinge_subgrad/sparse.py:259",
     "ell_grad_update_prefetch_fold": "src/repro/kernels/hinge_subgrad/sparse.py:259",
+    "ell_grad_update_fused": "src/repro/kernels/hinge_subgrad/sparse.py:210 and :259 on the "
+                             "prefetch path, with the block map before them (jnp in "
+                             "src/repro/kernels/hinge_subgrad/ops.py)",
     "ell_scores_prefetch": "src/repro/kernels/hinge_subgrad/predict.py:169",
 }
 TRANSFORMER_REPLACES = {
@@ -855,20 +867,20 @@ def check_nan_labels(torch, name, got, want, nan_rows, label, n_classes) -> None
             f"{name}: labels of the rows without NaN are not the argmax")
 
 
-def ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=0):
-    """One CCAT minibatch as ``gadget_train`` draws it at B = 1: a uniform
-    valid row of every node, as (cols, vals, y) of shapes (m, 1, k) and (m, 1)."""
+def ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=0, B=1):
+    """One CCAT minibatch as ``gadget_train`` draws it: B uniform valid rows
+    of every node, as (cols, vals, y) of shapes (m, B, k) and (m, B)."""
     rng = np.random.default_rng(seed)
     m = parts.cols.shape[0]
-    rows = np.array([rng.integers(0, c) for c in n_counts])
-    node = np.arange(m)
-    return (torch.from_numpy(parts.cols[node, rows][:, None]).to(dev),
-            torch.from_numpy(parts.vals[node, rows][:, None]).to(dev),
-            torch.from_numpy(y_parts[node, rows][:, None]).to(dev))
+    rows = np.array([rng.integers(0, c, size=B) for c in n_counts])
+    node = np.arange(m)[:, None]
+    return (torch.from_numpy(parts.cols[node, rows]).to(dev),
+            torch.from_numpy(parts.vals[node, rows]).to(dev),
+            torch.from_numpy(y_parts[node, rows]).to(dev))
 
 
 def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
-    """The sparse kernels' seven entries against their plain versions at the
+    """The sparse kernels' eight entries against their plain versions at the
     CCAT main path's shape (a real minibatch, its touched-block map at the
     data's bound) and at a ragged shape with pad entries, a pad row, an
     all-pad node, and the map at the sound cap and one slot short (the sweep
@@ -1010,6 +1022,51 @@ def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
                                  n_blocks_max=n_blocks_max, blk_d=blk_pf),
             shape=f"{main_shape}, map ({m}, {n_blocks_max})"),
     }
+
+    def fused_pf(n_d):
+        def plain(c, v, w, yy, sc, cap):  # the map, then the plain pair
+            b_ = ops.ell_block_map(c, v, blk_d=blk_pf, n_d_blocks=n_d, n_blocks_max=cap)
+            _, cf_ = S.ell_margins_prefetch_coeff_plain(c, v, w, yy, b_, blk_d=blk_pf,
+                                                        n_d_blocks=n_d)
+            return S.ell_grad_update_prefetch_fold_plain(c, v, cf_, b_, w, sc, blk_d=blk_pf,
+                                                         n_d_blocks=n_d)
+        return (lambda c, v, w, yy, sc, cap: S.ell_grad_update_fused(
+                    c, v, w, yy, sc, blk_d=blk_pf, n_d_blocks=n_d, n_blocks_max=cap), plain)
+    cases["ell_grad_update_fused"] = dict(
+        run=fused_pf(nd), inputs={
+            "main": (cols, vals, W, y, scal, n_blocks_max),
+            "ragged": (rcols, rvals, rW, ry, rscal, live),
+            "undersized": (rcols, rvals, rW, ry, rscal, live - 1)},
+        ragged_run=fused_pf(rnd),
+        cost=ops.launch_cost("ell_grad_update_fused", m=m, B=B, k=k, d=d),
+        shape=f"{main_shape}, map of {n_blocks_max} blocks in shared memory")
+
+    def chain(c_, v_, w_, y_, sc_, cap, n_d):  # the route the fused entry replaces
+        b_ = ops.ell_block_map(c_, v_, blk_d=blk_pf, n_d_blocks=n_d, n_blocks_max=cap)
+        _, cf_ = S.ell_margins_prefetch_coeff(c_, v_, w_, y_, b_, blk_d=blk_pf, n_d_blocks=n_d)
+        return S.ell_grad_update_prefetch_fold(c_, v_, cf_, b_, w_, sc_, blk_d=blk_pf,
+                                               n_d_blocks=n_d)
+    # the fused half-step is the map, the coefficient entry and the fold, bit for bit
+    for which, n_d in (("main", nd), ("ragged", rnd), ("undersized", rnd)):
+        args = cases["ell_grad_update_fused"]["inputs"][which]
+        got = cases["ell_grad_update_fused"]["run" if which == "main" else "ragged_run"][0](*args)
+        want = chain(*args, n_d)
+        require(torch.equal(got, want),
+                f"ell_grad_update_fused {which}: not the map + ell_margins_prefetch_coeff + "
+                f"ell_grad_update_prefetch_fold bit for bit (max diff "
+                f"{float((got - want).abs().max()):.3e})")
+    # kernel time of the route it replaces and of the fused entry, torch.profiler
+    # over 20 calls of each (the map's launches would overflow the launch queue)
+    main_args = cases["ell_grad_update_fused"]["inputs"]["main"]
+    fused_main = cases["ell_grad_update_fused"]["run"][0]
+    route = profile_iterations(torch, lambda: [chain(*main_args, nd) for _ in range(20)])
+    fused_one = profile_iterations(torch, lambda: [fused_main(*main_args) for _ in range(20)])
+    log("  ell_grad_update_fused equals the map + ell_margins_prefetch_coeff + "
+        "ell_grad_update_prefetch_fold bit for bit (main, ragged, undersized); kernel time a "
+        f"call (torch.profiler): the route's {route['kernel_launches'] / 20:.0f} launches "
+        f"{route['kernel_us'] / 20:.2f} us, the fused entry's "
+        f"{fused_one['kernel_launches'] / 20:.0f} {fused_one['kernel_us'] / 20:.2f} us")
+    crossover = fused_crossover(torch, S, ops, ccat, lam, dev)
     # the short map really loses entries, or the undersized case tests nothing
     cut = S.ell_margins_prefetch_plain(rcols, rvals, rW, ry, rcut, blk_d=blk_pf, n_d_blocks=rnd)
     require(not torch.allclose(cut, S.ell_margins_plain(rcols, rvals, rW, ry)),
@@ -1140,10 +1197,69 @@ def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
     results["ell_grad_update_prefetch_fold"].update(
         replaced_launches=replaced, replaced_kernel_ms=replaced_us * 1e-3,
         profiled_kernel_ms=fused_us * 1e-3)
+    results["ell_grad_update_fused"].update(
+        replaced_launches=route["kernel_launches"] / 20,
+        replaced_kernel_ms=route["kernel_us"] / 20 * 1e-3,
+        profiled_kernel_ms=fused_one["kernel_us"] / 20 * 1e-3, crossover=crossover)
     results["ell_margins_prefetch_coeff"].update(replaced_launches=4,
                                                  replaced_ms=margins_then_where_ms)
     results["ell_margins_coeff"].update(replaced_launches=4, replaced_ms=sweep_then_where_ms)
     return results
+
+
+def fused_crossover(torch, S, ops, ccat, lam, dev, Bs=(1, 2, 4, 8, 16, 32, 64)) -> list:
+    """The prefetch half-step (no projection) as ``ops.ell_fleet_half_step``
+    calls it, the fused entry, and as the map and pair it replaces, at CCAT
+    minibatches of B in ``Bs``: wall us a call (200 calls, then a sync: what
+    a host-paced loop pays) and kernel us a call (torch.profiler, 20 calls).
+    Each block's redundant map and margins grow with B, so the fused
+    entry's kernel time passes the pair's at some B; its wall time, what the
+    paper's runs pay, need not."""
+    parts, y_parts, n_counts = ccat
+    rows = []
+    for B in Bs:
+        cols, vals, y = ccat_minibatch(torch, parts, y_parts, n_counts, dev, seed=B, B=B)
+        W = 0.01 * torch.randn(cols.shape[0], parts.d, device=dev)
+        bound = parts.block_bound(B)
+        _, blk_d, cap = ops.resolve_ell_schedule("prefetch", B=B, k=cols.shape[-1], d=parts.d,
+                                                 n_blocks_max=bound)
+        n_d = -(-parts.d // blk_d)
+        scal = ops.step_scalars(lam, 1000, B)
+        row = {"B": B, "entries": B * cols.shape[-1], "n_blocks_max": bound}
+        outs = {}
+
+        def fused():
+            return S.ell_grad_update_fused(cols, vals, W, y, scal, blk_d=blk_d, n_d_blocks=n_d,
+                                           n_blocks_max=cap)
+
+        def pair():
+            b_ = ops.ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d, n_blocks_max=cap)
+            _, cf_ = S.ell_margins_prefetch_coeff(cols, vals, W, y, b_, blk_d=blk_d,
+                                                  n_d_blocks=n_d)
+            return S.ell_grad_update_prefetch_fold(cols, vals, cf_, b_, W, scal, blk_d=blk_d,
+                                                   n_d_blocks=n_d)
+        for name, call in (("fused", fused), ("pair", pair)):
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+            row[f"{name}_wall_us"] = (time.perf_counter() - t0) / 200 * 1e6
+            prof = profile_iterations(torch, lambda: [call() for _ in range(20)])
+            row[f"{name}_kernel_us"] = prof["kernel_us"] / 20
+            row[f"{name}_launches"] = prof["kernel_launches"] / 20
+            outs[name] = call()
+        row["same_bits"] = bool(torch.equal(outs["fused"], outs["pair"]))
+        log(f"    B {B:3d} ({row['entries']} entries, map {bound}): fused "
+            f"{row['fused_wall_us']:.1f} us wall, {row['fused_kernel_us']:.2f} us kernels "
+            f"in {row['fused_launches']:.0f} launches; map + pair {row['pair_wall_us']:.1f} "
+            f"us wall, {row['pair_kernel_us']:.2f} us in {row['pair_launches']:.0f}; "
+            f"same bits {row['same_bits']}")
+        require(row["same_bits"], f"the fused entry and the map + pair differ at B = {B}")
+        rows.append(row)
+    return rows
 
 
 def ccat_queries(X_te, ragged: bool) -> list:
@@ -1926,7 +2042,7 @@ def phase_faults(torch, ops, core, gadget_train, cfg, data, dev, reset, counts_o
 def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev, tmp, reset,
                   counts_of) -> dict:
     """Phase 17: the anytime export. A faulted reuters stream (the fused
-    kernel) and the CCAT stream at full width (the prefetch pair) bit for bit
+    kernel) and the CCAT stream at full width (the prefetch schedule) bit for bit
     ``gadget_train`` at the segment length; the CCAT run killed after two
     segments, its train state checkpointed, read back and resumed, bit for
     bit the uninterrupted run; the snapshot ring's last four snapshots bit
@@ -1962,8 +2078,7 @@ def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev,
     log(f"  CCAT stream: {len(segs)} segments to iteration {iters} in {stream_s:.3f} s "
         f"({iters / stream_s:.1f} it/s), objective {segs[-1].objective:.4f}, launches {launched(c)}")
     for name in KERNELS:
-        on_path = name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold")
-        require(c[name] == (iters if on_path else 0),
+        require(c[name] == (iters if name in CCAT_HALF_STEP else 0),
                 f"{name} launched {c[name]} times in {iters} stream iterations")
     mono = gadget_train(parts_c, y_c, cfg_c._replace(check_every=SEGMENT_ITERS), n_counts=n_c,
                         device=dev, snapshot_every=SEGMENT_ITERS, snapshot_slots=SNAPSHOT_SLOTS)
@@ -2000,8 +2115,7 @@ def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev,
                                "fleet_half_step": c_r["fleet_half_step"]},
             "ccat_stream": {"iters": iters, "segments": len(segs), "stream_s": stream_s,
                             "iters_per_s": iters / stream_s, "objective": segs[-1].objective,
-                            "ell_margins_prefetch_coeff": c["ell_margins_prefetch_coeff"],
-                            "ell_grad_update_prefetch_fold": c["ell_grad_update_prefetch_fold"]},
+                            **{name: c[name] for name in CCAT_HALF_STEP}},
             "snapshot_iterations": [s.iteration for s in snaps],
             "resumed_from": seg2.iteration}
 
@@ -2081,16 +2195,15 @@ def publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c, buck
     require(n_served == n_final, "the last served accuracy differs from the final consensus's")
     require(c["ell_scores_prefetch"] == batches,
             f"ell_scores_prefetch launched {c['ell_scores_prefetch']} times for {batches} batches")
-    require(c["ell_margins_prefetch_coeff"] == c["ell_grad_update_prefetch_fold"]
-            == final.iteration, f"the publisher's training launched {launched(c)}")
+    require(all(c[name] == final.iteration for name in CCAT_HALF_STEP),
+            f"the publisher's training launched {launched(c)}")
     require(state is not None and state.iteration == final.iteration,
             "the last checkpoint carries no train state")
     return {"published": pub.published, "installed": seen, "train_s": train_s,
             "serving_passes": passes, "batches": batches,
             "test_accuracy": n_served / len(queries),
             "ell_scores_prefetch": c["ell_scores_prefetch"],
-            "ell_margins_prefetch_coeff": c["ell_margins_prefetch_coeff"],
-            "ell_grad_update_prefetch_fold": c["ell_grad_update_prefetch_fold"]}
+            **{name: c[name] for name in CCAT_HALF_STEP}}
 
 
 def queries_csr(queries, d: int, CSR):
@@ -2648,7 +2761,7 @@ def _mesh_rank(rank, world, backend, rdv, work, device_type) -> None:
     X = torch.zeros((n_r, d), dtype=torch.float32, device=dev).scatter_add_(1, cols.long(), vals)
     cfg = PAPER_RUNS["reuters"].gadget
     mesh_fns = (K.margins, K.grad_update, P.dense_scores, S.ell_margins_prefetch_coeff,
-                S.ell_grad_update_prefetch_fold)
+                S.ell_grad_update_prefetch_fold, S.ell_grad_update_fused)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in mesh_fns}
@@ -2724,7 +2837,8 @@ def _mesh_rank(rank, world, backend, rdv, work, device_type) -> None:
                              err_3=float((w_s3 - w_d3).abs().max()),
                              err_200=float((w_s - w_k).abs().max()),
                              launches={k: c[k] for k in ("ell_margins_prefetch_coeff",
-                                                         "ell_grad_update_prefetch_fold")},
+                                                         "ell_grad_update_prefetch_fold",
+                                                         "ell_grad_update_fused")},
                              steps=MESH_SPARSE_CHECK_STEPS + MESH_STEPS)
 
         g = torch.Generator(device=dev).manual_seed(100 + rank)
@@ -2831,7 +2945,8 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
                 f"rank {r['rank']}: sparse mesh step against its plain version {sp}")
         require(sp["err_3"] <= SPARSE_PARITY_ATOL and sp["err_200"] <= PATH_W_ATOL,
                 f"rank {r['rank']}: sparse mesh step against dense {sp}")
-        require(all(n == sp["steps"] for n in sp["launches"].values()),
+        require(all(n == (sp["steps"] if name in CCAT_HALF_STEP else 0)
+                    for name, n in sp["launches"].items()),
                 f"rank {r['rank']}: sparse mesh launches {sp['launches']}")
         sc = r["scorer"]
         require(sc["err"] <= KERNEL_RTOL and sc["labels_equal"] and sc["dense_scores"] == 1
@@ -2856,10 +2971,10 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
                        margins=sum(r["dense_launches"]["margins"] for r in ranks),
                        grad_update=sum(r["dense_launches"]["grad_update"] for r in ranks),
                        dense_scores=sum(r["scorer"]["dense_scores"] for r in ranks),
-                       ell_margins_prefetch_coeff=sum(
-                           r["sparse"]["launches"]["ell_margins_prefetch_coeff"] for r in ranks),
-                       ell_grad_update_prefetch_fold=sum(
-                           r["sparse"]["launches"]["ell_grad_update_prefetch_fold"] for r in ranks))
+                       **{name: sum(r["sparse"]["launches"][name] for r in ranks)
+                          for name in ("ell_margins_prefetch_coeff",
+                                       "ell_grad_update_prefetch_fold",
+                                       "ell_grad_update_fused")})
 
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
@@ -3882,9 +3997,8 @@ def example_serve(torch, K, P, S, X, dev) -> dict:
         f"batches, {out['server']['distinct_shapes']} shapes for {len(out['buckets'])} "
         f"buckets, serving launches {serve_launches}, int8 agreement {out['agree']:.4f}, "
         f"{sec:.1f} s")
-    pairs = (("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"),
-             ("ell_margins_coeff", "ell_grad_update"))
-    require(any(train_launches == {a: res.iters, b: res.iters} for a, b in pairs),
+    routes = (("ell_grad_update_fused",), ("ell_margins_coeff", "ell_grad_update"))
+    require(any(train_launches == {name: res.iters for name in route} for route in routes),
             f"serve_batched's training launched {train_launches} in {res.iters} iterations")
     require(delivered == sb.N_QUERIES == out["batcher"]["requests"],
             f"serve_batched delivered {delivered} of {sb.N_QUERIES} queries")
@@ -4051,8 +4165,8 @@ def wrappers(K, P, S, X) -> tuple:
     return (K.fleet_half_step, K.margins, K.grad_update, P.dense_scores, S.ell_margins,
             S.ell_margins_coeff, S.ell_grad_update, S.ell_margins_prefetch,
             S.ell_margins_prefetch_coeff,
-            S.ell_grad_update_prefetch, S.ell_grad_update_prefetch_fold, P.ell_scores_prefetch,
-            *X)
+            S.ell_grad_update_prefetch, S.ell_grad_update_prefetch_fold,
+            S.ell_grad_update_fused, P.ell_scores_prefetch, *X)
 
 
 def reset_counts(K, P, S, X) -> None:
@@ -4276,11 +4390,15 @@ def main() -> int:
                  device=dev)  # warm-up
     torch.cuda.synchronize()
     reset_counts(K, P, S, X)
+    registry = telemetry.default_registry()
+    accounted = {kind: registry.value("kernel.launches", kernel=kind) for kind in KERNELS}
     t0 = time.perf_counter()
     res_c = gadget_train(parts_c, y_c, cfg_c, n_counts=n_c, device=dev)
     torch.cuda.synchronize()
     sparse_s = time.perf_counter() - t0
     sparse_counts = counts(K, P, S, X)
+    accounted = {kind: registry.value("kernel.launches", kernel=kind) - n
+                 for kind, n in accounted.items()}
     scores = R.ell_matvec_flat(res_c.w_consensus, cols_te, vals_te)
     n_correct_c = int((torch.where(scores >= 0.0, 1.0, -1.0) == y_te).sum())
     acc_c = n_correct_c / len(y_te)
@@ -4292,9 +4410,11 @@ def main() -> int:
             "sparse W not finite or misshaped")
     require(acc_c >= CCAT_MIN_ACCURACY, f"CCAT test accuracy {acc_c:.4f} < {CCAT_MIN_ACCURACY}")
     require(obj_c <= CCAT_MAX_OBJECTIVE, f"CCAT objective {obj_c:.4f} > {CCAT_MAX_OBJECTIVE}")
+    require(accounted == {kind: (res_c.iters if kind in CCAT_HALF_STEP else 0)
+                          for kind in KERNELS},
+            f"kernel.launches accounted {accounted} in {res_c.iters} sparse iterations")
     for name in KERNELS:
-        on_path = name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold")
-        want = res_c.iters if on_path else 0
+        want = res_c.iters if name in CCAT_HALF_STEP else 0
         require(sparse_counts[name] == want,
                 f"{name} launched {sparse_counts[name]} times in {res_c.iters} sparse iterations")
     prof_c = profile_iterations(torch, lambda: gadget_train(
@@ -4568,6 +4688,7 @@ def main() -> int:
                 "ell_margins_prefetch_coeff": sparse_counts["ell_margins_prefetch_coeff"],
                 "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
                 "ell_grad_update_prefetch_fold": sparse_counts["ell_grad_update_prefetch_fold"],
+                "ell_grad_update_fused": sparse_counts["ell_grad_update_fused"],
                 "ell_margins": sweep_counts["ell_margins"],
                 "ell_margins_coeff": sweep_counts["ell_margins_coeff"],
                 "ell_grad_update": sweep_counts["ell_grad_update"],
@@ -4578,11 +4699,14 @@ def main() -> int:
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
              "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
              "ell_margins_prefetch": "none: the margins-only entry, held in phase 3; sparse "
-                                     "training (phase 7) runs ell_margins_prefetch_coeff",
-             "ell_margins_prefetch_coeff": "sparse training, auto = prefetch (phase 7)",
+                                     "training (phase 7) runs ell_grad_update_fused",
+             "ell_margins_prefetch_coeff": "none: held in phase 3; sparse training (phase 7) "
+                                           "runs ell_grad_update_fused",
              "ell_grad_update_prefetch": "none: the buckets entry, held in phase 3; sparse "
-                                         "training (phase 7) runs ell_grad_update_prefetch_fold",
-             "ell_grad_update_prefetch_fold": "sparse training, auto = prefetch (phase 7)",
+                                         "training (phase 7) runs ell_grad_update_fused",
+             "ell_grad_update_prefetch_fold": "none: held in phase 3; sparse training (phase 7) "
+                                              "runs ell_grad_update_fused",
+             "ell_grad_update_fused": "sparse training, auto = prefetch (phase 7)",
              "ell_margins": "none: the margins-only entry, held in phase 3; sparse training, "
                             "sweep (phase 8) runs ell_margins_coeff",
              "ell_margins_coeff": "sparse training, sweep (phase 8)",
@@ -4612,7 +4736,7 @@ def main() -> int:
              "launches": mesh["gloo"][name]},
             {"path": f"dense mesh step over NCCL, world {mesh['nccl']['world']} (phase 21)",
              "launches": mesh["nccl"][name]}]
-    for name in ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"):
+    for name in CCAT_HALF_STEP:
         more_paths[name] += [
             {"path": "CCAT stream (phase 17)", "launches": anytime["ccat_stream"][name]},
             {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]},
@@ -4694,6 +4818,9 @@ def main() -> int:
     tolerance = {name: f"rel {KERNEL_RTOL}" for name in KERNELS}
     tolerance["ell_margins_prefetch_coeff"] += ("; margins bit for bit the margins entry's, "
                                                 "coefficients bit for bit torch.where of them")
+    tolerance["ell_grad_update_fused"] += ("; bit for bit the touched-block map, "
+                                           "ell_margins_prefetch_coeff and "
+                                           "ell_grad_update_prefetch_fold in turn")
     tolerance["ell_margins_coeff"] += ("; margins bit for bit ell_margins' and, at the sound map, "
                                        "ell_margins_prefetch_coeff's; coefficients bit for bit "
                                        "torch.where of them")

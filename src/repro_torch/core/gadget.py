@@ -18,8 +18,9 @@ kernel's minibatch cap) and the R Push-Sum rounds are one collapsed (m, m)
 product; ``fused=False`` runs ``margins`` and ``grad_update``, each one
 launch for the fleet (the reference vmaps them over the nodes), and the R
 rounds in order. On ELL partitions steps (a)-(e) are always fleet-wide
-(``ops.ell_fleet_half_step``: two launches, the sweep or the touched-block
-pair per ``cfg.sparse_schedule``), and ``fused`` selects only the mixing.
+(``ops.ell_fleet_half_step``: per ``cfg.sparse_schedule`` the sweep's two
+launches or the touched-block schedule's one), and ``fused`` selects only
+the mixing.
 Push-Sum pushes n_i·w̃_i with mass n_i, so the consensus is the
 data-weighted mean Σ n_i ŵ_i / N, also under non-uniform ``n_counts``.
 
@@ -640,8 +641,8 @@ class _Run:
             k = max(int(self.X[0].shape[-1]), 1)
             schedule, blk_d, n_blocks_max = ops.resolve_ell_schedule(
                 cfg.sparse_schedule, B=B, k=k, d=d, n_blocks_max=self.block_bound)
-            kinds = (("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold")
-                     if schedule == "prefetch" else ("ell_margins_coeff", "ell_grad_update"))
+            kinds = (("ell_grad_update_fused",) if schedule == "prefetch"
+                     else ("ell_margins_coeff", "ell_grad_update"))
             for kind in kinds:
                 ops.record_launch(kind, n_iters, registry=reg, m=m, B=B, k=k, d=d,
                                   n_blocks_max=n_blocks_max, blk_d=blk_d)

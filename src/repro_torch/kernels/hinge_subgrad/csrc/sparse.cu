@@ -2,7 +2,8 @@
 // ell_margins, ell_grad_update (the sweep pair) and ell_margins_prefetch,
 // ell_grad_update_prefetch (the touched-block pair), each margins kernel
 // also with the violator coefficients and the touched-block grad also
-// folded into W, as second entries. Plain C entry points,
+// folded into W, as second entries, and the whole prefetch half-step in
+// one kernel (ell_grad_update_fused). Plain C entry points,
 // loaded with ctypes by repro_torch/kernels/hinge_subgrad/sparse.py; each
 // returns cudaGetLastError() after its launch.
 //
@@ -20,6 +21,9 @@
 //                             the margins, and the margins with the coefficients
 //   ell_grad_update_prefetch  (pallas_call at :259, body :234), as two entries:
 //                             the buckets G, and G folded into W
+// ell_grad_update_fused is, on the prefetch path, the counterpart of both
+// prefetch kernels (sparse.py:210 and :259) and of the block map before them
+// (jnp in the reference, ops.py), in one kernel.
 // The TPU kernels walk w in d-blocks and gather or scatter with a one-hot
 // (B*k, blk_d) matrix product, the TPU's way to gather on its matrix unit;
 // the prefetch pair scalar-prefetches a map of live block ids so that each
@@ -107,6 +111,28 @@
 //   by the plain fold (sparse.py's fold_buckets), in one launch that reads
 //   W and the entries once and writes W_half once (3.8 MB at CCAT, a
 //   bandwidth bound of 1.13 us; the launch and two round trips cost more).
+// * The fused half-step (ell_grad_update_fused), the prefetch schedule's
+//   whole half-step (ops.py routes every prefetch call to it). What
+//   bounds it is one read of W and one write of W_half, 2 m d 4 B = 3.78 MB
+//   at CCAT (1.13 us at 3.35 TB/s), and in practice the launch: at the
+//   paper's B = 1 the two-kernel route also built the touched-block map in
+//   about 16 small PyTorch launches (a segmented radix sort among them), so
+//   the host's dispatch, not the device, paced the half-step. Here one
+//   launch does it all, on the fold kernel's grid: every block of a node
+//   builds the node's map from the entries themselves (a bitmap of the live
+//   d-blocks, cut to the n_blocks_max lowest, as the map's ascending ids
+//   are), computes all B margins and coefficients of its node with the
+//   margins kernel's layout and sequence of fmafs (76 gathers a block at
+//   CCAT: nothing beside a launch), and folds its tile as the fold kernel
+//   does. Every block holds what it needs, so no block waits for another,
+//   and W_half is bit for bit the map, ell_margins_prefetch_coeff and
+//   ell_grad_update_prefetch_fold in turn. Measured at CCAT on an H100: 5.1-
+//   5.4 us a call against the route's 44-45 us of kernels in 16 launches.
+//   Each block's map and margins grow with B k, so the kernel adds about
+//   3.9 us of device a row where the route adds 2.9 (the scatter's walk over
+//   shared lanes, in both, most of it), and the route's kernels cost less
+//   from about 4,000 entries on; the route's call still took longer on the
+//   host at every B up to 64 measured (45-251 us against 333-716).
 #include "ell_gather.cuh"
 
 namespace repro_torch {
@@ -203,12 +229,23 @@ struct Entry {
   float val, c;
 };
 
+// A row's coefficient: from device memory (written by a margins kernel) or
+// from shared memory (formed in the same block).
+struct GlobalCoeff {
+  const float* p;
+  __device__ __forceinline__ float operator()(long long b) const { return __ldg(p + b); }
+};
+struct SharedCoeff {
+  const float* p;
+  __device__ __forceinline__ float operator()(long long b) const { return p[b]; }
+};
+
+template <class Coeff>
 __device__ __forceinline__ Entry load_entry(const int* __restrict__ cols,
-                                            const float* __restrict__ vals,
-                                            const float* __restrict__ coeff, int k,
-                                            long long n, long long e) {
+                                            const float* __restrict__ vals, const Coeff& coeff,
+                                            int k, long long n, long long e) {
   if (e >= n) return {-1, 0.f, 0.f};
-  return {__ldg(cols + e), __ldg(vals + e), __ldg(coeff + e / k)};
+  return {__ldg(cols + e), __ldg(vals + e), coeff(e / k)};
 }
 
 // acc[0, n_lanes) (shared memory) = per lane, the sum in entry order of
@@ -225,12 +262,11 @@ __device__ __forceinline__ Entry load_entry(const int* __restrict__ cols,
 // otherwise every thread walks the round's kept entries in order and adds
 // those on its lanes l (l % kThreads == thread), so each lane's sum runs in
 // entry order either way. The caller may read any lane after the return.
-template <class Own>
+template <class Own, class Coeff>
 __device__ __forceinline__ void scatter_own(const int* __restrict__ cols,
-                                            const float* __restrict__ vals,
-                                            const float* __restrict__ coeff, int B, int k,
-                                            Entry first, const Own& own, float* acc, int* claim,
-                                            int n_lanes, KeptEntries& kept) {
+                                            const float* __restrict__ vals, const Coeff& coeff,
+                                            int B, int k, Entry first, const Own& own, float* acc,
+                                            int* claim, int n_lanes, KeptEntries& kept) {
   for (int l = threadIdx.x; l < n_lanes; l += kThreads) {
     acc[l] = 0.f;
     claim[l] = kThreads;
@@ -342,7 +378,7 @@ ell_grad_update_kernel(const int* __restrict__ cols, const float* __restrict__ v
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   const size_t plane = static_cast<size_t>(i) * B * k;
-  const float* ci = coeff + static_cast<size_t>(i) * B;
+  const GlobalCoeff ci{coeff + static_cast<size_t>(i) * B};
   const Entry first = load_entry(cols + plane, vals + plane, ci, k,
                                  static_cast<long long>(B) * k, threadIdx.x);
   scatter_own(cols + plane, vals + plane, ci, B, k, first, ColumnLanes{c0, lanes}, acc, claim,
@@ -376,15 +412,16 @@ ell_grad_update_prefetch_kernel(const int* __restrict__ cols, const float* __res
   const int j0 = blockIdx.x * slots;
   const int ns = min(slots, n_blocks_max - j0);
   const size_t plane = static_cast<size_t>(i) * B * k;
-  const Entry first = load_entry(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B,
-                                 k, static_cast<long long>(B) * k, threadIdx.x);
+  const GlobalCoeff ci{coeff + static_cast<size_t>(i) * B};
+  const Entry first = load_entry(cols + plane, vals + plane, ci, k,
+                                 static_cast<long long>(B) * k, threadIdx.x);
   if (static_cast<int>(threadIdx.x) < ns) {
     const int bid = __ldg(block_ids + static_cast<size_t>(i) * n_blocks_max + j0 + threadIdx.x);
     ids[threadIdx.x] = (bid >= 0 && bid < n_d_blocks) ? bid : -1;  // a sentinel matches nothing
   }
   __syncthreads();
   const int n_lanes = ns * blk_d;
-  scatter_own(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k, first,
+  scatter_own(cols + plane, vals + plane, ci, B, k, first,
               SlotLanes{ids, ns, blk_d}, acc, claim, n_lanes, kept);
   float* g = G + (static_cast<size_t>(i) * n_blocks_max + j0) * blk_d;
   for (int l = threadIdx.x; l < n_lanes; l += kThreads) g[l] = acc[l];
@@ -416,8 +453,9 @@ ell_grad_update_prefetch_fold_kernel(const int* __restrict__ cols, const float* 
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   const size_t plane = static_cast<size_t>(i) * B * k;
-  const Entry first = load_entry(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B,
-                                 k, static_cast<long long>(B) * k, threadIdx.x);
+  const GlobalCoeff ci{coeff + static_cast<size_t>(i) * B};
+  const Entry first = load_entry(cols + plane, vals + plane, ci, k,
+                                 static_cast<long long>(B) * k, threadIdx.x);
   const int* row = block_ids + static_cast<size_t>(i) * n_blocks_max;
   const int bid0 = static_cast<int>(threadIdx.x) < n_blocks_max ? __ldg(row + threadIdx.x) : -1;
   for (int q = threadIdx.x; q < nb; q += kThreads) live[q] = 0;
@@ -427,13 +465,159 @@ ell_grad_update_prefetch_fold_kernel(const int* __restrict__ cols, const float* 
     if (bid >= b0 && bid - b0 < nb && bid < n_d_blocks) live[bid - b0] = 1;
   }
   __syncthreads();
-  scatter_own(cols + plane, vals + plane, coeff + static_cast<size_t>(i) * B, B, k, first,
+  scatter_own(cols + plane, vals + plane, ci, B, k, first,
               TileLanes{live, c0, lanes, b0, blk_d}, acc, claim, lanes, kept);
   asm volatile("cp.async.wait_all;" ::: "memory");  // this thread's lanes of W have landed
   float* oi = out + static_cast<size_t>(i) * d + c0;
   for (int l = threadIdx.x; l < lanes; l += kThreads) {
     const float decayed = __fmul_rn(w_tile[l], one_minus_s0);
     oi[l] = live[(c0 + l) / blk_d - b0] ? __fadd_rn(decayed, __fmul_rn(s1, acc[l])) : decayed;
+  }
+}
+
+// The fused half-step's lanes: columns [c0, c0 + lanes) of W whose d-block
+// is set in the node's bitmap of kept blocks.
+struct KeptLanes {
+  const unsigned* kept;
+  int c0, lanes, blk_d, blk_shift;
+  __device__ __forceinline__ bool has(int col) const {
+    const int blk = blk_shift >= 0 ? col >> blk_shift : col / blk_d;
+    return (kept[blk >> 5] >> (blk & 31)) & 1u;
+  }
+  __device__ __forceinline__ int operator()(int col) const {
+    const int l = col - c0;
+    if (static_cast<unsigned>(l) >= static_cast<unsigned>(lanes)) return -1;
+    return has(col) ? l : -1;
+  }
+};
+
+// Keep the n_blocks_max lowest set bits of bitmap[0, nw), clear the rest:
+// one warp walks the words 32 at a time with a running count of the set
+// bits below. Call from all 32 lanes of one warp.
+__device__ __forceinline__ void keep_lowest(unsigned* bitmap, int nw, int n_blocks_max) {
+  const int lane = threadIdx.x & 31;
+  int below = 0;
+  for (int base = 0; base < nw; base += 32) {
+    const int q = base + lane;
+    unsigned word = q < nw ? bitmap[q] : 0u;
+    const int cnt = __popc(word);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFullMask, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int room = n_blocks_max - (below + incl - cnt);  // slots left before this word
+    if (room <= 0) {
+      word = 0u;
+    } else {
+      while (__popc(word) > room) word &= ~(1u << (31 - __clz(word)));  // drop the highest
+    }
+    if (q < nw) bitmap[q] = word;
+    below += __shfl_sync(kFullMask, incl, 31);
+  }
+}
+
+// The whole sparse half-step of node blockIdx.y over columns [c0, c0 +
+// kTileLanes): the node's touched-block map, its margins and violator
+// coefficients, and the fold of its kept entries into W's tile. Every block
+// of the node builds the same map and the same coefficients, so no block
+// waits for another. The map is a bitmap (one bit per d-block, dynamic shared
+// memory) of the blocks some live entry (val != 0, column in [0, n_d_blocks
+// blk_d)) touches, cut to the n_blocks_max lowest: the set ell_block_map's
+// ascending ids hold, sentinels aside. The margins are ell_margins_prefetch
+// _kernel's rows (margin_row_threads, the same waves and sums) against that
+// bitmap, kThreads / tpr rows a pass; the coefficients (B floats after the
+// bitmap) are its (margin < 1) ? y : 0; the fold is the fold kernel's, with
+// the bitmap in place of its map's live flags.
+__global__ void __launch_bounds__(kThreads)
+ell_grad_update_fused_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                             const float* __restrict__ W, const float* __restrict__ y,
+                             float* __restrict__ out, int B, int k, int d, int n_blocks_max,
+                             int blk_d, int blk_shift, int n_d_blocks, int tpr,
+                             float one_minus_s0, float s1) {
+  extern __shared__ unsigned bitmap[];  // bitmap_words(n_d_blocks) words, then B coefficients
+  __shared__ float acc[kTileLanes];
+  __shared__ int claim[kTileLanes];
+  __shared__ float w_tile[kTileLanes];
+  __shared__ KeptEntries kept;
+  __shared__ float partial[kWarps];
+  const int nw = bitmap_words(n_d_blocks);
+  float* coeff = reinterpret_cast<float*>(bitmap + nw);
+  const int i = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kTileLanes;
+  const int lanes = min(kTileLanes, d - c0);
+  const float* Wi = W + static_cast<size_t>(i) * d;
+  // W's tile copied to shared memory in the background (each thread its own
+  // lanes), while the entries are read and the margins taken
+  const float* wi = Wi + c0;
+  for (int l = tid; l < lanes; l += kThreads) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(w_tile + l));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(wi + l) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const size_t plane = static_cast<size_t>(i) * B * k;
+  const int* ci = cols + plane;
+  const float* vi = vals + plane;
+  const long long n = static_cast<long long>(B) * k;
+  // this thread's entry of the first round (its coefficient set once known)
+  Entry first{-1, 0.f, 0.f};
+  if (tid < n) first = {__ldg(ci + tid), __ldg(vi + tid), 0.f};
+  for (int q = tid; q < nw; q += kThreads) bitmap[q] = 0u;
+  __syncthreads();  // the bitmap is zero
+  const long long span = static_cast<long long>(n_d_blocks) * blk_d;
+  for (long long e = tid; e < n; e += kThreads) {
+    const int col = e == tid ? first.col : __ldg(ci + e);
+    const float val = e == tid ? first.val : __ldg(vi + e);
+    if (val != 0.f && col >= 0 && col < span) {
+      const int blk = blk_shift >= 0 ? col >> blk_shift : col / blk_d;
+      atomicOr(bitmap + (blk >> 5), 1u << (blk & 31));
+    }
+  }
+  __syncthreads();  // the bitmap holds every live block
+  if (tid < 32) keep_lowest(bitmap, nw, n_blocks_max);
+  __syncthreads();  // the bitmap holds the kept blocks
+  const int rows = kThreads / tpr;
+  const int lane = tid & (tpr - 1);
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    const int b = b0 + tid / tpr;
+    const bool live = b < B;
+    const long long row = live ? b : 0;
+    int c[kRowEntries];
+    float v[kRowEntries], w[kRowEntries];
+    float sum = 0.f;
+    for (int s = 0; s < k; s += tpr * kRowEntries) {
+      load_wave(c, v, ci + row * k, vi + row * k, k, s, lane, tpr, live);
+      const unsigned use = wave_counts(c, v, d);
+      gather_wave(w, c, use, Wi);
+      sum = add_wave(sum, wave_in_map(c, use, bitmap, blk_d, blk_shift), v, w);
+    }
+    const float yb = live && lane == 0 ? __ldg(y + static_cast<size_t>(i) * B + row) : 0.f;
+    sum = warp_sum(sum);
+    if (tpr > 32) {  // the row's warps, summed in warp order by its first thread
+      if ((tid & 31) == 0) partial[tid >> 5] = sum;
+      __syncthreads();
+      if (lane == 0) {
+        sum = 0.f;
+        for (int q = 0; q < tpr / 32; ++q) sum += partial[(tid >> 5) + q];
+      }
+      __syncthreads();  // partial is read before the next pass writes it
+    }
+    if (live && lane == 0) {
+      const float mg = yb * sum;
+      coeff[b] = mg < 1.f ? yb : 0.f;
+    }
+  }
+  __syncthreads();  // the coefficients are in
+  if (tid < n) first.c = coeff[tid / k];
+  const KeptLanes own{bitmap, c0, lanes, blk_d, blk_shift};
+  scatter_own(ci, vi, SharedCoeff{coeff}, B, k, first, own, acc, claim, lanes, kept);
+  asm volatile("cp.async.wait_all;" ::: "memory");  // this thread's lanes of W have landed
+  float* oi = out + static_cast<size_t>(i) * d + c0;
+  for (int l = tid; l < lanes; l += kThreads) {
+    const float decayed = __fmul_rn(w_tile[l], one_minus_s0);
+    oi[l] = own.has(c0 + l) ? __fadd_rn(decayed, __fmul_rn(s1, acc[l])) : decayed;
   }
 }
 
@@ -563,6 +747,30 @@ extern "C" int ell_grad_update_prefetch_fold(const void* cols, const void* vals,
         static_cast<const float*>(coeff), static_cast<const int*>(block_ids),
         static_cast<const float*>(W), static_cast<float*>(out), B, k, d, n_blocks_max, blk_d,
         n_d_blocks, 1.f - s0, s1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols, vals (m, B, k), W (m, d), y (m, B) -> out (m, d): the sparse
+// half-step of every node in one launch, bit for bit the touched-block map
+// of n_blocks_max slots (ell_block_map), then ell_margins_prefetch_coeff and
+// ell_grad_update_prefetch_fold, a block per (node, kTileLanes columns).
+extern "C" int ell_grad_update_fused(const void* cols, const void* vals, const void* W,
+                                     const void* y, void* out, int m, int B, int k, int d,
+                                     int n_blocks_max, int blk_d, int n_d_blocks, float s0,
+                                     float s1, void* stream) {
+  if (blk_d < 1 || B < 1 || k < 1 || n_d_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(bitmap_words(n_d_blocks)) + B) * sizeof(unsigned);
+  const cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(ell_grad_update_fused_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (m > 0 && d > 0) {
+    const dim3 grid((d + kTileLanes - 1) / kTileLanes, m);
+    ell_grad_update_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const float*>(W), static_cast<const float*>(y), static_cast<float*>(out), B,
+        k, d, n_blocks_max, blk_d, block_shift(blk_d), n_d_blocks, margin_row_threads(k),
+        1.f - s0, s1);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,10 @@ the launch accounting on a telemetry registry (``launch_cost``,
 
 The step scalars ``α = 1/(λt)``, ``λα`` and ``α/B`` are formed in float32 as
 the reference forms them; the violator coefficients, the touched-block map
-of the prefetch schedule and the ball projection are plain PyTorch around
-the kernels, as they are jnp in the reference (both sparse schedules'
-coefficients and the prefetch buckets' fold into W, jnp there, are part of
-their kernels here). The kernels stream their
+and the ball projection are plain PyTorch around the kernels, as they are
+jnp in the reference (both sparse schedules' coefficients are part of their
+kernels here, and the prefetch schedule's map and fold into W too:
+``sparse.ell_grad_update_fused``; serving keeps the map). The kernels stream their
 inputs from device memory and have no tile limit, so unlike the reference
 there is no padding to (8, 128) blocks, no 128-lane class padding, no zero
 landing block after W, and no VMEM cut-over from the fused fleet kernel to
@@ -184,17 +184,18 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     the optional per-row ball projection.
 
     W: (m, d); cols/vals: (m, B, k) gathered minibatch planes (int32 and
-    float32; pad entries (0, 0), pad rows y=0); y: (m, B). Two kernel
-    launches, whichever the schedule (see :func:`resolve_ell_schedule`):
+    float32; pad entries (0, 0), pad rows y=0); y: (m, B). By schedule (see
+    :func:`resolve_ell_schedule`):
 
     * ``"sweep"``: ``ell_margins_coeff``, which writes the violator
       coefficients beside the margins, then ``ell_grad_update``, which
       writes the decayed and updated W itself.
-    * ``"prefetch"``: the touched-block map (:func:`ell_block_map`, with the
-      static ``n_blocks_max`` from ``formats.minibatch_block_bound``), then
-      ``ell_margins_prefetch_coeff``, which writes the violator coefficients
-      beside the margins, and ``ell_grad_update_prefetch_fold``, which
-      scatters per bucket and folds the sums into the decayed W.
+    * ``"prefetch"``: ``ell_grad_update_fused``, which builds the
+      touched-block map (the static ``n_blocks_max`` from
+      ``formats.minibatch_block_bound``), the margins and violator
+      coefficients, and the fold into the decayed W itself: the same bits
+      as :func:`ell_block_map`, ``ell_margins_prefetch_coeff`` and
+      ``ell_grad_update_prefetch_fold`` in turn.
     * ``"auto"``: prefetch exactly when it is cheaper in w-lanes.
 
     k = 0 planes are widened to one inert (0, 0) entry per row.
@@ -209,13 +210,8 @@ def ell_fleet_half_step(W: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         schedule, B=B, k=k, d=d, n_blocks_max=n_blocks_max, blk_d=blk_d)
     s0, s1 = step_scalars(lam, t, B)
     if schedule == "prefetch":
-        n_d_blocks = -(-d // blk_d)
-        bids = ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d_blocks,
-                             n_blocks_max=n_blocks_max)
-        _, coeff = S.ell_margins_prefetch_coeff(cols, vals, W, y, bids, blk_d=blk_d,
-                                                n_d_blocks=n_d_blocks)
-        W_half = S.ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, (s0, s1),
-                                                 blk_d=blk_d, n_d_blocks=n_d_blocks)
+        W_half = S.ell_grad_update_fused(cols, vals, W, y, (s0, s1), blk_d=blk_d,
+                                         n_d_blocks=-(-d // blk_d), n_blocks_max=n_blocks_max)
     else:
         # pad rows carry y=0, so their coefficient is 0 although margin 0 < 1
         _, coeff = S.ell_margins_coeff(cols, vals, W, y)
@@ -327,7 +323,10 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
     (all of W read and W_half written), ``ell_grad_update_prefetch``
     (the buckets G, ``m·n_blocks_max·blk_d``, written) and
     ``ell_grad_update_prefetch_fold`` (the entries and the map read, all of
-    W read and W_half written). ``fleet_half_step`` above
+    W read and W_half written) and ``ell_grad_update_fused`` (the entries
+    and the labels read, all of W read and W_half written: no map, margins
+    or coefficients leave the kernel; the margins' and the fold's
+    operations). ``fleet_half_step`` above
     ``hinge_subgrad.MAX_FLEET_B`` rows is its two-launch route: ``margins``
     plus ``grad_update``.
     """
@@ -349,6 +348,9 @@ def launch_cost(kind: str, *, m: int = 1, B: int = 0, d: int = 0, C: int = 1,
         return {"launches": 1,
                 "bytes": 4 * (2 * entries + m * B + m * n_blocks_max + 2 * m * d),
                 "flops": 2 * entries + 3 * m * d}
+    if kind == "ell_grad_update_fused":
+        return {"launches": 1, "bytes": 4 * (2 * entries + m * B + 2 * m * d),
+                "flops": 4 * entries + m * B + 3 * m * d}
     if kind == "margins":
         return {"launches": 1, "bytes": 4 * m * (B * d + d + 2 * B),
                 "flops": m * (2 * B * d + B)}

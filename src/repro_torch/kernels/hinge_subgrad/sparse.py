@@ -3,7 +3,9 @@
 ``ell_margins_prefetch`` and ``ell_grad_update_prefetch``, each margins
 kernel also with the violator coefficients (``ell_margins_coeff``,
 ``ell_margins_prefetch_coeff``) and the touched-block grad also folded into
-W as ``ell_grad_update_prefetch_fold`` (CUDA source: ``csrc/sparse.cu``).
+W as ``ell_grad_update_prefetch_fold``; and ``ell_grad_update_fused``, the
+whole touched-block half-step (map, margins, coefficients and fold) in one
+launch (CUDA source: ``csrc/sparse.cu``).
 
 The minibatch is two (m, B, k) planes, ``cols`` int32 and ``vals`` float32,
 with pad entries (col=0, val=0) and pad rows y=0, both inert. ``W`` is the
@@ -40,7 +42,7 @@ __all__ = ["ell_margins", "ell_margins_coeff", "ell_grad_update", "ell_margins_p
            "ell_grad_update_plain", "ell_margins_prefetch_plain",
            "ell_margins_prefetch_coeff_plain",
            "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
-           "fold_buckets", "MAX_BLK_D"]
+           "ell_grad_update_fused", "fold_buckets", "MAX_BLK_D"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -53,6 +55,7 @@ _SIGNATURES = {
     "ell_grad_update_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update_prefetch_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                       _F, _F, _P],
+    "ell_grad_update_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 MAX_BLK_D = 1024           # a prefetch block's lanes: its 256 threads own 4 each
 _MAX_BITMAP_BYTES = 227 * 1024
@@ -408,3 +411,51 @@ def ell_grad_update_prefetch_fold(cols: torch.Tensor, vals: torch.Tensor, coeff:
 
 
 ell_grad_update_prefetch_fold.launches = 0
+
+
+# ------------------------------------------------------ ell_grad_update_fused
+
+def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
+                          y: torch.Tensor, scal, *, blk_d: int, n_d_blocks: int,
+                          n_blocks_max: int) -> torch.Tensor:
+    """The touched-block half-step in one launch: the node's map of its
+    ``n_blocks_max`` lowest live d-blocks (of ``blk_d`` columns), the margins
+    and violator coefficients over the entries in the map, and W_half =
+    (1 − s0)·W + s1·their scatter at the map's lanes. W: (m, d), y: (m, B),
+    ``scal`` = (λα, α/B). Returns W_half (m, d), bit for bit
+    ``ops.ell_block_map``, :func:`ell_margins_prefetch_coeff` and
+    :func:`ell_grad_update_prefetch_fold` in turn, which is what it runs on
+    the CPU. The bitmap of the d-blocks and the B coefficients share a
+    block's shared memory, which bounds B (about 54,000 rows at CCAT's d)."""
+    if _build.on_cpu(cols, vals, W, y):
+        from repro_torch.kernels.hinge_subgrad.ops import ell_block_map
+        bids = ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d_blocks,
+                             n_blocks_max=n_blocks_max)
+        _, coeff = ell_margins_prefetch_coeff(cols, vals, W, y, bids, blk_d=blk_d,
+                                              n_d_blocks=n_d_blocks)
+        return ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, scal, blk_d=blk_d,
+                                             n_d_blocks=n_d_blocks)
+    m, B, k, d = _check_margins(cols, vals, W, y)
+    if B < 1 or k < 1:
+        raise ValueError(f"ell_grad_update_fused takes B >= 1 and k >= 1, got B={B}, k={k}")
+    if not 1 <= blk_d <= MAX_BLK_D:
+        raise ValueError(f"blk_d must lie in [1, {MAX_BLK_D}], got {blk_d}")
+    if n_blocks_max < 1:
+        raise ValueError(f"n_blocks_max must be at least 1, got {n_blocks_max}")
+    check_bitmap(n_d_blocks, d, blk_d)
+    room = _MAX_BITMAP_BYTES - 16 * 1024  # less the kernel's own 14.4 KB of tiles
+    if ((n_d_blocks + 31) // 32 + B) * 4 > room:
+        raise ValueError(f"a bitmap of {n_d_blocks} blocks and B={B} coefficients exceed "
+                         f"the {room} bytes of a block's shared memory they share")
+    s0, s1 = _f32_pair(scal)
+    out = torch.empty_like(W)
+    with torch.cuda.device(W.device):
+        code = _lib().ell_grad_update_fused(
+            cols.data_ptr(), vals.data_ptr(), W.data_ptr(), y.data_ptr(), out.data_ptr(), m, B,
+            k, d, min(n_blocks_max, n_d_blocks), blk_d, n_d_blocks, s0, s1, _build.stream(W))
+    _build.check(code, "ell_grad_update_fused")
+    ell_grad_update_fused.launches += 1
+    return out
+
+
+ell_grad_update_fused.launches = 0

@@ -15,6 +15,10 @@ except ImportError:  # bare container: install the deterministic fallback shim
     sys.modules["hypothesis.strategies"] = _hf.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card; skipped without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

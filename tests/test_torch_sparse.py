@@ -349,11 +349,16 @@ def test_ell_fleet_half_step_matches_reference(schedule, project):
 
 
 @pytest.mark.parametrize("m,B,k,d,cut", [(3, 5, 13, 1001, 0), (3, 5, 13, 1001, 1),
-                                         (4, 1, 76, 5000, 0)])
+                                         (4, 1, 76, 5000, 0), (1, 1, 76, 5000, 0),
+                                         (1, 4, 76, 5000, 2), (2, 16, 30, 3000, 0),
+                                         (2, 2, 200, 3000, 0), (3, 5, 13, 1001, 3),
+                                         (2, 8, 7, 9000, 0), (5, 3, 1, 640, 0),
+                                         (2, 33, 5, 1001, 1)])
 def test_ell_fleet_half_step_prefetch_matches_reference(m, B, k, d, cut):
-    """The prefetch schedule (the coefficient entry, then the fused grad)
-    against the reference's at 1e-5, at a sound map and one ``cut`` slots
-    short of the data's bound."""
+    """The prefetch schedule (``ell_grad_update_fused``: on the CPU the
+    map, the coefficient entry and the fold entry) against the reference's
+    at 1e-5, at a sound map and ``cut`` slots short of the data's bound, one
+    node to five, B from 1 to 33 and k from 1 to 200."""
     cols, vals, W, y = _planes(m, B, k, d, seed=31 + k, pad_node=True)
     W *= 0.3
     bound = R_fmt.minibatch_block_bound(cols, vals, B, d=d) - cut
@@ -366,7 +371,8 @@ def test_ell_fleet_half_step_prefetch_matches_reference(m, B, k, d, cut):
 
 
 def test_prefetch_dispatch_runs_the_coefficient_entry(monkeypatch):
-    """The prefetch schedule takes its coefficients from
+    """On the CPU the prefetch schedule's fused entry runs the chain it
+    replaces on the card, which takes its coefficients from
     ``ell_margins_prefetch_coeff``: the margins-only entry is not called."""
     calls = []
     coeff_entry = TS.ell_margins_prefetch_coeff

@@ -19,6 +19,7 @@ from repro.sparse import formats as R_fmt  # noqa: E402
 from repro_torch.core import gadget as TG  # noqa: E402
 from repro_torch.data import svm_datasets as T_ds  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import ops as TO  # noqa: E402
+from repro_torch.kernels.hinge_subgrad import sparse as TS  # noqa: E402
 from tests.test_torch_gadget import _assert_match, _reference_draws  # noqa: E402
 
 M, B, ITERS, CHECK = 4, 4, 40, 15
@@ -91,7 +92,9 @@ def test_port_partitions_train_like_reference_partitions():
 
 def test_quick_ccat_width_resolves_auto_to_prefetch(monkeypatch):
     """At CCAT's width (d = 47,236, k = 76) and the paper's B = 1 the auto
-    schedule is the prefetch pair, and a short run matches the reference."""
+    schedule is the prefetch schedule, its half-step the fused entry with
+    the data's bound once an iteration, and a short run matches the
+    reference."""
     ds = R_ds.make_dataset("ccat", scale=0.0005, seed=0, sparse=True)
     P, y, nc = R_ds.partition(ds.X_train, ds.y_train, M, seed=0)
     k = P.cols.shape[-1]
@@ -106,14 +109,14 @@ def test_quick_ccat_width_resolves_auto_to_prefetch(monkeypatch):
     ref = G.gadget_train(P, jnp.asarray(y), rcfg, n_counts=nc)
     ids, mix = _reference_draws(rcfg, y, nc, 10)
     calls = []
-    real = TO.ell_block_map
+    real = TS.ell_grad_update_fused
 
     def spy(*a, **kw):
         calls.append(kw["n_blocks_max"])
         return real(*a, **kw)
 
-    monkeypatch.setattr(TO, "ell_block_map", spy)
+    monkeypatch.setattr(TS, "ell_grad_update_fused", spy)
     port = TG.gadget_train(P, y, TG.GadgetConfig(**common), n_counts=nc, device="cpu",
                            draws=TG.RecordedDraws(ids, mix))
-    assert calls == [bound] * 10  # the prefetch map, once per iteration
+    assert calls == [bound] * 10  # the prefetch half-step, once per iteration
     _assert_match(ref, port)
