@@ -16,12 +16,6 @@ for p in (ROOT, ROOT / "src"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-# tiny sizes for the CPU: the configurations' widths cut, the mixes' segments
-# cut; every other key as in the real files
-SMALL_CONFIGS = {"ccat": {"n_train": 3000, "n_test": 400, "d": 2000},
-                 "reuters": {"n_train": 900, "n_test": 300, "d": 600}}
-SMALL_TRAFFIC = {"m10.b1": {"segment_iters": 6}}
-
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "chip: needs a CUDA card; skipped without one")
@@ -37,15 +31,15 @@ def card():
 
 
 def small_root(tmp: Path) -> Path:
-    """A copy of the benchmark with every configuration and mix cut small."""
+    """A copy of the benchmark with every configuration and mix file cut to
+    the sizes its own ``cpu_cut`` states; every other key as it is."""
     shutil.copytree(ROOT / "perfbench", tmp / "perfbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
-    for folder, cuts in (("configs", SMALL_CONFIGS), ("traffic", SMALL_TRAFFIC)):
-        for name, cut in cuts.items():
-            f = tmp / "perfbench" / folder / f"{name}.json"
+    for folder in ("configs", "traffic"):
+        for f in (tmp / "perfbench" / folder).glob("*.json"):
             data = json.loads(f.read_text())
-            data.update(cut)
+            data.update(data["cpu_cut"])
             f.write_text(json.dumps(data))
     return tmp
 

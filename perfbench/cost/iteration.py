@@ -55,6 +55,12 @@ def mix(m: int, d: int, nnz: float) -> dict:
     return {"bytes": F32 * (2 * m * d + 2 * m + nnz), "flops": 2 * nnz * (d + 1)}
 
 
+def projection(m: int, d: int) -> dict:
+    """The ball projection after gossip (step h): the mixed W read and the
+    projected W written; each row's norm and scale, 3 operations an entry."""
+    return {"bytes": 2 * F32 * m * d, "flops": 3 * m * d}
+
+
 def iteration(m: int, B: int, d: int, k: int | None, nnz: float) -> dict:
     """One whole iteration: W and W_sum read and written, the minibatch rows
     and labels read once, the mix's nonzeros read; the half-step's, the

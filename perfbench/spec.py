@@ -6,7 +6,8 @@ its own: ``configs/<config>.json`` (the file ``BENCHMARK.json`` names),
 comparison that decides ``correct``), and one reader
 ``metrics/<metric>.py`` for every per-layer metric the cell reports. A
 later cell, configuration, mix or metric is a new file; no file here names
-one.
+one. A configuration or mix file states its own cut for the CPU tests under
+``cpu_cut``, which the harness checks and never applies.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ CONFIG_KEYS = {"n_train": int, "n_test": int, "d": int, "sparsity": float, "lam"
 TRAFFIC_KEYS = {"m": int, "batch_size": int, "gossip_rounds": int, "topology": str,
                 "segment_iters": int, "warmup_segments": int}
 TOPOLOGIES = ("random", "exponential")
+# the keys a file's "cpu_cut" may replace (the tests' small_root applies it)
+CONFIG_CUT_KEYS = set(CONFIG_KEYS) | {"col_skew"}
+TRAFFIC_CUT_KEYS = set(TRAFFIC_KEYS)
 
 
 class SpecError(ValueError):
@@ -59,8 +63,15 @@ def _typed(data: dict, keys: dict, where: str) -> None:
             raise SpecError(f"{where}: {key!r} must be a {kind.__name__}, got {value!r}")
 
 
+def _check_cut(data: dict, known: set, where: str) -> None:
+    cut = data.get("cpu_cut")
+    if cut is not None and not (isinstance(cut, dict) and set(cut) <= known):
+        raise SpecError(f"{where}: 'cpu_cut' must be an object of keys among {sorted(known)}")
+
+
 def check_config(cfg: dict, where: str) -> dict:
     _typed(cfg, CONFIG_KEYS, where)
+    _check_cut(cfg, CONFIG_CUT_KEYS, where)
     if cfg["storage"] not in ("dense", "ell"):
         raise SpecError(f"{where}: storage must be 'dense' or 'ell'")
     if not (0 < cfg["sparsity"] <= 1 and cfg["lam"] > 0 and 0 < cfg["class_balance"] < 1
@@ -72,6 +83,7 @@ def check_config(cfg: dict, where: str) -> dict:
 
 def check_traffic(tr: dict, where: str) -> dict:
     _typed(tr, TRAFFIC_KEYS, where)
+    _check_cut(tr, TRAFFIC_CUT_KEYS, where)
     if tr["topology"] not in TOPOLOGIES:
         raise SpecError(f"{where}: topology must be one of {TOPOLOGIES}")
     if min(tr["m"], tr["batch_size"], tr["gossip_rounds"], tr["segment_iters"],

@@ -16,6 +16,13 @@ def test_half_step_hand_count():
                                           "flops": 4 * 24 + 6 + 6 * 10}
 
 
+def test_projection_hand_count():
+    # 2 nodes x 5 floats read and written; a square-add and a multiply an entry
+    assert work.projection(2, 5) == {"bytes": 4 * (10 + 10), "flops": 3 * 10}
+    # at kdda's fleet, one read and one write of 10 x 20,216,830 floats
+    assert work.projection(10, 20_216_830)["bytes"] == 2 * 4 * 202_168_300
+
+
 def test_mix_and_iteration_hand_count():
     assert work.mix(4, 10, 7) == {"bytes": 4 * (80 + 8 + 7), "flops": 2 * 7 * 11}
     it = work.iteration(2, 3, 5, 4, 7)

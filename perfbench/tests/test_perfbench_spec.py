@@ -1,12 +1,14 @@
 """The harness finds every file of a cell by name and refuses malformed ones."""
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 
 import pytest
+import torch
 
-from perfbench import spec
+from perfbench import run, spec
 
 BENCH = json.loads((spec.HERE.parent / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -58,6 +60,8 @@ def _corrupt(root, rel, edit):
     ("perfbench/traffic/m10.b1.json", lambda d: d.update(batch_size=0), "at least 1"),
     ("perfbench/traffic/m10.b1.json",
      lambda d: d.update(faults={"drop_prob": 1.5, "drop": "link"}), "faults"),
+    ("perfbench/configs/ccat.json", lambda d: d.update(cpu_cut={"width": 3}), "cpu_cut"),
+    ("perfbench/traffic/m10.b1.json", lambda d: d.update(cpu_cut=[6]), "cpu_cut"),
     ("perfbench/workloads/ccat.m10.b1.json", lambda d: d.update(limits={}), "limits"),
     ("BENCHMARK.json", lambda d: d["workloads"][0].update(config="nope"), "config"),
 ])
@@ -92,3 +96,57 @@ def test_a_later_metric_is_a_file_of_its_own(small):
         spec.load("reuters.m10.b1", small)
     (small / "perfbench/metrics/ones.py").write_text("def read(ctx):\n    return 1.0\n")
     assert spec.load("reuters.m10.b1", small).readers["ones"]({}) == 1.0
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(spec.HERE).as_posix() for folder in
+                                        ("configs", "traffic")
+                                        for p in (spec.HERE / folder).glob("*.json")))
+def test_every_configuration_and_mix_states_its_cpu_cut(path):
+    """The tests' small copy cuts each file by its own ``cpu_cut``: a file
+    without one would run at full size on the CPU."""
+    data = json.loads((spec.HERE / path).read_text())
+    assert isinstance(data.get("cpu_cut"), dict) and data["cpu_cut"], path
+    check = spec.check_config if path.startswith("configs/") else spec.check_traffic
+    check({**data, **data["cpu_cut"]}, path)
+
+
+def _digests(root):
+    return {p.relative_to(root).as_posix(): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_later_cell_is_new_files_only(small):
+    """A configuration, a mix and a cell added as new files and new entries of
+    ``BENCHMARK.json``: no file of the benchmark changes, the cell loads by
+    name with every per-layer metric, and it runs correct on the CPU."""
+    here = small / "perfbench"
+    before, bench = _digests(here), json.loads((small / "BENCHMARK.json").read_text())
+    old = json.loads(json.dumps(bench))
+    config = {**json.loads((spec.HERE / "configs/kdda.json").read_text()),
+              "name": "wide", "n_train": 2000, "n_test": 300, "d": 50000, "sparsity": 4e-4,
+              "col_skew": 1.1, "class_balance": 0.6, "lam": 5e-4}
+    config["cpu_cut"] = {"d": 50000}
+    traffic = {"m": 6, "batch_size": 2, "gossip_rounds": 3, "topology": "exponential",
+               "segment_iters": 5, "warmup_segments": 1, "cpu_cut": {"segment_iters": 5}}
+    limits = json.loads((spec.HERE / "workloads/ccat.m10.b1.json").read_text())
+    (here / "configs/wide.json").write_text(json.dumps(config))
+    (here / "traffic/m6.b2.json").write_text(json.dumps(traffic))
+    (here / "workloads/wide.m6.b2.json").write_text(json.dumps(limits))
+    bench["configs"].append({"name": "wide", "source": "a test", "file": "perfbench/configs/wide.json",
+                             "reduced": [], "why": "a later configuration"})
+    bench["workloads"].append({"name": "wide.m6.b2", "config": "wide", "traffic": "m6.b2",
+                               "chips": 1, "why": "a later cell"})
+    (small / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    after = _digests(here)
+    assert {k: after[k] for k in before} == before
+    assert set(after) - set(before) == {"configs/wide.json", "traffic/m6.b2.json",
+                                        "workloads/wide.m6.b2.json"}
+    for key in ("configs", "workloads"):
+        assert bench[key][:len(old[key])] == old[key]
+    cell = spec.load("wide.m6.b2", small)
+    assert set(cell.readers) == {e["name"] for e in bench["per_layer"]}
+    assert {e["name"] for e in cell.end_to_end} == {e["name"] for e in bench["end_to_end"]}
+    result = run.measure(cell, 2 ** 31 + 5, 0.2, False, torch.device("cpu"))
+    assert result["correct"] and result["attempted"] > 0
+    assert all(v["value"] < 1e-5 for v in result["checks"].values()), result["checks"]
