@@ -115,38 +115,44 @@ def _digests(root):
             for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
-def test_a_later_cell_is_new_files_only(small):
+@pytest.mark.parametrize("name, sizes", [
+    ("wide", dict(n_train=2000, n_test=300, d=50000, sparsity=4e-4, col_skew=1.1,
+                  class_balance=0.6, lam=5e-4)),
+    # rows of 1,000 Zipf columns of 2 M, as wide as webspam's byte trigrams, cut
+    ("wide_rows", dict(n_train=600, n_test=100, d=2_000_000, sparsity=5e-4, col_skew=1.25,
+                       class_balance=0.39, label_noise=0.1, lam=1 / 600)),
+], ids=["wide", "wide_rows"])
+def test_a_later_cell_is_new_files_only(small, name, sizes):
     """A configuration, a mix and a cell added as new files and new entries of
     ``BENCHMARK.json``: no file of the benchmark changes, the cell loads by
     name with every per-layer metric, and it runs correct on the CPU."""
     here = small / "perfbench"
     before, bench = _digests(here), json.loads((small / "BENCHMARK.json").read_text())
     old = json.loads(json.dumps(bench))
-    config = {**json.loads((spec.HERE / "configs/kdda.json").read_text()),
-              "name": "wide", "n_train": 2000, "n_test": 300, "d": 50000, "sparsity": 4e-4,
-              "col_skew": 1.1, "class_balance": 0.6, "lam": 5e-4}
-    config["cpu_cut"] = {"d": 50000}
+    config = {**json.loads((spec.HERE / "configs/kdda.json").read_text()), "name": name, **sizes}
+    config["cpu_cut"] = {"d": config["d"]}
     traffic = {"m": 6, "batch_size": 2, "gossip_rounds": 3, "topology": "exponential",
                "segment_iters": 5, "warmup_segments": 1, "cpu_cut": {"segment_iters": 5}}
     limits = json.loads((spec.HERE / "workloads/ccat.m10.b1.json").read_text())
-    (here / "configs/wide.json").write_text(json.dumps(config))
+    cell = f"{name}.m6.b2"
+    (here / f"configs/{name}.json").write_text(json.dumps(config))
     (here / "traffic/m6.b2.json").write_text(json.dumps(traffic))
-    (here / "workloads/wide.m6.b2.json").write_text(json.dumps(limits))
-    bench["configs"].append({"name": "wide", "source": "a test", "file": "perfbench/configs/wide.json",
+    (here / f"workloads/{cell}.json").write_text(json.dumps(limits))
+    bench["configs"].append({"name": name, "source": "a test", "file": f"perfbench/configs/{name}.json",
                              "reduced": [], "why": "a later configuration"})
-    bench["workloads"].append({"name": "wide.m6.b2", "config": "wide", "traffic": "m6.b2",
+    bench["workloads"].append({"name": cell, "config": name, "traffic": "m6.b2",
                                "chips": 1, "why": "a later cell"})
     (small / "BENCHMARK.json").write_text(json.dumps(bench))
 
     after = _digests(here)
     assert {k: after[k] for k in before} == before
-    assert set(after) - set(before) == {"configs/wide.json", "traffic/m6.b2.json",
-                                        "workloads/wide.m6.b2.json"}
+    assert set(after) - set(before) == {f"configs/{name}.json", "traffic/m6.b2.json",
+                                        f"workloads/{cell}.json"}
     for key in ("configs", "workloads"):
         assert bench[key][:len(old[key])] == old[key]
-    cell = spec.load("wide.m6.b2", small)
-    assert set(cell.readers) == {e["name"] for e in bench["per_layer"]}
-    assert {e["name"] for e in cell.end_to_end} == {e["name"] for e in bench["end_to_end"]}
-    result = run.measure(cell, 2 ** 31 + 5, 0.2, False, torch.device("cpu"))
+    loaded = spec.load(cell, small)
+    assert set(loaded.readers) == {e["name"] for e in bench["per_layer"]}
+    assert {e["name"] for e in loaded.end_to_end} == {e["name"] for e in bench["end_to_end"]}
+    result = run.measure(loaded, 2 ** 31 + 5, 0.2, False, torch.device("cpu"))
     assert result["correct"] and result["attempted"] > 0
     assert all(v["value"] < 1e-5 for v in result["checks"].values()), result["checks"]
