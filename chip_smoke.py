@@ -47,7 +47,10 @@ Phases, each of which exits non-zero on failure:
    touched-block map followed by ``ell_margins_prefetch_coeff`` and
    ``ell_grad_update_prefetch_fold`` (main, ragged, undersized), timed beside
    that route (torch.profiler) and at B 1 to 64 beside the route's whole
-   call (host and device time of each);
+   call (host and device time of each), and at kdda's width (d =
+   20,216,830, a block folding a run of tiles) bit for bit that route,
+   within ``KERNEL_RTOL`` the map and the pair's plain versions, and
+   timed beside its bound;
    ``ell_margins_prefetch_coeff``'s margins
    bit for bit the margins entry's and its coefficients bit for bit
    ``torch.where(margins < 1, y, 0)`` (main, ragged, undersized), timed
@@ -1067,6 +1070,7 @@ def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
         f"{route['kernel_us'] / 20:.2f} us, the fused entry's "
         f"{fused_one['kernel_launches'] / 20:.0f} {fused_one['kernel_us'] / 20:.2f} us")
     crossover = fused_crossover(torch, S, ops, ccat, lam, dev)
+    wide = fused_at_kdda_width(torch, S, ops, lam, gen, dev)
     # the short map really loses entries, or the undersized case tests nothing
     cut = S.ell_margins_prefetch_plain(rcols, rvals, rW, ry, rcut, blk_d=blk_pf, n_d_blocks=rnd)
     require(not torch.allclose(cut, S.ell_margins_plain(rcols, rvals, rW, ry)),
@@ -1200,11 +1204,73 @@ def phase_sparse_kernels(torch, S, ops, ccat, lam, gen, dev) -> dict:
     results["ell_grad_update_fused"].update(
         replaced_launches=route["kernel_launches"] / 20,
         replaced_kernel_ms=route["kernel_us"] / 20 * 1e-3,
-        profiled_kernel_ms=fused_one["kernel_us"] / 20 * 1e-3, crossover=crossover)
+        profiled_kernel_ms=fused_one["kernel_us"] / 20 * 1e-3, crossover=crossover,
+        kdda_width=wide)
     results["ell_margins_prefetch_coeff"].update(replaced_launches=4,
                                                  replaced_ms=margins_then_where_ms)
     results["ell_margins_coeff"].update(replaced_launches=4, replaced_ms=sweep_then_where_ms)
     return results
+
+
+def fused_at_kdda_width(torch, S, ops, lam, gen, dev, m=10, k=36, d=20216830) -> dict:
+    """The fused half-step at kdda's shape (ten nodes of one 36-entry row,
+    d = 20,216,830, columns Zipf-skewed at 1.25, repeats kept), where each
+    block folds a run of tiles: at the minibatch's bound and 3 under it, bit
+    for bit the map + ell_margins_prefetch_coeff + ell_grad_update_prefetch_
+    fold chain, and within ``KERNEL_RTOL`` the map + the plain versions of
+    that pair (which hold the two CUDA entries at this width too); and its
+    device time a call (CUDA events) beside its bound, W read and W_half
+    written once at 3.35 TB/s (482.8 us)."""
+    blk_d = 128
+    n_d = -(-d // blk_d)
+    u = torch.rand(m, 1, k, generator=gen, device=dev, dtype=torch.float64)
+    cols = torch.clamp(u.pow(-4.0) - 1, max=d - 1).to(torch.int32)  # P(col >= r) ~ r^-0.25
+    vals = torch.rand(m, 1, k, generator=gen, device=dev)
+    vals = vals / torch.linalg.vector_norm(vals, dim=-1, keepdim=True)
+    y = torch.where(torch.rand(m, 1, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    W = 3 * torch.randn(m, d, generator=gen, device=dev)  # some rows violate, some not
+    scal = ops.step_scalars(lam, 1000, 1)
+    bound_blocks = max(len(torch.unique(c // blk_d)) for c in cols)
+    require(bound_blocks > 3, f"kdda-width minibatch spans {bound_blocks} blocks only")
+
+    def fused(cap):
+        return S.ell_grad_update_fused(cols, vals, W, y, scal, blk_d=blk_d, n_d_blocks=n_d,
+                                       n_blocks_max=cap)
+
+    def chain(cap):
+        b_ = ops.ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d, n_blocks_max=cap)
+        _, cf_ = S.ell_margins_prefetch_coeff(cols, vals, W, y, b_, blk_d=blk_d, n_d_blocks=n_d)
+        return S.ell_grad_update_prefetch_fold(cols, vals, cf_, b_, W, scal, blk_d=blk_d,
+                                               n_d_blocks=n_d)
+
+    def plain(cap):
+        b_ = ops.ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d, n_blocks_max=cap)
+        _, cf_ = S.ell_margins_prefetch_coeff_plain(cols, vals, W, y, b_, blk_d=blk_d,
+                                                    n_d_blocks=n_d)
+        return S.ell_grad_update_prefetch_fold_plain(cols, vals, cf_, b_, W, scal, blk_d=blk_d,
+                                                     n_d_blocks=n_d)
+    plain_err = 0.0
+    for cap in (bound_blocks, bound_blocks - 3):
+        got = fused(cap)
+        require(S.ell_grad_update_fused.tiles_per_block > 1,
+                f"ell_grad_update_fused at d = {d} folds one tile a block")
+        require(torch.equal(got, chain(cap)), f"ell_grad_update_fused at d = {d}, cap {cap}: not "
+                "the map + ell_margins_prefetch_coeff + ell_grad_update_prefetch_fold bit for bit")
+        err = rel_err(got, plain(cap))[1]
+        require(err <= KERNEL_RTOL, f"ell_grad_update_fused at d = {d}, cap {cap}: rel err "
+                f"{err:.3e} against the map + the plain pair (> {KERNEL_RTOL})")
+        plain_err = max(plain_err, err)
+        del got
+    ms = device_ms(torch, lambda: fused(bound_blocks), 30)
+    bound_ms, bound_by = bound(ops.launch_cost("ell_grad_update_fused", m=m, B=1, k=k, d=d))
+    row = dict(shape=f"cols ({m}, 1, {k}), W ({m}, {d}), map of {bound_blocks} blocks", ms=ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               tiles_per_block=S.ell_grad_update_fused.tiles_per_block, plain_rel_err=plain_err)
+    log(f"  ell_grad_update_fused at kdda's width, {row['shape']}: the chain's bits at the bound "
+        f"and 3 under it, the plain pair's within {plain_err:.3e}, "
+        f"{row['tiles_per_block']} tiles a block, kernel {ms * 1e3:.1f} us, "
+        f"bound {bound_ms * 1e3:.1f} us ({bound_by})")
+    return row
 
 
 def fused_crossover(torch, S, ops, ccat, lam, dev, Bs=(1, 2, 4, 8, 16, 32, 64)) -> list:

@@ -76,6 +76,7 @@ from repro_torch.core.push_sum import (PushSumState, collapse_rounds, exponentia
                                        mix_collapsed, mix_rounds, push_sum_round)
 from repro_torch.kernels.hinge_subgrad import ops
 from repro_torch.kernels.hinge_subgrad import ref as hinge_ref
+from repro_torch.kernels.hinge_subgrad import sparse as ell_kernels
 from repro_torch.sparse.formats import minibatch_block_bound
 from repro_torch.telemetry import registry as tmr
 from repro_torch.telemetry import trace as tmtr
@@ -629,7 +630,10 @@ class _Run:
     def record_iterations(self, n_iters: int) -> None:
         """Registry accounting for ``n_iters`` finished iterations:
         ``train.iterations``, ``train.gossip_bytes`` and the kernel launches
-        the step made (``ops.record_launch``). Host bookkeeping only."""
+        the step made (``ops.record_launch``); on the prefetch schedule the
+        gauge ``kernel.tiles_per_block``, the run of W's tiles a block of
+        this run's fused half-step folds (0 on the CPU, where no kernel
+        runs). Host bookkeeping only."""
         if n_iters <= 0:
             return
         cfg, m, d, B = self.cfg, self.m, self.d, self.cfg.batch_size
@@ -646,6 +650,9 @@ class _Run:
             for kind in kinds:
                 ops.record_launch(kind, n_iters, registry=reg, m=m, B=B, k=k, d=d,
                                   n_blocks_max=n_blocks_max, blk_d=blk_d)
+            if schedule == "prefetch":
+                reg.gauge("kernel.tiles_per_block", kernel="ell_grad_update_fused").set(
+                    ell_kernels.fused_tiles_per_block(m, B, d, -(-d // blk_d), self.dev))
         elif cfg.fused:
             ops.record_launch("fleet_half_step", n_iters, registry=reg, m=m, B=B, d=d)
         else:

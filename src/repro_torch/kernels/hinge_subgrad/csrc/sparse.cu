@@ -34,7 +34,9 @@
 // What bounds them: at the paper's CCAT shape (m = 10, B = 1, k = 76) each
 // launch moves a few kilobytes (and the sweep grad all of W, 1.9 MB), so
 // launch latency and the dependent index-then-value loads bound the margin
-// and prefetch kernels, and device-memory bandwidth the sweep grad.
+// and prefetch kernels, and device-memory bandwidth the sweep grad. At
+// kdda's width (d = 20.2 M) W is 809 MB, and its stream bounds the fused
+// half-step.
 //
 // Design.
 // * Margins, four entries over one kernel (ell_margins_prefetch_kernel):
@@ -113,26 +115,42 @@
 //   bandwidth bound of 1.13 us; the launch and two round trips cost more).
 // * The fused half-step (ell_grad_update_fused), the prefetch schedule's
 //   whole half-step (ops.py routes every prefetch call to it). What
-//   bounds it is one read of W and one write of W_half, 2 m d 4 B = 3.78 MB
-//   at CCAT (1.13 us at 3.35 TB/s), and in practice the launch: at the
-//   paper's B = 1 the two-kernel route also built the touched-block map in
-//   about 16 small PyTorch launches (a segmented radix sort among them), so
-//   the host's dispatch, not the device, paced the half-step. Here one
-//   launch does it all, on the fold kernel's grid: every block of a node
-//   builds the node's map from the entries themselves (a bitmap of the live
-//   d-blocks, cut to the n_blocks_max lowest, as the map's ascending ids
-//   are), computes all B margins and coefficients of its node with the
-//   margins kernel's layout and sequence of fmafs (76 gathers a block at
-//   CCAT: nothing beside a launch), and folds its tile as the fold kernel
+//   bounds it is one read of W and one write of W_half, 2 m d 4 B: 3.78 MB
+//   at CCAT (1.13 us at 3.35 TB/s), where the launch bounds it in practice,
+//   and 1.62 GB at kdda (d = 20,216,830: 482.8 us), where the stream of W
+//   does. At the paper's B = 1 the two-kernel route also built the
+//   touched-block map in about 16 small PyTorch launches (a segmented radix
+//   sort among them), so the host's dispatch, not the device, paced the
+//   half-step. Here one launch does it all. Every block builds its node's
+//   map from the entries themselves (a bitmap of the live d-blocks, cut to
+//   the n_blocks_max lowest, as the map's ascending ids are, by a one-warp
+//   walk of the whole bitmap only when more blocks are live), computes all
+//   B margins and coefficients of its node with the margins kernel's layout
+//   and sequence of fmafs, then folds a run of W's tiles as the fold kernel
 //   does. Every block holds what it needs, so no block waits for another,
 //   and W_half is bit for bit the map, ell_margins_prefetch_coeff and
-//   ell_grad_update_prefetch_fold in turn. Measured at CCAT on an H100: 5.1-
-//   5.4 us a call against the route's 44-45 us of kernels in 16 launches.
+//   ell_grad_update_prefetch_fold in turn (each lane's sum runs in entry
+//   order whatever the tiling). The grid is about one wave: the wrapper asks
+//   how many blocks fit on the card at this shared memory (the occupancy
+//   query) and gives each node that many over m blocks, each folding an even
+//   run of the node's ceil(d / kTileLanes) tiles. So the map and margins
+//   cost once per block, not once per tile: at CCAT (47 tiles a node) a
+//   block folds one tile; at kdda (19,743 tiles a node, a 4,936-word
+//   bitmap) about 300, where a block a tile would rebuild the map 197,430
+//   times a call (7.81-7.87 ms, 16.4x the bound).
+//   Within the run, a tile's copy starts while the one before is folded
+//   (two buffers), a bitmap of the node's tiles lets the block skip the
+//   scatter of a tile no entry falls in (most of kdda's: 36 entries a node),
+//   and a barrier a tile keeps the block's warps on one tile. Measured on an
+//   H100: 5.1-5.4 us a call at CCAT against the route's 44-45 us of kernels
+//   in 16 launches; at kdda 630 us, against the 539 us of torch.mul's
+//   stream over the same (10, d) array.
 //   Each block's map and margins grow with B k, so the kernel adds about
-//   3.9 us of device a row where the route adds 2.9 (the scatter's walk over
-//   shared lanes, in both, most of it), and the route's kernels cost less
-//   from about 4,000 entries on; the route's call still took longer on the
-//   host at every B up to 64 measured (45-251 us against 333-716).
+//   3.9 us of device a row at CCAT where the route adds 2.9 (the scatter's
+//   walk over shared lanes, in both, most of it), and the route's kernels
+//   cost less from about 4,000 entries on; the route's call still took
+//   longer on the host at every B up to 64 measured (45-251 us against
+//   333-716).
 #include "ell_gather.cuh"
 
 namespace repro_torch {
@@ -141,6 +159,7 @@ namespace {
 constexpr int kTileLanes = kThreads * 4;  // lanes a grad block owns, four a thread
 constexpr int kMaxSlots = 8;          // map slots a G-entry block owns
 constexpr int kMapSlots = 2;          // map slots a prefetch-margins thread loads up front
+constexpr int kStages = 2;            // W tiles a fused half-step block has in shared memory
 
 // Margins of rows_per_block = blockDim.x / tpr rows of node blockIdx.y, tpr
 // threads a row (margin_row_threads); with kCoeff also the violator
@@ -518,45 +537,70 @@ __device__ __forceinline__ void keep_lowest(unsigned* bitmap, int nw, int n_bloc
   }
 }
 
-// The whole sparse half-step of node blockIdx.y over columns [c0, c0 +
-// kTileLanes): the node's touched-block map, its margins and violator
-// coefficients, and the fold of its kept entries into W's tile. Every block
-// of the node builds the same map and the same coefficients, so no block
-// waits for another. The map is a bitmap (one bit per d-block, dynamic shared
-// memory) of the blocks some live entry (val != 0, column in [0, n_d_blocks
-// blk_d)) touches, cut to the n_blocks_max lowest: the set ell_block_map's
+// Start the copy of W's tile t (row Wi, kTileLanes columns) into dst in the
+// background, each thread its own lanes, as one commit group; past the
+// block's last tile t_end the group is empty, so that every wait counts the
+// same groups.
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ Wi, int t,
+                                          int t_end, int d) {
+  if (t < t_end) {
+    const int c0 = t * kTileLanes;
+    const int lanes = min(kTileLanes, d - c0);
+    for (int l = threadIdx.x; l < lanes; l += kThreads) {
+      const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst + l));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(at), "l"(Wi + c0 + l)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The whole sparse half-step of node blockIdx.y over its run of W's tiles
+// (kTileLanes columns each), tiles [blockIdx.x tiles_per_block, + tiles_per_
+// block): the node's touched-block map, its margins and violator
+// coefficients, once, then for each tile of the run the fold of its kept
+// entries into the tile. Every block of the node builds the same map and the
+// same coefficients, so no block waits for another. The map is a bitmap (one
+// bit per d-block, dynamic shared memory) of the blocks some live entry (val
+// != 0, column in [0, n_d_blocks blk_d)) touches, cut to the n_blocks_max
+// lowest (keep_lowest, only when more are set): the set ell_block_map's
 // ascending ids hold, sentinels aside. The margins are ell_margins_prefetch
 // _kernel's rows (margin_row_threads, the same waves and sums) against that
 // bitmap, kThreads / tpr rows a pass; the coefficients (B floats after the
-// bitmap) are its (margin < 1) ? y : 0; the fold is the fold kernel's, with
-// the bitmap in place of its map's live flags.
+// bitmaps) are its (margin < 1) ? y : 0; the fold is the fold kernel's, with
+// the bitmap in place of its map's live flags. A second bitmap marks the
+// node's tiles that some live entry's column below d falls in: a tile with no
+// mark gets no entry, so its scatter is skipped and its lanes fold g = +0,
+// the value the scatter leaves in a lane no entry reaches. W's tiles stream
+// through kStages buffers: each tile's copy starts kStages - 1 tiles ahead
+// (the first before the map), and each thread waits only for its own lanes.
 __global__ void __launch_bounds__(kThreads)
 ell_grad_update_fused_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                              const float* __restrict__ W, const float* __restrict__ y,
                              float* __restrict__ out, int B, int k, int d, int n_blocks_max,
                              int blk_d, int blk_shift, int n_d_blocks, int tpr,
-                             float one_minus_s0, float s1) {
-  extern __shared__ unsigned bitmap[];  // bitmap_words(n_d_blocks) words, then B coefficients
+                             int tiles_per_block, float one_minus_s0, float s1) {
+  extern __shared__ unsigned bitmap[];  // kept d-blocks, then busy tiles, then B coefficients
   __shared__ float acc[kTileLanes];
   __shared__ int claim[kTileLanes];
-  __shared__ float w_tile[kTileLanes];
+  __shared__ float w_tile[kStages][kTileLanes];
   __shared__ KeptEntries kept;
   __shared__ float partial[kWarps];
+  __shared__ int n_set;  // distinct d-blocks marked
   const int nw = bitmap_words(n_d_blocks);
-  float* coeff = reinterpret_cast<float*>(bitmap + nw);
+  const int n_tiles = (d + kTileLanes - 1) / kTileLanes;
+  const int nt = bitmap_words(n_tiles);
+  unsigned* busy = bitmap + nw;
+  float* coeff = reinterpret_cast<float*>(busy + nt);
   const int i = blockIdx.y;
   const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * kTileLanes;
-  const int lanes = min(kTileLanes, d - c0);
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
   const float* Wi = W + static_cast<size_t>(i) * d;
-  // W's tile copied to shared memory in the background (each thread its own
-  // lanes), while the entries are read and the margins taken
-  const float* wi = Wi + c0;
-  for (int l = tid; l < lanes; l += kThreads) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(w_tile + l));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(wi + l) : "memory");
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  // the run's first tiles copied in the background while the entries are
+  // read and the margins taken
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) copy_tile(w_tile[q], Wi, t_begin + q, t_end, d);
   const size_t plane = static_cast<size_t>(i) * B * k;
   const int* ci = cols + plane;
   const float* vi = vals + plane;
@@ -564,20 +608,28 @@ ell_grad_update_fused_kernel(const int* __restrict__ cols, const float* __restri
   // this thread's entry of the first round (its coefficient set once known)
   Entry first{-1, 0.f, 0.f};
   if (tid < n) first = {__ldg(ci + tid), __ldg(vi + tid), 0.f};
-  for (int q = tid; q < nw; q += kThreads) bitmap[q] = 0u;
-  __syncthreads();  // the bitmap is zero
+  for (int q = tid; q < nw + nt; q += kThreads) bitmap[q] = 0u;
+  if (tid == 0) n_set = 0;
+  __syncthreads();  // the bitmaps are zero
   const long long span = static_cast<long long>(n_d_blocks) * blk_d;
   for (long long e = tid; e < n; e += kThreads) {
     const int col = e == tid ? first.col : __ldg(ci + e);
     const float val = e == tid ? first.val : __ldg(vi + e);
     if (val != 0.f && col >= 0 && col < span) {
       const int blk = blk_shift >= 0 ? col >> blk_shift : col / blk_d;
-      atomicOr(bitmap + (blk >> 5), 1u << (blk & 31));
+      const unsigned bit = 1u << (blk & 31);
+      if (!(atomicOr(bitmap + (blk >> 5), bit) & bit)) atomicAdd(&n_set, 1);
+    }
+    if (val != 0.f && col >= 0 && col < d) {
+      const int t = col / kTileLanes;
+      atomicOr(busy + (t >> 5), 1u << (t & 31));
     }
   }
-  __syncthreads();  // the bitmap holds every live block
-  if (tid < 32) keep_lowest(bitmap, nw, n_blocks_max);
-  __syncthreads();  // the bitmap holds the kept blocks
+  __syncthreads();  // the bitmaps hold every live block and tile
+  if (n_set > n_blocks_max) {  // the same in every thread
+    if (tid < 32) keep_lowest(bitmap, nw, n_blocks_max);
+    __syncthreads();  // the bitmap holds the kept blocks
+  }
   const int rows = kThreads / tpr;
   const int lane = tid & (tpr - 1);
   for (int b0 = 0; b0 < B; b0 += rows) {
@@ -611,14 +663,38 @@ ell_grad_update_fused_kernel(const int* __restrict__ cols, const float* __restri
   }
   __syncthreads();  // the coefficients are in
   if (tid < n) first.c = coeff[tid / k];
-  const KeptLanes own{bitmap, c0, lanes, blk_d, blk_shift};
-  scatter_own(ci, vi, SharedCoeff{coeff}, B, k, first, own, acc, claim, lanes, kept);
-  asm volatile("cp.async.wait_all;" ::: "memory");  // this thread's lanes of W have landed
-  float* oi = out + static_cast<size_t>(i) * d + c0;
-  for (int l = tid; l < lanes; l += kThreads) {
-    const float decayed = __fmul_rn(w_tile[l], one_minus_s0);
-    oi[l] = own.has(c0 + l) ? __fadd_rn(decayed, __fmul_rn(s1, acc[l])) : decayed;
+  float* oi = out + static_cast<size_t>(i) * d;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j = t - t_begin;
+    // the block's warps stay on one tile, so the device memory sees each
+    // tile's 4 KB read and written together (measured at kdda on an H100:
+    // 630 us a call with this barrier, 910 without)
+    __syncthreads();
+    copy_tile(w_tile[(j + kStages - 1) % kStages], Wi, t + kStages - 1, t_end, d);
+    const int c0 = t * kTileLanes;
+    const int lanes = min(kTileLanes, d - c0);
+    const KeptLanes own{bitmap, c0, lanes, blk_d, blk_shift};
+    const bool hit = (busy[t >> 5] >> (t & 31)) & 1u;  // the same in every thread
+    if (hit) scatter_own(ci, vi, SharedCoeff{coeff}, B, k, first, own, acc, claim, lanes, kept);
+    // this thread's lanes of tile t have landed; later tiles' copies run on
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 1) : "memory");
+    const float* wt = w_tile[j % kStages];
+    for (int l = tid; l < lanes; l += kThreads) {
+      const float decayed = __fmul_rn(wt[l], one_minus_s0);
+      const float g = hit ? acc[l] : 0.f;
+      oi[c0 + l] = own.has(c0 + l) ? __fadd_rn(decayed, __fmul_rn(s1, g)) : decayed;
+    }
   }
+}
+
+// Tiles of kTileLanes columns in a row of d columns.
+inline int fused_tiles(int d) { return (d + kTileLanes - 1) / kTileLanes; }
+
+// Dynamic shared memory of ell_grad_update_fused_kernel: the kept-block and
+// busy-tile bitmaps, then B coefficients.
+size_t fused_smem(int B, int d, int n_d_blocks) {
+  return (static_cast<size_t>(bitmap_words(n_d_blocks)) + bitmap_words(fused_tiles(d)) + B) *
+         sizeof(unsigned);
 }
 
 template <bool kCoeff, bool kMap>
@@ -751,26 +827,57 @@ extern "C" int ell_grad_update_prefetch_fold(const void* cols, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch shape of ell_grad_update_fused on the current device: the
+// tiles of a row of d columns into *tiles, and into *resident how many
+// blocks the card holds at once at this shape's dynamic shared memory (the
+// occupancy query times the multiprocessors), 0 where a block cannot have
+// that much. The wrapper's grid rule (sparse.py's fused_grid) takes both.
+extern "C" int ell_grad_update_fused_shape(int B, int d, int n_d_blocks, int* tiles,
+                                           int* resident) {
+  if (B < 1 || d < 1 || n_d_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *tiles = fused_tiles(d);
+  *resident = 0;
+  const size_t smem = fused_smem(B, d, n_d_blocks);
+  const void* kernel = reinterpret_cast<const void*>(ell_grad_update_fused_kernel);
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess || smem + attr.sharedSizeBytes > static_cast<size_t>(optin))
+    return static_cast<int>(e);
+  e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_grad_update_fused_kernel,
+                                                      kThreads, smem);
+  *resident = per_sm * sms;
+  return static_cast<int>(e);
+}
+
 // cols, vals (m, B, k), W (m, d), y (m, B) -> out (m, d): the sparse
 // half-step of every node in one launch, bit for bit the touched-block map
 // of n_blocks_max slots (ell_block_map), then ell_margins_prefetch_coeff and
-// ell_grad_update_prefetch_fold, a block per (node, kTileLanes columns).
+// ell_grad_update_prefetch_fold, a block per (node, run of tiles_per_block
+// tiles of kTileLanes columns).
 extern "C" int ell_grad_update_fused(const void* cols, const void* vals, const void* W,
                                      const void* y, void* out, int m, int B, int k, int d,
-                                     int n_blocks_max, int blk_d, int n_d_blocks, float s0,
-                                     float s1, void* stream) {
-  if (blk_d < 1 || B < 1 || k < 1 || n_d_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(bitmap_words(n_d_blocks)) + B) * sizeof(unsigned);
+                                     int n_blocks_max, int blk_d, int n_d_blocks,
+                                     int tiles_per_block, float s0, float s1, void* stream) {
+  if (blk_d < 1 || B < 1 || k < 1 || n_d_blocks < 1 || tiles_per_block < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fused_smem(B, d, n_d_blocks);
   const cudaError_t e =
       allow_smem(reinterpret_cast<const void*>(ell_grad_update_fused_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (m > 0 && d > 0) {
-    const dim3 grid((d + kTileLanes - 1) / kTileLanes, m);
+    const dim3 grid((fused_tiles(d) + tiles_per_block - 1) / tiles_per_block, m);
     ell_grad_update_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
         static_cast<const float*>(W), static_cast<const float*>(y), static_cast<float*>(out), B,
         k, d, n_blocks_max, blk_d, block_shift(blk_d), n_d_blocks, margin_row_threads(k),
-        1.f - s0, s1);
+        tiles_per_block, 1.f - s0, s1);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,7 @@ does. ``scal`` is ``(λα, α/B)`` as in ``hinge_subgrad.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -42,7 +43,8 @@ __all__ = ["ell_margins", "ell_margins_coeff", "ell_grad_update", "ell_margins_p
            "ell_grad_update_plain", "ell_margins_prefetch_plain",
            "ell_margins_prefetch_coeff_plain",
            "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
-           "ell_grad_update_fused", "fold_buckets", "MAX_BLK_D"]
+           "ell_grad_update_fused", "fused_grid", "fused_tiles_per_block", "fold_buckets",
+           "MAX_BLK_D"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,7 +57,9 @@ _SIGNATURES = {
     "ell_grad_update_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ell_grad_update_prefetch_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                       _F, _F, _P],
-    "ell_grad_update_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ell_grad_update_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ell_grad_update_fused_shape": [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)],
 }
 MAX_BLK_D = 1024           # a prefetch block's lanes: its 256 threads own 4 each
 _MAX_BITMAP_BYTES = 227 * 1024
@@ -415,6 +419,47 @@ ell_grad_update_prefetch_fold.launches = 0
 
 # ------------------------------------------------------ ell_grad_update_fused
 
+def fused_grid(m: int, tiles: int, resident: int) -> int:
+    """The run of tiles each block of :func:`ell_grad_update_fused` folds,
+    for m nodes of ``tiles`` tiles of W each when ``resident`` of its blocks
+    fit on the card at once: about one wave, ``min(tiles, max(1, resident //
+    m))`` blocks a node, the runs as even as whole tiles allow (the kernel
+    launches ⌈tiles / run⌉ blocks a node). At CCAT's d (47 tiles) a block
+    folds one tile; at kdda's (19,743), with an H100's 660 resident blocks,
+    300."""
+    return -(-tiles // min(tiles, max(1, resident // max(m, 1))))
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_shape(device_index: int, B: int, d: int, n_d_blocks: int) -> tuple[int, int]:
+    """(tiles of a row of d, blocks of the fused kernel the card holds at
+    once at this shape's shared memory, 0 where a block cannot hold it), as
+    the C entry reports them; one query per shape."""
+    tiles, resident = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _lib().ell_grad_update_fused_shape(B, d, n_d_blocks, ctypes.byref(tiles),
+                                                  ctypes.byref(resident))
+    _build.check(code, "ell_grad_update_fused_shape")
+    return tiles.value, resident.value
+
+
+def fused_tiles_per_block(m: int, B: int, d: int, n_d_blocks: int, device) -> int:
+    """The run of tiles a block of :func:`ell_grad_update_fused` folds at
+    this shape on ``device``: :func:`fused_grid` of what the card reports;
+    0 on the CPU, where no kernel runs. Raises ``ValueError`` where the
+    bitmaps of the d-blocks and of the tiles and the B coefficients do not
+    fit a block's shared memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    tiles, resident = _fused_shape(index, B, d, n_d_blocks)
+    if resident == 0:
+        raise ValueError(f"the bitmaps of {n_d_blocks} blocks and of the tiles of d={d} and "
+                         f"B={B} coefficients exceed a block's shared memory")
+    return fused_grid(m, tiles, resident)
+
+
 def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tensor,
                           y: torch.Tensor, scal, *, blk_d: int, n_d_blocks: int,
                           n_blocks_max: int) -> torch.Tensor:
@@ -425,8 +470,20 @@ def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tenso
     ``scal`` = (λα, α/B). Returns W_half (m, d), bit for bit
     ``ops.ell_block_map``, :func:`ell_margins_prefetch_coeff` and
     :func:`ell_grad_update_prefetch_fold` in turn, which is what it runs on
-    the CPU. The bitmap of the d-blocks and the B coefficients share a
-    block's shared memory, which bounds B (about 54,000 rows at CCAT's d)."""
+    the CPU. The bitmap of the d-blocks, one bit per tile of W and the B
+    coefficients share a block's shared memory, which bounds B (about
+    54,000 rows at CCAT's d).
+
+    The grid is :func:`fused_tiles_per_block`'s: about one wave of the
+    blocks the card holds at once at this shape (the occupancy query, once
+    per shape). A block builds its node's map, margins and coefficients
+    once, then folds a run of tiles of W's 1,024 columns, skipping the
+    scatter of a tile no entry falls in. So the map's cost is per block, not
+    per tile. At CCAT (47 tiles a node, ten nodes) each block folds one
+    tile, and the launch bounds the call; at kdda (19,743 tiles a node)
+    each folds about 300, and the stream of W in and W_half out bounds it.
+    The last launch's run is kept as ``ell_grad_update_fused.tiles_per_block``
+    (0 before the first launch)."""
     if _build.on_cpu(cols, vals, W, y):
         from repro_torch.kernels.hinge_subgrad.ops import ell_block_map
         bids = ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d_blocks,
@@ -443,19 +500,19 @@ def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tenso
     if n_blocks_max < 1:
         raise ValueError(f"n_blocks_max must be at least 1, got {n_blocks_max}")
     check_bitmap(n_d_blocks, d, blk_d)
-    room = _MAX_BITMAP_BYTES - 16 * 1024  # less the kernel's own 14.4 KB of tiles
-    if ((n_d_blocks + 31) // 32 + B) * 4 > room:
-        raise ValueError(f"a bitmap of {n_d_blocks} blocks and B={B} coefficients exceed "
-                         f"the {room} bytes of a block's shared memory they share")
     s0, s1 = _f32_pair(scal)
+    tiles_per_block = fused_tiles_per_block(m, B, d, n_d_blocks, W.device)
     out = torch.empty_like(W)
     with torch.cuda.device(W.device):
         code = _lib().ell_grad_update_fused(
             cols.data_ptr(), vals.data_ptr(), W.data_ptr(), y.data_ptr(), out.data_ptr(), m, B,
-            k, d, min(n_blocks_max, n_d_blocks), blk_d, n_d_blocks, s0, s1, _build.stream(W))
+            k, d, min(n_blocks_max, n_d_blocks), blk_d, n_d_blocks, tiles_per_block, s0, s1,
+            _build.stream(W))
     _build.check(code, "ell_grad_update_fused")
     ell_grad_update_fused.launches += 1
+    ell_grad_update_fused.tiles_per_block = tiles_per_block
     return out
 
 
 ell_grad_update_fused.launches = 0
+ell_grad_update_fused.tiles_per_block = 0

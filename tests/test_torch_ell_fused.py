@@ -25,6 +25,8 @@ from repro_torch.sparse.formats import minibatch_block_bound  # noqa: E402
 from repro_torch import telemetry as ttm  # noqa: E402
 
 CCAT_D, CCAT_K = 47236, 76
+KDDA_D, KDDA_K = 20216830, 36
+PLAIN_RTOL = 1e-5  # kernel against the plain chain: max |diff| / max(1, max |plain|)
 
 
 def _planes(m, B, k, d, seed, *, zipf=False, pad_row=True, pad_node=False):
@@ -94,6 +96,17 @@ def _chain(cols, vals, W, y, scal, *, blk_d, n_blocks_max):
     _, coeff = TS.ell_margins_prefetch_coeff(cols, vals, W, y, bids, blk_d=blk_d, n_d_blocks=n_d)
     return TS.ell_grad_update_prefetch_fold(cols, vals, coeff, bids, W, scal, blk_d=blk_d,
                                             n_d_blocks=n_d)
+
+
+def _plain_chain(cols, vals, W, y, scal, *, blk_d, n_blocks_max):
+    """The chain in plain PyTorch: the map, then the plain versions of the
+    coefficient and fold entries (what the wrapper runs on the CPU)."""
+    n_d = -(-W.shape[1] // blk_d)
+    bids = TO.ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d, n_blocks_max=n_blocks_max)
+    _, coeff = TS.ell_margins_prefetch_coeff_plain(cols, vals, W, y, bids, blk_d=blk_d,
+                                                   n_d_blocks=n_d)
+    return TS.ell_grad_update_prefetch_fold_plain(cols, vals, coeff, bids, W, scal, blk_d=blk_d,
+                                                  n_d_blocks=n_d)
 
 
 def _fused(cols, vals, W, y, scal, *, blk_d, n_blocks_max):
@@ -220,6 +233,59 @@ def test_record_iterations_accounts_the_route(route):
         ttm.reset()
 
 
+@pytest.mark.parametrize("m,d,resident,want", [
+    (10, CCAT_D, 1056, 1), (10, KDDA_D, 790, 250), (1, KDDA_D, 790, 25),
+    (2, 3000001, 660, 9), (800, KDDA_D, 790, 19743), (3, 1001, 790, 1)],
+    ids=["ccat", "kdda", "kdda_one_node", "ragged", "more_nodes_than_resident", "one_tile"])
+def test_fused_grid_rule(m, d, resident, want):
+    """The fused kernel's run of tiles from the blocks the card holds at
+    once: at CCAT's width one tile a block, at kdda's about one wave of
+    blocks folding 250 tiles each, one block a node when the nodes
+    outnumber the resident blocks; the runs cover every tile once, the last
+    one ragged where the tiles do not divide."""
+    tiles = -(-d // 1024)  # the kernel's tiles are 1,024 columns of W
+    tiles_per_block = TS.fused_grid(m, tiles, resident)
+    assert tiles_per_block == want
+    per_node = -(-tiles // tiles_per_block)  # the blocks the kernel launches a node
+    assert (per_node - 1) * tiles_per_block < tiles <= per_node * tiles_per_block
+    assert per_node <= max(1, resident // m)
+
+
+@pytest.mark.parametrize("schedule,card", [("prefetch", True), ("prefetch", False),
+                                           ("sweep", True)],
+                         ids=["prefetch_card", "prefetch_cpu", "sweep"])
+def test_record_iterations_sets_the_tiles_gauge(monkeypatch, schedule, card):
+    """``record_iterations`` sets ``kernel.tiles_per_block`` on the prefetch
+    schedule from ``sparse.fused_tiles_per_block`` at the run's own shape
+    and device (a card's answer stood in for by a fake; on the CPU 0, where
+    no kernel runs), and leaves it unset on the sweep's."""
+    m, B, k, d = 3, 1, 6, 300
+    asked = []
+    if card:
+        def fake(*args):
+            asked.append(args)
+            return 250
+        monkeypatch.setattr(TS, "fused_tiles_per_block", fake)
+    cols, vals, _, y = _planes(m, 20, k, d, seed=6, pad_row=False)
+    cfg = TG.GadgetConfig(lam=1e-2, batch_size=B, gossip_rounds=2, topology="random",
+                          epsilon=0.0, check_every=3, max_iters=6, seed=1,
+                          sparse_schedule=schedule)
+    ttm.reset()
+    try:
+        TG.gadget_train(_Ell(cols, vals, d), y, cfg, device="cpu")
+        gauge = ttm.default_registry().get("kernel.tiles_per_block",
+                                           kernel="ell_grad_update_fused")
+        if schedule == "sweep":
+            assert gauge is None and not asked
+        else:
+            assert gauge.kind == "gauge" and gauge.value == (250 if card else 0)
+            if card:
+                _, blk_d, _ = TO.resolve_ell_schedule("prefetch", B=B, k=k, d=d)
+                assert set(asked) == {(m, B, d, -(-d // blk_d), torch.device("cpu"))}
+    finally:
+        ttm.reset()
+
+
 # ---------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -232,12 +298,17 @@ def card():
 
 def _card_shapes():
     """(name, m, B, k, d, cap change): the paper's CCAT fleet, one node, B
-    from 1 to 64, k in waves, and undersized caps."""
+    from 1 to 64, k in waves, and undersized caps; then the widths where a
+    block folds a run of tiles: kdda's fleet at the bound and 3 under it,
+    one node at kdda's width, and a ragged width whose tiles a node's
+    blocks do not divide evenly."""
     return [("ccat", 10, 1, CCAT_K, CCAT_D, 0), ("one_node", 1, 1, CCAT_K, CCAT_D, 0),
             ("b2", 10, 2, CCAT_K, CCAT_D, 0), ("b5", 10, 5, CCAT_K, CCAT_D, 0),
             ("b47", 10, 47, CCAT_K, CCAT_D, 0),
             ("b64", 10, 64, CCAT_K, CCAT_D, 0), ("k600", 2, 3, 600, CCAT_D, 0),
-            ("undersized", 10, 1, CCAT_K, CCAT_D, -3), ("b5_undersized", 10, 5, CCAT_K, CCAT_D, -9)]
+            ("undersized", 10, 1, CCAT_K, CCAT_D, -3), ("b5_undersized", 10, 5, CCAT_K, CCAT_D, -9),
+            ("kdda", 10, 1, KDDA_K, KDDA_D, 0), ("kdda_undersized", 10, 1, KDDA_K, KDDA_D, -3),
+            ("kdda_one_node", 1, 1, KDDA_K, KDDA_D, 0), ("ragged_runs", 2, 5, KDDA_K, 3000001, 0)]
 
 
 @pytest.mark.chip
@@ -245,20 +316,32 @@ def _card_shapes():
 def test_card_fused_kernel_is_the_chain_bit_for_bit(card, shape):
     """On the card the fused kernel's W_half is the CUDA chain's bit for
     bit, at the paper's CCAT shape, one node, B from 1 to 64, k in waves,
-    and undersized caps; one launch a call."""
+    undersized caps and the wide shapes; one launch a call, folding one
+    tile a block at CCAT's width and a run of tiles at the wider ones."""
     name, m, B, k, d, cut = _card_shapes()[shape]
     cols, vals, W, y = _planes(m, B, k, d, seed=10 + shape, zipf=True)
     bound = minibatch_block_bound(cols, vals, B, d=d)
     cap = max(1, bound + cut)
+    if cut:
+        assert cap < bound, name  # the map is really cut
     scal = TO.step_scalars(1e-4, 1000, B)
     args = _t(cols, vals, W, y, device=card)
     before = TS.ell_grad_update_fused.launches
     got = _fused(*args, scal, blk_d=128, n_blocks_max=cap)
     assert TS.ell_grad_update_fused.launches == before + 1
+    tiles = TS.ell_grad_update_fused.tiles_per_block
+    assert tiles == TS.fused_tiles_per_block(m, B, d, -(-d // 128), card), name
+    if d == CCAT_D:
+        assert tiles == 1, name
+    else:
+        assert tiles > 1, name
     want = _chain(*args, scal, blk_d=128, n_blocks_max=cap)
+    plain = _plain_chain(*args, scal, blk_d=128, n_blocks_max=cap)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, _fused(*args, scal, blk_d=128, n_blocks_max=cap))
+    err = float((got - plain).abs().max()) / max(1.0, float(plain.abs().max()))
+    assert err <= PLAIN_RTOL, (name, err)
 
 
 @pytest.mark.chip
