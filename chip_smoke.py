@@ -326,9 +326,6 @@ SPARSE_PARITY_ATOL = 1e-5   # phase 9: ELL against dense (prefetch against sweep
 # CPU, same data and config, draw seeds 0 and 1): see PERF.md
 CCAT_MIN_ACCURACY, CCAT_MAX_OBJECTIVE = 0.72, 0.70
 CCAT_SCALE = 0.1
-# the kernels of CCAT's half-step at the paper's B = 1 (phase 7 holds the
-# route rule to it): the fused entry, once an iteration
-CCAT_HALF_STEP = ("ell_grad_update_fused",)
 SERVE_ROWS, SERVE_MIN_K = 8, 19   # the bucket ladder of examples/serve_batched.py
 SERVE_SAMPLE = 2000               # training rows the buckets are calibrated on
 INT8_MIN_AGREEMENT = 0.9          # int8 against f32 labels, the example's bar
@@ -584,6 +581,22 @@ def ptxas_resources(log_text: str) -> dict:
 def launched(c: dict) -> dict:
     """The kernels of a count that launched."""
     return {name: n for name, n in c.items() if n}
+
+
+def require_launches(c: dict, kinds, iters: int, what: str) -> None:
+    """Each of ``kinds`` (a route of ``ops.HALF_STEP_KINDS``) launched once
+    an iteration, and no other kernel of the count."""
+    require(launched(c) == {name: iters for name in kinds},
+            f"{what} launched {launched(c)} in {iters} iterations, want {kinds} once each")
+
+
+def accounted(before: dict | None = None) -> dict:
+    """The default registry's ``kernel.launches`` of every kernel, less
+    ``before``'s: the launches the trainer accounted."""
+    from repro_torch import telemetry
+    reg = telemetry.default_registry()
+    return {kind: reg.value("kernel.launches", kernel=kind) - (before or {}).get(kind, 0)
+            for kind in KERNELS}
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -1936,8 +1949,7 @@ def phase_c1_route(torch, ops, K, gadget_train, GadgetConfig, dev, reset, counts
         f"{rel:.3e} <= {C1_RTOL}; one row moves W by up to {one_row:.3e}); against float64 "
         f"{err64:.3e} (the plain version {plain_err64:.3e}); {ms * 1e3:.2f} us "
         f"(plain {plain_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} by {bound_by})")
-    require(direct["margins"] == direct["grad_update"] == 1 and direct["fleet_half_step"] == 0,
-            f"the step above the cap launched {launched(direct)}")
+    require_launches(direct, ops.HALF_STEP_KINDS["unfused"], 1, "the step above the cap")
     require(rel <= C1_RTOL, f"the routed step is {rel:.3e} from the plain version (rel)")
     cfg = GadgetConfig(lam=lam, batch_size=B, gossip_rounds=4, topology="random", epsilon=0.0,
                        check_every=C1_ITERS, max_iters=C1_ITERS, seed=0)
@@ -1949,8 +1961,7 @@ def phase_c1_route(torch, ops, K, gadget_train, GadgetConfig, dev, reset, counts
     w_err = float((res.W.cpu() - res_cpu.W).abs().max())
     log(f"  {res.iters} fused iterations at B = {B}: launches {launched(run)}, W against the CPU "
         f"{w_err:.3e} (<= {PATH_W_ATOL})")
-    require(run["margins"] == run["grad_update"] == res.iters == C1_ITERS
-            and run["fleet_half_step"] == 0, f"the routed training launched {launched(run)}")
+    require_launches(run, ops.HALF_STEP_KINDS["unfused"], C1_ITERS, "the routed training")
     require(w_err <= PATH_W_ATOL, f"the routed training's W is {w_err:.3e} from the CPU's")
     # where the route crosses the plain step: the same fleet at smaller B
     sweep = []
@@ -2013,8 +2024,7 @@ def phase_faults(torch, ops, core, gadget_train, cfg, data, dev, reset, counts_o
     require(acc >= FAULT_MIN_ACCURACY, f"faulted accuracy {acc:.4f} < {FAULT_MIN_ACCURACY}")
     require(obj_l <= FAULT_MAX_OBJECTIVE, f"faulted objective {obj_l:.4f} > {FAULT_MAX_OBJECTIVE}")
     require(mass_dev <= LINK_MASS_ATOL, f"link-mode mass off 1 by {mass_dev:.3e}")
-    require(c_l["fleet_half_step"] == res_l.iters and c_l["margins"] == c_l["grad_update"] == 0,
-            f"faulted fused training launched {launched(c_l)}")
+    require_launches(c_l, ops.HALF_STEP_KINDS["fused"], res_l.iters, "faulted fused training")
 
     res_m = gadget_train(X_dev, y_dev, cfg._replace(
         max_iters=400, faults=FaultPlan(drop_prob=FAULT_DROP_PROB, drop="message")), **kw)
@@ -2040,15 +2050,14 @@ def phase_faults(torch, ops, core, gadget_train, cfg, data, dev, reset, counts_o
     require(tr.count == 4 and np.array_equal(tr.node_drops.sum(axis=1), tr.drops)
             and int(tr.drops.sum()) > 0, "per-node drops do not sum to the ring's drops")
     require(not tr.node_drops[:, DEAD_NODE].any(), "the dead node dropped messages")
-    require(c_d["fleet_half_step"] == on.iters, f"faulted telemetry run launched {launched(c_d)}")
+    require_launches(c_d, ops.HALF_STEP_KINDS["fused"], on.iters, "faulted telemetry run")
 
     reset()
     res_u = gadget_train(X_dev, y_dev, cfg_d._replace(fused=False), **kw)
     torch.cuda.synchronize()
     c_u = counts_of()
     log(f"  unfused under faults: {res_u.iters} iterations, launches {launched(c_u)}")
-    require(c_u["margins"] == c_u["grad_update"] == res_u.iters and c_u["fleet_half_step"] == 0,
-            f"faulted unfused training launched {launched(c_u)}")
+    require_launches(c_u, ops.HALF_STEP_KINDS["unfused"], res_u.iters, "faulted unfused training")
     require(not bool(res_u.W[DEAD_NODE].any()), "the dead row moved on the unfused path")
 
     cfg_6 = cfg_d._replace(max_iters=200)
@@ -2106,7 +2115,7 @@ def phase_faults(torch, ops, core, gadget_train, cfg, data, dev, reset, counts_o
 
 
 def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev, tmp, reset,
-                  counts_of) -> dict:
+                  counts_of, kinds) -> dict:
     """Phase 17: the anytime export. A faulted reuters stream (the fused
     kernel) and the CCAT stream at full width (the prefetch schedule) bit for bit
     ``gadget_train`` at the segment length; the CCAT run killed after two
@@ -2143,9 +2152,7 @@ def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev,
     iters = segs[-1].iteration
     log(f"  CCAT stream: {len(segs)} segments to iteration {iters} in {stream_s:.3f} s "
         f"({iters / stream_s:.1f} it/s), objective {segs[-1].objective:.4f}, launches {launched(c)}")
-    for name in KERNELS:
-        require(c[name] == (iters if name in CCAT_HALF_STEP else 0),
-                f"{name} launched {c[name]} times in {iters} stream iterations")
+    require_launches(c, kinds, iters, "the CCAT stream")
     mono = gadget_train(parts_c, y_c, cfg_c._replace(check_every=SEGMENT_ITERS), n_counts=n_c,
                         device=dev, snapshot_every=SEGMENT_ITERS, snapshot_slots=SNAPSHOT_SLOTS)
     require(mono.iters == iters and torch.equal(mono.W, segs[-1].W)
@@ -2181,13 +2188,13 @@ def phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, data, ccat, dev,
                                "fleet_half_step": c_r["fleet_half_step"]},
             "ccat_stream": {"iters": iters, "segments": len(segs), "stream_s": stream_s,
                             "iters_per_s": iters / stream_s, "objective": segs[-1].objective,
-                            **{name: c[name] for name in CCAT_HALF_STEP}},
+                            **{name: c[name] for name in kinds}},
             "snapshot_iterations": [s.iteration for s in snaps],
             "resumed_from": seg2.iteration}
 
 
 def phase_publisher(torch, serve, formats, telemetry, R, cfg_c, ccat, ds_c, buckets, queries,
-                    dev, tmp, reset, counts_of) -> dict:
+                    dev, tmp, reset, counts_of, kinds) -> dict:
     """Phase 18: ``TrainPublisher`` trains CCAT in a background thread and
     publishes a checkpoint a segment while an ``SvmServer`` watches the root
     and serves CCAT's test queries through ``ell_scores_prefetch``. The
@@ -2202,14 +2209,15 @@ def phase_publisher(torch, serve, formats, telemetry, R, cfg_c, ccat, ds_c, buck
         reg_srv.attach_sink(sink_srv)
         try:
             return publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c,
-                                 buckets, queries, dev, root, reg_pub, reg_srv, reset, counts_of)
+                                 buckets, queries, dev, root, reg_pub, reg_srv, reset, counts_of,
+                                 kinds)
         finally:
             reg_pub.detach_sink()
             reg_srv.detach_sink()
 
 
 def publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c, buckets, queries,
-                  dev, root, reg_pub, reg_srv, reset, counts_of) -> dict:
+                  dev, root, reg_pub, reg_srv, reset, counts_of, kinds) -> dict:
     """The body of phase 18, on the given registries."""
     pub = serve.TrainPublisher(parts_c, y_c, cfg_c, root=root, segment_iters=SEGMENT_ITERS,
                                n_counts=n_c, device=dev, save_train_state=True,
@@ -2261,7 +2269,7 @@ def publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c, buck
     require(n_served == n_final, "the last served accuracy differs from the final consensus's")
     require(c["ell_scores_prefetch"] == batches,
             f"ell_scores_prefetch launched {c['ell_scores_prefetch']} times for {batches} batches")
-    require(all(c[name] == final.iteration for name in CCAT_HALF_STEP),
+    require(all(c[name] == final.iteration for name in kinds),
             f"the publisher's training launched {launched(c)}")
     require(state is not None and state.iteration == final.iteration,
             "the last checkpoint carries no train state")
@@ -2269,7 +2277,7 @@ def publisher_run(torch, serve, formats, R, cfg_c, parts_c, y_c, n_c, ds_c, buck
             "serving_passes": passes, "batches": batches,
             "test_accuracy": n_served / len(queries),
             "ell_scores_prefetch": c["ell_scores_prefetch"],
-            **{name: c[name] for name in CCAT_HALF_STEP}}
+            **{name: c[name] for name in kinds}}
 
 
 def queries_csr(queries, d: int, CSR):
@@ -2621,9 +2629,7 @@ def phase_solvers(torch, gadget, pegasos, cutting_plane, multiclass, P, ops, cfg
         want_up = HOST_LOOP_ITERS if topology == "exponential" else 0
         require(stats == {"matrix_uploads": want_up, "host_syncs": 2 * n_checks},
                 f"host loop transfer_stats {stats}")
-        require(launches["margins"] == launches["grad_update"] == res_h.iters
-                and launches["fleet_half_step"] == 0,
-                f"host loop launched {launched(launches)} in {res_h.iters} iterations")
+        require_launches(launches, ops.HALF_STEP_KINDS["unfused"], res_h.iters, "host loop")
         out["host_loop"][topology] = dict(iters=res_h.iters, seconds=host_s,
                                           iters_per_s=res_h.iters / host_s,
                                           unfused_iters_per_s=res_u.iters / dev_s,
@@ -2826,8 +2832,7 @@ def _mesh_rank(rank, world, backend, rdv, work, device_type) -> None:
     y = torch.from_numpy(data["y"][rank, :n_r]).to(dev)
     X = torch.zeros((n_r, d), dtype=torch.float32, device=dev).scatter_add_(1, cols.long(), vals)
     cfg = PAPER_RUNS["reuters"].gadget
-    mesh_fns = (K.margins, K.grad_update, P.dense_scores, S.ell_margins_prefetch_coeff,
-                S.ell_grad_update_prefetch_fold, S.ell_grad_update_fused)
+    mesh_fns = wrappers(K, P, S, ())
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in mesh_fns}
@@ -2902,9 +2907,7 @@ def _mesh_rank(rank, world, backend, rdv, work, device_type) -> None:
                              plain_200=float((w_s - w_p).abs().max()),
                              err_3=float((w_s3 - w_d3).abs().max()),
                              err_200=float((w_s - w_k).abs().max()),
-                             launches={k: c[k] for k in ("ell_margins_prefetch_coeff",
-                                                         "ell_grad_update_prefetch_fold",
-                                                         "ell_grad_update_fused")},
+                             launches={k: n for k, n in c.items() if k.startswith("ell_")},
                              steps=MESH_SPARSE_CHECK_STEPS + MESH_STEPS)
 
         g = torch.Generator(device=dev).manual_seed(100 + rank)
@@ -2968,11 +2971,12 @@ def run_mesh(world: int, backend: str, work: Path, device_type: str = "cuda") ->
     return [json.loads((work / f"rank{r}_{backend}.json").read_text()) for r in range(world)]
 
 
-def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
+def phase_mesh(torch, partition, ds_r, work: Path, routes) -> dict:
     """Phase 21: the mesh step, its faults, the sparse mesh step, the mesh
     scorer and gossip_mix on four gloo ranks sharing the card, then the
-    dense mesh at world = the card count over NCCL. The kernels are already
-    built (phase 2), so no rank runs nvcc."""
+    dense mesh at world = the card count over NCCL; the steps' launches are
+    their routes' (``routes``: ``ops.HALF_STEP_KINDS``). The kernels are
+    already built (phase 2), so no rank runs nvcc."""
     X_te = ds_r.X_test
     pad = -X_te.shape[0] % MESH_WORLD
     for world in sorted({MESH_WORLD, torch.cuda.device_count()}):
@@ -2993,12 +2997,12 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
         log(f"    rank {r['rank']}: {r['rows']} rows, {r['us_per_step']:.1f} us a step, "
             f"{r['exchange_share']:.3f} of it exchanging ({r['exchanges']} exchanges in "
             f"{MESH_STEPS} steps), kernels against plain {r['kernel_vs_plain']:.3e}, "
-            f"launches {r['dense_launches']}")
+            f"launches {launched(r['dense_launches'])}")
         require(r["backend"] == "gloo" and r["finite"], f"rank {r['rank']}: backend or W")
         require(r["kernel_vs_plain"] <= PATH_W_ATOL,
                 f"rank {r['rank']}: kernel step differs from the plain by {r['kernel_vs_plain']:.3e}")
-        require(r["dense_launches"]["margins"] == r["dense_launches"]["grad_update"] == MESH_STEPS,
-                f"rank {r['rank']}: dense mesh launches {r['dense_launches']}")
+        require_launches(r["dense_launches"], routes["unfused"], MESH_STEPS,
+                         f"rank {r['rank']}'s dense step")
         f = r["faults"]
         require(f["inert_equal"], f"rank {r['rank']}: an inert plan moved the step")
         require((f["dead_max"] == 0.0) == (r["rank"] == 2),
@@ -3011,9 +3015,8 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
                 f"rank {r['rank']}: sparse mesh step against its plain version {sp}")
         require(sp["err_3"] <= SPARSE_PARITY_ATOL and sp["err_200"] <= PATH_W_ATOL,
                 f"rank {r['rank']}: sparse mesh step against dense {sp}")
-        require(all(n == (sp["steps"] if name in CCAT_HALF_STEP else 0)
-                    for name, n in sp["launches"].items()),
-                f"rank {r['rank']}: sparse mesh launches {sp['launches']}")
+        require_launches(sp["launches"], routes["prefetch"], sp["steps"],
+                         f"rank {r['rank']}'s sparse step")
         sc = r["scorer"]
         require(sc["err"] <= KERNEL_RTOL and sc["labels_equal"] and sc["dense_scores"] == 1
                 and sc["one_process_err"] <= KERNEL_RTOL and sc["one_process_labels_equal"],
@@ -3038,9 +3041,7 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
                        grad_update=sum(r["dense_launches"]["grad_update"] for r in ranks),
                        dense_scores=sum(r["scorer"]["dense_scores"] for r in ranks),
                        **{name: sum(r["sparse"]["launches"][name] for r in ranks)
-                          for name in ("ell_margins_prefetch_coeff",
-                                       "ell_grad_update_prefetch_fold",
-                                       "ell_grad_update_fused")})
+                          for name in ranks[0]["sparse"]["launches"]})
 
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
@@ -3050,13 +3051,13 @@ def phase_mesh(torch, partition, ds_r, work: Path) -> dict:
         log(f"  backend {r['backend']}, world {world}, rank {r['rank']}: {r['rows']} rows, "
             f"{r['us_per_step']:.1f} us a step, {r['exchange_share']:.3f} exchanging, "
             f"host_staged_bytes {r['host_staged_bytes']}, kernels against plain "
-            f"{r['kernel_vs_plain']:.3e}, launches {r['dense_launches']}, scorer "
+            f"{r['kernel_vs_plain']:.3e}, launches {launched(r['dense_launches'])}, scorer "
             f"{r['scorer']['err']:.3e}")
         require(r["backend"] == "nccl" and r["finite"] and r["host_staged_bytes"] == 0,
                 f"rank {r['rank']}: NCCL run {r['backend']}, staged {r['host_staged_bytes']}")
         require(r["kernel_vs_plain"] <= PATH_W_ATOL, f"NCCL rank {r['rank']}: kernels off plain")
-        require(r["dense_launches"]["margins"] == r["dense_launches"]["grad_update"] == MESH_STEPS,
-                f"NCCL rank {r['rank']}: launches {r['dense_launches']}")
+        require_launches(r["dense_launches"], routes["unfused"], MESH_STEPS,
+                         f"NCCL rank {r['rank']}'s dense step")
         sc = r["scorer"]
         require(sc["err"] <= KERNEL_RTOL and sc["labels_equal"]
                 and sc["one_process_err"] <= KERNEL_RTOL and sc["one_process_labels_equal"],
@@ -4015,17 +4016,19 @@ def example_faults(torch, K, P, S, X, dev) -> dict:
 
 
 def example_serve(torch, K, P, S, X, dev) -> dict:
-    """serve_batched: training through the sparse pair ``schedule="auto"``
-    picks (one launch each an iteration), the f32 and int8 exports served,
+    """serve_batched: training through the sparse route ``schedule="auto"``
+    picks (each kernel the trainer accounts once an iteration), the f32 and int8 exports served,
     every ragged query delivered, one ``ell_scores_prefetch`` launch a
     drained batch and one ``dense_scores`` a dense ``score``, the served
     shapes within the buckets, int8 agreement >= 0.9."""
     sb = load_example("torch_serve_batched")
     reset_counts(K, P, S, X)
+    before = accounted()
     t0 = time.perf_counter()
     ds, Pe, res = sb.train(dev)
     torch.cuda.synchronize()
     train_launches = launched(counts(K, P, S, X))
+    route = [kind for kind, n in accounted(before).items() if n]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_batched_") as td:
         reset_counts(K, P, S, X)
         out = sb.export_and_serve(ds, Pe, res, td, dev)
@@ -4063,9 +4066,7 @@ def example_serve(torch, K, P, S, X, dev) -> dict:
         f"batches, {out['server']['distinct_shapes']} shapes for {len(out['buckets'])} "
         f"buckets, serving launches {serve_launches}, int8 agreement {out['agree']:.4f}, "
         f"{sec:.1f} s")
-    routes = (("ell_grad_update_fused",), ("ell_margins_coeff", "ell_grad_update"))
-    require(any(train_launches == {name: res.iters for name in route} for route in routes),
-            f"serve_batched's training launched {train_launches} in {res.iters} iterations")
+    require_launches(train_launches, route, res.iters, "serve_batched's training")
     require(delivered == sb.N_QUERIES == out["batcher"]["requests"],
             f"serve_batched delivered {delivered} of {sb.N_QUERIES} queries")
     require(serve_launches == {"ell_scores_prefetch": out["batcher"]["batches"],
@@ -4377,11 +4378,8 @@ def main() -> int:
     require(pred.shape == (ds.X_test.shape[0],), "prediction shape")
     require(acc >= MIN_ACCURACY, f"test accuracy {acc:.4f} < {MIN_ACCURACY}")
     require(objective <= MAX_OBJECTIVE, f"objective {objective:.4f} > {MAX_OBJECTIVE}")
-    require(main_counts["fleet_half_step"] == res.iters,
-            f"fleet_half_step launched {main_counts['fleet_half_step']} times in {res.iters} iterations")
-    require(main_counts["dense_scores"] == 1, "dense_scores not launched once for the test set")
-    require(main_counts["margins"] == main_counts["grad_update"] == 0,
-            "the fused path launched unfused kernels")
+    require(launched(main_counts) == {**dict.fromkeys(ops.HALF_STEP_KINDS["fused"], res.iters),
+                                      "dense_scores": 1}, f"phase 4 launched {launched(main_counts)}")
 
     n_prof = 200
     prof = profile_iterations(torch, lambda: gadget_train(
@@ -4409,10 +4407,8 @@ def main() -> int:
     log(f"  {res_u.iters} iterations in {unfused_s:.3f} s ({res_u.iters / unfused_s:.1f} it/s), "
         f"objective {float(res_u.objective_trace[-1]):.4f}, launches {unfused_counts}")
     require(bool(torch.isfinite(res_u.W).all()), "unfused W not finite")
-    for name, want in (("margins", res_u.iters), ("grad_update", res_u.iters)):
-        require(unfused_counts[name] == want,
-                f"{name} launched {unfused_counts[name]} times, want {want}")
-    require(unfused_counts["fleet_half_step"] == 0, "the unfused path launched the fleet kernel")
+    require_launches(unfused_counts, ops.HALF_STEP_KINDS["unfused"], res_u.iters,
+                     "the unfused path")
     prof_u = profile_iterations(torch, lambda: gadget_train(
         X_dev, y_dev, cfg_u._replace(max_iters=n_prof), n_counts=n_counts, device=dev))
     device_us_u = prof_u["device_us"] / n_prof
@@ -4449,6 +4445,7 @@ def main() -> int:
     log(f"  auto schedule at B={cfg_c.batch_size}, k={k_c}, d={parts_c.d}: {schedule[0]}, "
         f"blk_d {schedule[1]}, n_blocks_max {schedule[2]}")
     require(schedule[:2] == ("prefetch", 128), f"auto resolved to {schedule}")
+    ccat_kinds = ops.HALF_STEP_KINDS[schedule[0]]
     cols_te = torch.from_numpy(ds_c.X_test.cols).to(dev)
     vals_te = torch.from_numpy(ds_c.X_test.vals).to(dev)
     y_te = torch.from_numpy(ds_c.y_test).to(dev)
@@ -4456,15 +4453,13 @@ def main() -> int:
                  device=dev)  # warm-up
     torch.cuda.synchronize()
     reset_counts(K, P, S, X)
-    registry = telemetry.default_registry()
-    accounted = {kind: registry.value("kernel.launches", kernel=kind) for kind in KERNELS}
+    before = accounted()
     t0 = time.perf_counter()
     res_c = gadget_train(parts_c, y_c, cfg_c, n_counts=n_c, device=dev)
     torch.cuda.synchronize()
     sparse_s = time.perf_counter() - t0
     sparse_counts = counts(K, P, S, X)
-    accounted = {kind: registry.value("kernel.launches", kernel=kind) - n
-                 for kind, n in accounted.items()}
+    accounted_c = accounted(before)
     scores = R.ell_matvec_flat(res_c.w_consensus, cols_te, vals_te)
     n_correct_c = int((torch.where(scores >= 0.0, 1.0, -1.0) == y_te).sum())
     acc_c = n_correct_c / len(y_te)
@@ -4476,13 +4471,8 @@ def main() -> int:
             "sparse W not finite or misshaped")
     require(acc_c >= CCAT_MIN_ACCURACY, f"CCAT test accuracy {acc_c:.4f} < {CCAT_MIN_ACCURACY}")
     require(obj_c <= CCAT_MAX_OBJECTIVE, f"CCAT objective {obj_c:.4f} > {CCAT_MAX_OBJECTIVE}")
-    require(accounted == {kind: (res_c.iters if kind in CCAT_HALF_STEP else 0)
-                          for kind in KERNELS},
-            f"kernel.launches accounted {accounted} in {res_c.iters} sparse iterations")
-    for name in KERNELS:
-        want = res_c.iters if name in CCAT_HALF_STEP else 0
-        require(sparse_counts[name] == want,
-                f"{name} launched {sparse_counts[name]} times in {res_c.iters} sparse iterations")
+    require_launches(accounted_c, ccat_kinds, res_c.iters, "kernel.launches accounted")
+    require_launches(sparse_counts, ccat_kinds, res_c.iters, "the prefetch path")
     prof_c = profile_iterations(torch, lambda: gadget_train(
         parts_c, y_c, cfg_c._replace(max_iters=n_prof), n_counts=n_c, device=dev))
     device_us_c = prof_c["device_us"] / n_prof
@@ -4511,10 +4501,7 @@ def main() -> int:
     log(f"  {res_sw.iters} iterations in {sweep_s:.3f} s ({res_sw.iters / sweep_s:.1f} it/s), "
         f"objective {float(res_sw.objective_trace[-1]):.4f}, launches {sweep_counts}")
     require(bool(torch.isfinite(res_sw.W).all()), "sweep W not finite")
-    for name in KERNELS:
-        want = res_sw.iters if name in ("ell_margins_coeff", "ell_grad_update") else 0
-        require(sweep_counts[name] == want,
-                f"{name} launched {sweep_counts[name]} times in {res_sw.iters} sweep iterations")
+    require_launches(sweep_counts, ops.HALF_STEP_KINDS["sweep"], res_sw.iters, "the sweep")
     prof_sw = profile_iterations(torch, lambda: gadget_train(
         parts_c, y_c, cfg_sw._replace(max_iters=n_prof), n_counts=n_c, device=dev))
     device_us_sw = prof_sw["device_us"] / n_prof
@@ -4698,11 +4685,11 @@ def main() -> int:
         phase_s["16"] = time.perf_counter() - t0 - sum(phase_s.values())
         log("phase 17: anytime export, the stream, resume and the snapshot ring")
         anytime = phase_anytime(torch, serve, core, gadget_train, cfg, cfg_c, reuters, ccat, dev,
-                                tmp, reset, counts_of)
+                                tmp, reset, counts_of, ccat_kinds)
         phase_s["17"] = time.perf_counter() - t0 - sum(phase_s.values())
         log("phase 18: the live publisher behind a watching server")
         publisher = phase_publisher(torch, serve, formats, telemetry, R, cfg_c, ccat, ds_c,
-                                    buckets, queries, dev, tmp, reset, counts_of)
+                                    buckets, queries, dev, tmp, reset, counts_of, ccat_kinds)
         phase_s["18"] = time.perf_counter() - t0 - sum(phase_s.values())
         log("phase 19: the serving control plane")
         control = phase_control_plane(torch, serve, formats, libsvm, telemetry, tmtr, top, R,
@@ -4718,7 +4705,7 @@ def main() -> int:
         phase_s["20"] = time.perf_counter() - t0 - sum(phase_s.values())
         log(f"  {phase_s['20']:.1f} s")
         log("phase 21: the mesh, four gloo ranks on the card, then NCCL")
-        mesh = phase_mesh(torch, partition, ds_r, tmp)
+        mesh = phase_mesh(torch, partition, ds_r, tmp, ops.HALF_STEP_KINDS)
         phase_s["21"] = time.perf_counter() - t0 - sum(phase_s.values())
         log(f"  {phase_s['21']:.1f} s")
     free_cuda(torch)
@@ -4746,22 +4733,18 @@ def main() -> int:
     log(f"  seconds per phase: {', '.join(f'{k}: {v:.1f}' for k, v in phase_s.items())}")
 
     log("phase 27: summary")
-    launches = {"fleet_half_step": main_counts["fleet_half_step"],
-                "dense_scores": main_counts["dense_scores"],
-                "margins": unfused_counts["margins"],
-                "grad_update": unfused_counts["grad_update"],
-                "ell_margins_prefetch": sparse_counts["ell_margins_prefetch"],
-                "ell_margins_prefetch_coeff": sparse_counts["ell_margins_prefetch_coeff"],
-                "ell_grad_update_prefetch": sparse_counts["ell_grad_update_prefetch"],
-                "ell_grad_update_prefetch_fold": sparse_counts["ell_grad_update_prefetch_fold"],
-                "ell_grad_update_fused": sparse_counts["ell_grad_update_fused"],
-                "ell_margins": sweep_counts["ell_margins"],
-                "ell_margins_coeff": sweep_counts["ell_margins_coeff"],
-                "ell_grad_update": sweep_counts["ell_grad_update"],
-                "ell_scores_prefetch": serve_counts["ell_scores_prefetch"],
-                "flash_attention": transformer["recurrentgemma-9b"]["prefill"]["launches"]["flash_attention"],
-                "rglru_scan": transformer["recurrentgemma-9b"]["prefill"]["launches"]["rglru_scan"],
-                "wkv_scan": transformer["rwkv6-3b"]["prefill"]["launches"]["wkv_scan"]}
+    # each kernel's launches on its path's phase; 0 for the entries on none
+    launches = dict.fromkeys(KERNELS, 0)
+    for c, kinds in ((main_counts, ops.HALF_STEP_KINDS["fused"] + ("dense_scores",)),
+                     (unfused_counts, ops.HALF_STEP_KINDS["unfused"]), (sparse_counts, ccat_kinds),
+                     (sweep_counts, ops.HALF_STEP_KINDS["sweep"]),
+                     (serve_counts, ("ell_scores_prefetch",))):
+        launches.update({name: c[name] for name in kinds})
+    prefill = {arch: transformer[arch]["prefill"]["launches"]
+               for arch in ("recurrentgemma-9b", "rwkv6-3b")}
+    launches.update(flash_attention=prefill["recurrentgemma-9b"]["flash_attention"],
+                    rglru_scan=prefill["recurrentgemma-9b"]["rglru_scan"],
+                    wkv_scan=prefill["rwkv6-3b"]["wkv_scan"])
     paths = {"fleet_half_step": "fused training (phase 4)", "dense_scores": "scoring (phase 4)",
              "margins": "unfused training (phase 5)", "grad_update": "unfused training (phase 5)",
              "ell_margins_prefetch": "none: the margins-only entry, held in phase 3; sparse "
@@ -4802,7 +4785,7 @@ def main() -> int:
              "launches": mesh["gloo"][name]},
             {"path": f"dense mesh step over NCCL, world {mesh['nccl']['world']} (phase 21)",
              "launches": mesh["nccl"][name]}]
-    for name in CCAT_HALF_STEP:
+    for name in ccat_kinds:
         more_paths[name] += [
             {"path": "CCAT stream (phase 17)", "launches": anytime["ccat_stream"][name]},
             {"path": "CCAT training behind the publisher (phase 18)", "launches": publisher[name]},

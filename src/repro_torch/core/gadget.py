@@ -20,7 +20,8 @@ launch for the fleet (the reference vmaps them over the nodes), and the R
 rounds in order. On ELL partitions steps (a)-(e) are always fleet-wide
 (``ops.ell_fleet_half_step``: per ``cfg.sparse_schedule`` the sweep's two
 launches or the touched-block schedule's one), and ``fused`` selects only
-the mixing.
+the mixing. A run picks its format and half-step route once, at its start
+(``_partitions``); ``ops.HALF_STEP_KINDS`` names each route's kernels.
 Push-Sum pushes n_i·w̃_i with mass n_i, so the consensus is the
 data-weighted mean Σ n_i ŵ_i / N, also under non-uniform ``n_counts``.
 
@@ -76,7 +77,6 @@ from repro_torch.core.push_sum import (PushSumState, collapse_rounds, exponentia
                                        mix_collapsed, mix_rounds, push_sum_round)
 from repro_torch.kernels.hinge_subgrad import ops
 from repro_torch.kernels.hinge_subgrad import ref as hinge_ref
-from repro_torch.kernels.hinge_subgrad import sparse as ell_kernels
 from repro_torch.sparse.formats import minibatch_block_bound
 from repro_torch.telemetry import registry as tmr
 from repro_torch.telemetry import trace as tmtr
@@ -365,41 +365,94 @@ class RecordedDraws:
         return self._device(plan.counts.device)[2][t0 - 1:t0 - 1 + n]
 
 
-def _unpack_partitions(X_parts, y_parts, device: torch.device):
-    """``(X, y, m, n_i, d)`` on the device: X is the dense (m, n_i, d) float32
-    tensor, or the ``(cols int32, vals float32)`` pair of (m, n_i, k) planes
-    when the caller passed ELL partitions (duck-typed on ``.cols``,
-    ``.vals`` and ``.d``, so the reference's ``EllPartitions`` trains too)."""
-    y = _as_f32(y_parts, device)
-    if hasattr(X_parts, "cols") and hasattr(X_parts, "vals"):
+class _Partitions:
+    """A run's (m, n_i, ·) data planes and (m, n_i) labels on the device in
+    one format, with the minibatch gather, the half-step on the run's route
+    (``route``, a key of ``ops.HALF_STEP_KINDS``; ``launch_shape`` its
+    ``ops.launch_cost`` shape) and the masked primal objective."""
+
+    def __init__(self, planes: tuple, y: torch.Tensor, d: int):
+        (self.m, self.n_i), self.d = y.shape, d
+        self.planes, self.y = planes, y
+        self.flat = tuple(P.reshape(self.m * self.n_i, -1) for P in planes)
+        self.y_flat = y.reshape(self.m * self.n_i)
+        self.rows = torch.arange(self.m, device=y.device)[:, None]
+
+    def gather(self, ids):
+        """Every node's minibatch rows ``ids`` (m, B): ``(planes, yb)``."""
+        yb = self.y[self.rows, ids]
+        return tuple(P[self.rows, ids] for P in self.planes), yb
+
+    def objective(self, w, lam: float, valid, total):
+        return self.primal(w, *self.flat, self.y_flat, lam, valid, total)
+
+
+class _Dense(_Partitions):
+    """Dense (m, n_i, d) partitions. Fused: ``ops.fleet_half_step``, one
+    launch for the fleet (two above the kernel's minibatch cap, a cut-over
+    made and costed in ``ops``); else ``ops.unfused_fleet_half_step``."""
+
+    primal = staticmethod(obj.primal_objective_masked)
+
+    def __init__(self, X: torch.Tensor, y: torch.Tensor, cfg: GadgetConfig):
+        if X.ndim != 3 or y.shape != X.shape[:2]:
+            raise ValueError(f"need X (m, n_i, d) and y (m, n_i), got "
+                             f"{tuple(X.shape)} and {tuple(y.shape)}")
+        super().__init__((X,), y, X.shape[2])
+        self.row_mask = torch.ones((cfg.batch_size,), dtype=torch.float32, device=y.device)
+        self.route = "fused" if cfg.fused else "unfused"
+        self.half_step = self._fused if cfg.fused else self._unfused
+        self.launch_shape = dict(m=self.m, B=cfg.batch_size, d=self.d)
+
+    def _fused(self, W, Xb, yb, **step):
+        return ops.fleet_half_step(W, *Xb, yb, row_mask=self.row_mask, **step)
+
+    def _unfused(self, W, Xb, yb, **step):
+        return ops.unfused_fleet_half_step(W, *Xb, yb, **step)
+
+
+class _Ell(_Partitions):
+    """ELL partitions, the ``(cols int32, vals float32)`` pair of (m, n_i, k)
+    planes. The half-step is fleet-wide whether fused or not:
+    ``ops.ell_fleet_half_step`` on the schedule, ``blk_d`` and map width
+    resolved here once, from the planes' static block bound."""
+
+    primal = staticmethod(obj.primal_objective_masked_ell)
+
+    def __init__(self, X_parts, y: torch.Tensor, cfg: GadgetConfig):
         cols = X_parts.cols
         cols = cols if isinstance(cols, torch.Tensor) else torch.from_numpy(np.asarray(cols))
-        cols = cols.to(device=device, dtype=torch.int32).contiguous()
-        vals = _as_f32(X_parts.vals, device)
+        cols = cols.to(device=y.device, dtype=torch.int32).contiguous()
+        vals = _as_f32(X_parts.vals, y.device)
         if cols.ndim != 3 or vals.shape != cols.shape or y.shape != cols.shape[:2]:
             raise ValueError(f"need ELL planes (m, n_i, k) and y (m, n_i), got cols "
                              f"{tuple(cols.shape)}, vals {tuple(vals.shape)}, y {tuple(y.shape)}")
-        m, n_i, _ = cols.shape
-        return (cols, vals), y, m, n_i, int(X_parts.d)
-    X = _as_f32(X_parts, device)
-    if X.ndim != 3 or y.shape != X.shape[:2]:
-        raise ValueError(f"need X (m, n_i, d) and y (m, n_i), got "
-                         f"{tuple(X.shape)} and {tuple(y.shape)}")
-    m, n_i, d = X.shape
-    return X, y, m, n_i, d
+        super().__init__((cols, vals), y, int(X_parts.d))
+        B, bound = cfg.batch_size, None
+        if cfg.sparse_schedule != "sweep":  # the sweep reads no block bound
+            bound = (X_parts.block_bound(B) if hasattr(X_parts, "block_bound")  # cached
+                     else minibatch_block_bound(np.asarray(X_parts.cols),
+                                                np.asarray(X_parts.vals), B, d=self.d))
+        k = max(cols.shape[2], 1)  # ops widens k = 0 planes to one inert entry a row
+        self.route, self.blk_d, self.n_blocks_max = ops.resolve_ell_schedule(
+            cfg.sparse_schedule, B=B, k=k, d=self.d, n_blocks_max=bound)
+        self.launch_shape = dict(m=self.m, B=B, k=k, d=self.d, n_blocks_max=self.n_blocks_max,
+                                 blk_d=self.blk_d)
+
+    def half_step(self, W, Xb, yb, **step):
+        return ops.ell_fleet_half_step(W, *Xb, yb, schedule=self.route,
+                                       n_blocks_max=self.n_blocks_max, blk_d=self.blk_d, **step)
 
 
-def _sparse_block_bound(cfg: GadgetConfig, X_parts, X) -> int | None:
-    """Static n_blocks_max cap of the prefetch schedule, derived on the host
-    from the partition planes. None for dense data and for the sweep
-    schedule, which consume no bound."""
-    if not isinstance(X, tuple) or cfg.sparse_schedule == "sweep":
-        return None
-    if hasattr(X_parts, "block_bound"):  # EllPartitions caches its row counts
-        return X_parts.block_bound(cfg.batch_size)
-    cols, vals = np.asarray(X_parts.cols), np.asarray(X_parts.vals)
-    return minibatch_block_bound(cols.reshape(cols.shape[0], -1, cols.shape[-1]), vals,
-                                 cfg.batch_size, d=int(X_parts.d))
+def _partitions(X_parts, y_parts, cfg: GadgetConfig, device: torch.device) -> _Partitions:
+    """The run's partitions on the device and their half-step route: the
+    trainer's one test of the format. X_parts is dense (m, n_i, d), or ELL
+    duck-typed on ``.cols``, ``.vals`` and ``.d`` (the reference's
+    ``EllPartitions`` trains too)."""
+    y = _as_f32(y_parts, device)
+    if hasattr(X_parts, "cols") and hasattr(X_parts, "vals"):
+        return _Ell(X_parts, y, cfg)
+    return _Dense(_as_f32(X_parts, device), y, cfg)
 
 
 def _partition_counts(m: int, n_i: int, n_counts) -> np.ndarray:
@@ -481,30 +534,13 @@ class _Run:
 
     def __init__(self, X_parts, y_parts, cfg: GadgetConfig, n_counts, device, draws):
         self.dev = resolve_device(device)
-        X, y, m, n_i, d = _unpack_partitions(X_parts, y_parts, self.dev)
-        self.X, self.y, self.m, self.n_i, self.d = X, y, m, n_i, d
+        self.data = data = _partitions(X_parts, y_parts, cfg, self.dev)
+        m, n_i, self.m, self.d = data.m, data.n_i, data.m, data.d
         self.cfg = cfg = _resolve_faults(cfg, m)
-        self.block_bound = _sparse_block_bound(cfg, X_parts, X)
         counts_i = torch.from_numpy(_partition_counts(m, n_i, n_counts)).to(self.dev)
         self.counts_f = counts_i.to(torch.float32)
         self.total = self.counts_f.sum()
-        y_flat = y.reshape(m * n_i)
-        valid = (torch.arange(n_i, device=self.dev)[None, :] < counts_i[:, None]).reshape(-1)
-        if isinstance(X, tuple):  # ELL planes: the full-data pass is a gather-dot
-            cols_flat, vals_flat = X[0].reshape(m * n_i, -1), X[1].reshape(m * n_i, -1)
-
-            def objective_of(w):
-                return obj.primal_objective_masked_ell(w, cols_flat, vals_flat, y_flat,
-                                                       cfg.lam, valid, self.total)
-        else:
-            X_flat = X.reshape(m * n_i, d)
-
-            def objective_of(w):
-                return obj.primal_objective_masked(w, X_flat, y_flat, cfg.lam, valid,
-                                                   self.total)
-        self.objective_of = objective_of
-        self.node_index = torch.arange(m, device=self.dev)[:, None]
-        self.row_mask = torch.ones((cfg.batch_size,), dtype=torch.float32, device=self.dev)
+        self.valid = (torch.arange(n_i, device=self.dev)[None, :] < counts_i[:, None]).reshape(-1)
         self.plan = DrawPlan(m, cfg.batch_size, cfg.gossip_rounds, cfg.topology, cfg.fused,
                              counts_i, cfg.faults)
         self.draws = GeneratorDraws(cfg.seed) if draws is None else draws
@@ -516,6 +552,9 @@ class _Run:
 
     def consensus_of(self, W: torch.Tensor) -> torch.Tensor:
         return (W * self.counts_f[:, None]).sum(dim=0) / self.total
+
+    def objective_of(self, w: torch.Tensor) -> torch.Tensor:
+        return self.data.objective(w, self.cfg.lam, self.valid, self.total)
 
     def _clean_rounds(self, t0: int, n: int) -> torch.Tensor:
         """A deterministic topology's clean rounds of iterations t0 … t0+n−1,
@@ -546,29 +585,13 @@ class _Run:
         """Steps (a)-(h) for all m nodes at iteration t; ``Bs`` the collapsed
         (m, m) product (fused) or the (R, m, m) rounds. Returns the new
         weights and the post-mix mass weights."""
-        cfg, X = self.cfg, self.X
+        cfg = self.cfg
         with region("gadget.step"):
             with region("gadget.gather"):
-                yb = self.y[self.node_index, ids]
-                if isinstance(X, tuple):  # the minibatch's ELL columns and values
-                    Xb = (X[0][self.node_index, ids], X[1][self.node_index, ids])
-                else:
-                    Xb = X[self.node_index, ids]
+                Xb, yb = self.data.gather(ids)
             with region("gadget.half_step"):
-                if isinstance(X, tuple):
-                    # sparse: the half-step is fleet-wide whether fused or not;
-                    # fused selects only the mixing below
-                    W_half = ops.ell_fleet_half_step(W, *Xb, yb, lam=cfg.lam, t=t,
-                                                     project=cfg.project_before_gossip,
-                                                     schedule=cfg.sparse_schedule,
-                                                     n_blocks_max=self.block_bound)
-                elif cfg.fused:
-                    W_half = ops.fleet_half_step(W, Xb, yb, lam=cfg.lam, t=t,
-                                                 project=cfg.project_before_gossip,
-                                                 row_mask=self.row_mask)
-                else:
-                    W_half = ops.unfused_fleet_half_step(W, Xb, yb, lam=cfg.lam, t=t,
-                                                         project=cfg.project_before_gossip)
+                W_half = self.data.half_step(W, Xb, yb, lam=cfg.lam, t=t,
+                                             project=cfg.project_before_gossip)
             mix = mix_collapsed if cfg.fused else mix_rounds
             pushed = W_half * self.counts_f[:, None]
             with region("gadget.mix"):
@@ -630,34 +653,16 @@ class _Run:
     def record_iterations(self, n_iters: int) -> None:
         """Registry accounting for ``n_iters`` finished iterations:
         ``train.iterations``, ``train.gossip_bytes`` and the kernel launches
-        the step made (``ops.record_launch``); on the prefetch schedule the
-        gauge ``kernel.tiles_per_block``, the run of W's tiles a block of
-        this run's fused half-step folds (0 on the CPU, where no kernel
-        runs). Host bookkeeping only."""
+        of the run's half-step route. Host bookkeeping only."""
         if n_iters <= 0:
             return
-        cfg, m, d, B = self.cfg, self.m, self.d, self.cfg.batch_size
+        cfg = self.cfg
         reg = tmr.default_registry()
         reg.counter("train.iterations").inc(n_iters)
         reg.counter("train.gossip_bytes").inc(
-            n_iters * _gossip_bytes_per_iter(cfg.topology, m, cfg.gossip_rounds, d))
-        if isinstance(self.X, tuple):
-            k = max(int(self.X[0].shape[-1]), 1)
-            schedule, blk_d, n_blocks_max = ops.resolve_ell_schedule(
-                cfg.sparse_schedule, B=B, k=k, d=d, n_blocks_max=self.block_bound)
-            kinds = (("ell_grad_update_fused",) if schedule == "prefetch"
-                     else ("ell_margins_coeff", "ell_grad_update"))
-            for kind in kinds:
-                ops.record_launch(kind, n_iters, registry=reg, m=m, B=B, k=k, d=d,
-                                  n_blocks_max=n_blocks_max, blk_d=blk_d)
-            if schedule == "prefetch":
-                reg.gauge("kernel.tiles_per_block", kernel="ell_grad_update_fused").set(
-                    ell_kernels.fused_tiles_per_block(m, B, d, -(-d // blk_d), self.dev))
-        elif cfg.fused:
-            ops.record_launch("fleet_half_step", n_iters, registry=reg, m=m, B=B, d=d)
-        else:
-            for kind in ("margins", "grad_update"):
-                ops.record_launch(kind, n_iters, registry=reg, m=m, B=B, d=d)
+            n_iters * _gossip_bytes_per_iter(cfg.topology, self.m, cfg.gossip_rounds, self.d))
+        for kind in ops.HALF_STEP_KINDS[self.data.route]:
+            ops.record_launch(kind, n_iters, registry=reg, **self.data.launch_shape)
 
 
 class _Rings:
@@ -741,12 +746,13 @@ class _Rings:
                                node_drops=self.ndrop.cpu().numpy() if per_node else None)
 
 
-def _zero_iteration_result(X_parts, y_parts, device, snap_every, snapshot_slots,
+def _zero_iteration_result(X_parts, y_parts, cfg, device, snap_every, snapshot_slots,
                            tele_cfg) -> GadgetResult:
     """The initial state (``cfg.max_iters <= 0``), with an empty ring and an
     empty trace when asked for, as the reference returns them."""
     dev = resolve_device(device)
-    _, _, m, _, d = _unpack_partitions(X_parts, y_parts, dev)
+    data = _partitions(X_parts, y_parts, cfg, dev)
+    m, d = data.m, data.d
     trace = None
     if tele_cfg:
         # W = 0 everywhere: disagreement is exactly 0, nothing recorded
@@ -898,8 +904,8 @@ def gadget_train(X_parts, y_parts, cfg: GadgetConfig = GadgetConfig(), *,
     tele_cfg = tmt.validate_telemetry(telemetry)
     snap_every = _validate_snapshotting(snapshot_every, snapshot_slots)
     if cfg.max_iters <= 0:  # zero-iteration call: the initial state
-        return _zero_iteration_result(X_parts, y_parts, device, snap_every, snapshot_slots,
-                                      tele_cfg)
+        return _zero_iteration_result(X_parts, y_parts, cfg, device, snap_every,
+                                      snapshot_slots, tele_cfg)
     run = _Run(X_parts, y_parts, cfg, n_counts, device, draws)
     cfg = run.cfg
     rings = (_Rings(run, snap_every, int(snapshot_slots), tele_cfg)

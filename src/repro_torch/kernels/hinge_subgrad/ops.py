@@ -26,6 +26,7 @@ from repro_torch.core.svm_objective import project_ball
 from repro_torch.kernels.hinge_subgrad import hinge_subgrad as K
 from repro_torch.kernels.hinge_subgrad import predict as P
 from repro_torch.kernels.hinge_subgrad import sparse as S
+from repro_torch.kernels.hinge_subgrad.sparse import ell_block_map
 from repro_torch.sparse.formats import DEFAULT_BUCKET_BLK_D
 from repro_torch.telemetry import registry as tmr
 
@@ -33,7 +34,7 @@ __all__ = ["step_scalars", "padded_row_mask", "local_half_step", "fleet_half_ste
            "unfused_fleet_half_step", "ell_fleet_half_step", "ell_block_map",
            "resolve_ell_schedule", "pegasos_step", "dense_predict", "ell_predict",
            "resolve_block_cap", "launch_cost", "record_launch", "DEFAULT_BLK_D_SPARSE",
-           "ELL_ONEHOT_BUDGET", "ELL_PREFETCH_BLK_D"]
+           "ELL_ONEHOT_BUDGET", "ELL_PREFETCH_BLK_D", "HALF_STEP_KINDS"]
 
 # The reference's sweep block width and its per-program one-hot budget: they
 # no longer shape a kernel here, but they decide, through
@@ -42,6 +43,12 @@ DEFAULT_BLK_D_SPARSE = 512
 ELL_ONEHOT_BUDGET = 4 * 1024 * 1024
 # block width of the touched-block (prefetch) schedule, the formats' bucket width
 ELL_PREFETCH_BLK_D = DEFAULT_BUCKET_BLK_D
+# The kinds (``launch_cost``'s) a call of each half-step route launches: the
+# dispatch below follows it, the trainer accounts by it. Above MAX_FLEET_B the
+# fused route's ``fleet_half_step`` cost counts its margins + grad_update.
+HALF_STEP_KINDS = {"fused": ("fleet_half_step",), "unfused": ("margins", "grad_update"),
+                   "prefetch": ("ell_grad_update_fused",),
+                   "sweep": ("ell_margins_coeff", "ell_grad_update")}
 
 
 def step_scalars(lam: float, t: int, B: int) -> tuple[float, float]:
@@ -113,36 +120,6 @@ def _ell_blk_d(d_pad: int, Bk: int) -> int:
     while blk > 128 and Bk * blk * 4 > ELL_ONEHOT_BUDGET:
         blk = max(128, blk // 2 // 128 * 128)
     return blk
-
-
-def ell_block_map(cols: torch.Tensor, vals: torch.Tensor, *, blk_d: int,
-                  n_d_blocks: int, n_blocks_max: int) -> torch.Tensor:
-    """Compact per-node touched-block-id map, on the planes' device with no
-    host sync: the twin of ``repro_torch.sparse.formats.block_map``.
-
-    cols/vals: (m, B, k) minibatch planes → (m, n_blocks_max) int32 with each
-    node's distinct live d-block ids ascending, then the sentinel
-    ``n_d_blocks``. Pad entries (val = 0) mark nothing.
-
-    Caller contract: ``n_blocks_max`` must be ≥ the realized live count
-    (``formats.minibatch_block_bound`` is sound for every drawable
-    minibatch). An undersized cap silently drops the highest live ids, and
-    the kernels then lose those blocks' entries, as in the reference; the
-    host twin raises on the same input.
-    """
-    m = cols.shape[0]
-    blk = torch.where(vals != 0, cols.long() // blk_d, n_d_blocks).reshape(m, -1)
-    touched = torch.zeros((m, n_d_blocks + 1), dtype=torch.bool, device=cols.device)
-    touched.scatter_(1, blk, True)  # column n_d_blocks collects the pads: dropped
-    ids = torch.where(touched[:, :n_d_blocks],
-                      torch.arange(n_d_blocks, dtype=torch.int32, device=cols.device),
-                      n_d_blocks)
-    ids = torch.sort(ids, dim=1).values.to(torch.int32)
-    if n_d_blocks < n_blocks_max:  # fewer real blocks than map slots: all live
-        pad = torch.full((m, n_blocks_max - n_d_blocks), n_d_blocks, dtype=torch.int32,
-                         device=cols.device)
-        return torch.cat([ids, pad], dim=1)
-    return ids[:, :n_blocks_max].contiguous()
 
 
 def resolve_ell_schedule(schedule: str, *, B: int, k: int, d: int,

@@ -16,9 +16,10 @@ An entry whose column lies outside [0, d) adds nothing.
 
 The prefetch pair takes ``block_ids`` (m, n_blocks_max) int32, each row a
 node's live d-block ids (blocks of ``blk_d`` columns) followed by the
-sentinel ``n_d_blocks``. An entry counts only when its block is in its
-node's row, as on the TPU: with a sound cap that is every live entry, with
-an undersized cap the dropped blocks' entries are lost.
+sentinel ``n_d_blocks``; :func:`ell_block_map` builds it on the device. An
+entry counts only when its block is in its node's row, as on the TPU: with
+a sound cap that is every live entry, with an undersized cap the dropped
+blocks' entries are lost.
 
 Each function takes its plain PyTorch version (``*_plain``) for tensors on
 the CPU, and launches its CUDA kernel for tensors on a CUDA device after
@@ -44,7 +45,7 @@ __all__ = ["ell_margins", "ell_margins_coeff", "ell_grad_update", "ell_margins_p
            "ell_margins_prefetch_coeff_plain",
            "ell_grad_update_prefetch_plain", "ell_grad_update_prefetch_fold_plain",
            "ell_grad_update_fused", "fused_grid", "fused_tiles_per_block", "fold_buckets",
-           "MAX_BLK_D"]
+           "ell_block_map", "MAX_BLK_D"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "sparse.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -107,6 +108,38 @@ def _in_map(cols: torch.Tensor, block_ids: torch.Tensor, blk_d: int,
     table[:, n_d_blocks] = False  # the sentinel marks nothing
     blk = (cols.long() // blk_d).clamp(0, n_d_blocks).reshape(m, -1)
     return torch.gather(table, 1, blk).reshape(cols.shape)
+
+
+def ell_block_map(cols: torch.Tensor, vals: torch.Tensor, *, blk_d: int,
+                  n_d_blocks: int, n_blocks_max: int) -> torch.Tensor:
+    """Compact per-node touched-block-id map, in plain PyTorch on the planes'
+    device with no host sync: the twin of
+    ``repro_torch.sparse.formats.block_map`` (also ``ops.ell_block_map``).
+
+    cols/vals: (m, B, k) minibatch planes → (m, n_blocks_max) int32 with each
+    node's distinct live d-block ids ascending, then the sentinel
+    ``n_d_blocks``. Pad entries (val = 0) mark nothing.
+
+    Caller contract: ``n_blocks_max`` must be ≥ the realized live count
+    (``formats.minibatch_block_bound`` is sound for every drawable
+    minibatch). An undersized cap silently drops the highest live ids, and
+    the kernels then lose those blocks' entries, as in the reference; the
+    host twin raises on the same input.
+    """
+    m = cols.shape[0]
+    blk = torch.where(vals != 0, cols.long() // blk_d, n_d_blocks).reshape(m, -1)
+    touched = torch.zeros((m, n_d_blocks + 1), dtype=torch.bool, device=cols.device)
+    touched.scatter_(1, blk, True)  # column n_d_blocks collects the pads: dropped
+    ids = torch.where(touched[:, :n_d_blocks],
+                      torch.arange(n_d_blocks, dtype=torch.int32, device=cols.device),
+                      n_d_blocks)
+    ids = torch.sort(ids, dim=1).values.to(torch.int32)
+    if n_d_blocks < n_blocks_max:  # fewer real blocks than map slots: all live
+        pad = torch.full((m, n_blocks_max - n_d_blocks), n_d_blocks, dtype=torch.int32,
+                         device=cols.device)
+        return torch.cat([ids, pad], dim=1)
+    return ids[:, :n_blocks_max].contiguous()
+
 
 
 # ---------------------------------------------------------------- ell_margins
@@ -468,7 +501,7 @@ def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tenso
     and violator coefficients over the entries in the map, and W_half =
     (1 − s0)·W + s1·their scatter at the map's lanes. W: (m, d), y: (m, B),
     ``scal`` = (λα, α/B). Returns W_half (m, d), bit for bit
-    ``ops.ell_block_map``, :func:`ell_margins_prefetch_coeff` and
+    :func:`ell_block_map`, :func:`ell_margins_prefetch_coeff` and
     :func:`ell_grad_update_prefetch_fold` in turn, which is what it runs on
     the CPU. The bitmap of the d-blocks, one bit per tile of W and the B
     coefficients share a block's shared memory, which bounds B (about
@@ -485,7 +518,6 @@ def ell_grad_update_fused(cols: torch.Tensor, vals: torch.Tensor, W: torch.Tenso
     The last launch's run is kept as ``ell_grad_update_fused.tiles_per_block``
     (0 before the first launch)."""
     if _build.on_cpu(cols, vals, W, y):
-        from repro_torch.kernels.hinge_subgrad.ops import ell_block_map
         bids = ell_block_map(cols, vals, blk_d=blk_d, n_d_blocks=n_d_blocks,
                              n_blocks_max=n_blocks_max)
         _, coeff = ell_margins_prefetch_coeff(cols, vals, W, y, bids, blk_d=blk_d,

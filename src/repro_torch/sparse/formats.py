@@ -15,7 +15,8 @@ host: :func:`row_block_counts` and :func:`minibatch_block_bound` give the
 static ``n_blocks_max`` cap (sound for every minibatch the trainer can
 draw), and :func:`block_map` builds the compact (m, n_blocks_max) map of
 each node's distinct live d-blocks followed by the sentinel ``n_d_blocks``;
-``repro_torch.kernels.hinge_subgrad.ops.ell_block_map`` is its device twin.
+``repro_torch.kernels.hinge_subgrad.sparse.ell_block_map`` is its device
+twin.
 :func:`bucket_by_block` sorts a minibatch's entries by d-block
 (:class:`BlockBuckets`, the layout that counts blocks per schedule), and
 :func:`frequency_remap` ranks columns by document frequency so hot columns
@@ -310,7 +311,7 @@ def block_map(cols: np.ndarray, vals: np.ndarray, blk_d: int, n_d_blocks: int,
     cols/vals → ``(m, n_blocks_max)`` int32, each row the node's distinct
     live d-block ids ascending, then the sentinel ``n_d_blocks``. Raises if a
     node touches more than ``n_blocks_max`` blocks (the device twin
-    ``ops.ell_block_map`` drops the highest ids instead)."""
+    ``hinge_subgrad.sparse.ell_block_map`` drops the highest ids instead)."""
     cols = np.asarray(cols)
     m = cols.shape[0]
     blocks = _entry_blocks(cols.reshape(m, -1), np.asarray(vals).reshape(m, -1),

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import gadget as TG  # noqa: E402
 from repro_torch.core.svm_objective import project_ball  # noqa: E402
+from repro_torch.kernels.hinge_subgrad import hinge_subgrad as TK  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import ops as TO  # noqa: E402
 from repro_torch.kernels.hinge_subgrad import sparse as TS  # noqa: E402
 from repro_torch.sparse.formats import minibatch_block_bound  # noqa: E402
@@ -117,17 +118,19 @@ def _fused(cols, vals, W, y, scal, *, blk_d, n_blocks_max):
 # ----------------------------------------------------------------- the CPU
 
 def _spy(monkeypatch, names):
-    """Record the calls of the sparse entries ``names`` (in order) in the
-    returned list; each still runs."""
+    """Record the calls of the kernel entries ``names`` (in order; the
+    sparse ``ell_*`` entries and the dense ones) in the returned list; each
+    still runs."""
     calls = []
 
     def counted(name):
-        entry = getattr(TS, name)
+        owner = TS if name.startswith("ell_") else TK
+        entry = getattr(owner, name)
 
         def call(*args, **kwargs):
             calls.append(name)
             return entry(*args, **kwargs)
-        monkeypatch.setattr(TS, name, call)
+        monkeypatch.setattr(owner, name, call)
     for name in names:
         counted(name)
     return calls
@@ -204,33 +207,54 @@ class _Ell:
         self.cols, self.vals, self.d = cols, vals, d
 
 
-@pytest.mark.parametrize("route", ["fused", "fused_b8", "sweep"])
-def test_record_iterations_accounts_the_route(route):
-    """``kernel.launches`` names the fused kind once an iteration at the
-    prefetch schedule, at B = 1 and B = 8, and the sweep's two kinds for
-    the sweep; the prefetch pair's kinds never."""
-    cols, vals, _, y = _planes(3, 20, 6, 300, seed=5, pad_row=False)
-    B = 8 if route == "fused_b8" else 1
+@pytest.mark.parametrize("route,B", [
+    ("fused", 1), ("unfused", 1), ("above_cap", 4), ("prefetch", 1), ("prefetch", 8),
+    ("sweep", 1)], ids=["dense_fused", "dense_unfused", "dense_above_cap", "prefetch",
+                        "prefetch_b8", "sweep"])
+def test_record_iterations_accounts_the_route(monkeypatch, route, B):
+    """Every half-step route launches what ``kernel.launches`` records: the
+    step calls the kernel entries of ``ops.HALF_STEP_KINDS[route]`` once an
+    iteration each, and no other; the prefetch pair's kinds are never
+    recorded. Above ``hinge_subgrad.MAX_FLEET_B`` (lowered here) the fused
+    dense route calls ``margins`` and ``grad_update`` and records
+    ``fleet_half_step``, whose ``launch_cost`` counts those two launches."""
+    # every kernel entry a half-step route can call, whatever the table says
+    kinds = ["fleet_half_step", "margins", "grad_update", "ell_margins_coeff", "ell_grad_update",
+             "ell_grad_update_fused"]
+    pair = ["ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"]
+    calls = _spy(monkeypatch, kinds)
+    m, d, iters = 3, 300, 6
+    cols, vals, _, y = _planes(m, 20, 6, d, seed=5, pad_row=False)
+    if route in ("fused", "unfused", "above_cap"):
+        X = np.zeros((m, 20, d), np.float32)
+        np.add.at(X, (np.arange(m)[:, None, None], np.arange(20)[None, :, None], cols), vals)
+    else:
+        X = _Ell(cols, vals, d)
+    if route == "above_cap":
+        monkeypatch.setattr(TK, "MAX_FLEET_B", B - 1)
     cfg = TG.GadgetConfig(lam=1e-2, batch_size=B, gossip_rounds=2, topology="random",
-                          epsilon=0.0, check_every=3, max_iters=6, seed=1,
+                          epsilon=0.0, check_every=3, max_iters=iters, seed=1,
+                          fused=route != "unfused",
                           sparse_schedule="sweep" if route == "sweep" else "prefetch")
     ttm.reset()
     try:
-        TG.gadget_train(_Ell(cols, vals, 300), y, cfg, device="cpu")
+        TG.gadget_train(X, y, cfg, device="cpu")
         reg = ttm.default_registry()
-        kinds = {"prefetch": ("ell_grad_update_fused",),
-                 "pair": ("ell_margins_prefetch_coeff", "ell_grad_update_prefetch_fold"),
-                 "sweep": ("ell_margins_coeff", "ell_grad_update")}
-        ran = "sweep" if route == "sweep" else "prefetch"
-        for r, names in kinds.items():
-            for kind in names:
-                want = 6 if r == ran else 0
-                assert reg.value("kernel.launches", kernel=kind) == want, kind
-        if ran == "prefetch":
-            assert reg.value("kernel.bytes", kernel="ell_grad_update_fused") == 6 * TO.launch_cost(
-                "ell_grad_update_fused", m=3, B=B, k=6, d=300)["bytes"]
+        recorded = {kind: reg.value("kernel.launches", kernel=kind) for kind in kinds + pair}
+        fused_bytes = reg.value("kernel.bytes", kernel="ell_grad_update_fused")
     finally:
         ttm.reset()
+    ran = TO.HALF_STEP_KINDS["unfused" if route == "above_cap" else route]
+    called = {kind: calls.count(kind) for kind in kinds}
+    assert called == {kind: iters * (kind in ran) for kind in kinds}
+    assert sum(recorded.values()) == sum(called.values())
+    if route == "above_cap":
+        assert recorded == {kind: 2 * iters * (kind == "fleet_half_step") for kind in kinds + pair}
+    else:
+        assert recorded == dict(called, **{kind: 0 for kind in pair})
+    if route == "prefetch":
+        assert fused_bytes == iters * TO.launch_cost("ell_grad_update_fused", m=m, B=B, k=6,
+                                                     d=d)["bytes"]
 
 
 @pytest.mark.parametrize("m,d,resident,want", [
@@ -249,41 +273,6 @@ def test_fused_grid_rule(m, d, resident, want):
     per_node = -(-tiles // tiles_per_block)  # the blocks the kernel launches a node
     assert (per_node - 1) * tiles_per_block < tiles <= per_node * tiles_per_block
     assert per_node <= max(1, resident // m)
-
-
-@pytest.mark.parametrize("schedule,card", [("prefetch", True), ("prefetch", False),
-                                           ("sweep", True)],
-                         ids=["prefetch_card", "prefetch_cpu", "sweep"])
-def test_record_iterations_sets_the_tiles_gauge(monkeypatch, schedule, card):
-    """``record_iterations`` sets ``kernel.tiles_per_block`` on the prefetch
-    schedule from ``sparse.fused_tiles_per_block`` at the run's own shape
-    and device (a card's answer stood in for by a fake; on the CPU 0, where
-    no kernel runs), and leaves it unset on the sweep's."""
-    m, B, k, d = 3, 1, 6, 300
-    asked = []
-    if card:
-        def fake(*args):
-            asked.append(args)
-            return 250
-        monkeypatch.setattr(TS, "fused_tiles_per_block", fake)
-    cols, vals, _, y = _planes(m, 20, k, d, seed=6, pad_row=False)
-    cfg = TG.GadgetConfig(lam=1e-2, batch_size=B, gossip_rounds=2, topology="random",
-                          epsilon=0.0, check_every=3, max_iters=6, seed=1,
-                          sparse_schedule=schedule)
-    ttm.reset()
-    try:
-        TG.gadget_train(_Ell(cols, vals, d), y, cfg, device="cpu")
-        gauge = ttm.default_registry().get("kernel.tiles_per_block",
-                                           kernel="ell_grad_update_fused")
-        if schedule == "sweep":
-            assert gauge is None and not asked
-        else:
-            assert gauge.kind == "gauge" and gauge.value == (250 if card else 0)
-            if card:
-                _, blk_d, _ = TO.resolve_ell_schedule("prefetch", B=B, k=k, d=d)
-                assert set(asked) == {(m, B, d, -(-d // blk_d), torch.device("cpu"))}
-    finally:
-        ttm.reset()
 
 
 # ---------------------------------------------------------------- the card
